@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
+source, all at once), holds each kernel against its plain PyTorch version on
+the card, then drives the paper's running example — TPC-H V.1 MIN/MAX and
+COUNT (0MA semi-join sweeps) and MEDIAN (Opt⁺ FreqJoin sweep with
+pre-grouping) — through ``plan_query`` and ``Executor.execute`` /
+``Executor.compile`` at ``make_tpch_db(scale=100000)``, which has TPC-H
+SF10's supplier (100k), part (2M) and partsupp (8M) cardinalities.  Answers
+are held exactly against an independent numpy evaluation of V.1, and every
+kernel's launch count over that run must be positive.
+
+Prints the card's name and power limit, one JSON line per query with its
+times, one per query with its device time by kernel from ``torch.profiler``,
+one JSON line ``{"kernels": [...]}`` with each kernel's time, bound and
+plain-version time, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
+line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SCALE = 100_000            # supplier 100k, part 2M, partsupp 8M rows
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+EPS32 = float(np.finfo(np.float32).eps)
+QUERIES = ("minmax", "count", "median")
+COMPILED_RUNS = 3
+TIMING_REPS = 20
+
+KERNEL_META = {
+    "semi_join": ("src/repro_torch/kernels/csrc/freq_join.cu",
+                  "src/repro/kernels/semi_join.py:56"),
+    "freq_join": ("src/repro_torch/kernels/csrc/freq_join.cu",
+                  "src/repro/kernels/freq_join.py:84"),
+    "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
+                    "src/repro/kernels/segment_sum.py:79"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+def time_ms(torch, fn, reps: int = TIMING_REPS, warm: int = 3) -> float:
+    """Median device time of one call of ``fn``, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def join_bytes(np_: int, nc: int) -> int:
+    # pk, pf read and out written (4 B each per parent row); ck, cf read
+    return 12 * np_ + 8 * nc
+
+
+def segsum_bytes(n: int) -> int:
+    # keys, values read and sums written (4 B each), valid written (1 B)
+    return 13 * n
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# ---------------------------------------------------------------------------
+# kernel versus plain version
+# ---------------------------------------------------------------------------
+def compare(torch, name: str, got, want, tol) -> float:
+    """Max |got - want|; int tensors must be equal, float within ``tol``
+    (a scalar or one bound per element)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: shape/dtype {tuple(got.shape)}/{got.dtype} vs "
+          f"{tuple(want.shape)}/{want.dtype}")
+    if not got.dtype.is_floating_point:
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        check(bool(torch.equal(got, want)), f"{name}: not bitwise equal "
+              f"(max |diff| {err})")
+        return err
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    tol_t = torch.as_tensor(tol, dtype=torch.float64, device=diff.device)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(bool((diff <= tol_t).all()), f"{name}: max |diff| {err} above the "
+          "stated tolerance")
+    return err
+
+
+def join_tolerance(torch, pf, cf):
+    """float32 FreqJoin: the plain version takes differences of a float32
+    prefix sum over the whole sorted child, so each result carries the
+    rounding of that prefix: bound 4·eps·Σ|cf|·|pf|.  Zero for ints."""
+    if not pf.dtype.is_floating_point:
+        return 0.0
+    return 4 * EPS32 * float(cf.abs().double().sum()) * pf.abs().double()
+
+
+def segsum_tolerance(torch, plain_ss, keys, vals):
+    """float32 segment sum: both versions add a run in different orders, so
+    a run's total may differ by len·eps·Σ|v| over the run.  Zero for ints."""
+    if not vals.dtype.is_floating_point:
+        return 0.0
+    abs_sum, _ = plain_ss(keys, vals.abs())
+    length, _ = plain_ss(keys, torch.ones_like(vals))
+    return 2 * EPS32 * length.double() * abs_sum.double()
+
+
+def check_join(torch, kern, plain, errs, tag, pk, pf, ck, cf):
+    got = kern(pk, pf, ck, cf)
+    want = plain(pk, pf, ck, cf)
+    torch.cuda.synchronize()
+    errs.append(compare(torch, tag, got, want, join_tolerance(torch, pf, cf)))
+
+
+def check_segsum(torch, kern, plain, errs, tag, keys, vals):
+    got_s, got_v = kern(keys, vals)
+    want_s, want_v = plain(keys, vals)
+    torch.cuda.synchronize()
+    errs.append(compare(torch, tag + " valid", got_v, want_v, 0.0))
+    errs.append(compare(torch, tag + " sums", got_s, want_s,
+                        segsum_tolerance(torch, plain, keys, vals)))
+
+
+def synthetic_cases(torch, make_graph_db, dev):
+    """Ragged sizes, negative and extreme keys, int32 wrap-around, and a
+    zipf-skewed key column from ``make_graph_db``."""
+    rng = np.random.default_rng(SEED + 1)
+    i32 = np.iinfo(np.int32)
+    cases = []
+    for np_, nc in ((1, 1), (1000, 37), (4097, 1023), (100_003, 7),
+                    (37, 262_147)):
+        pk = rng.integers(-50, 50, np_).astype(np.int32)
+        ck = rng.integers(-50, 50, nc).astype(np.int32)
+        pk[: min(3, np_)] = [i32.min, i32.max, -1][: min(3, np_)]
+        ck[: min(3, nc)] = [i32.max, -1, i32.min][: min(3, nc)]
+        cases.append((f"ragged {np_}x{nc}", pk, ck,
+                      rng.integers(0, 4, np_), rng.integers(-2, 4, nc)))
+    # int32 wrap-around: frequencies over the whole int32 range
+    pk = rng.integers(0, 64, 50_000).astype(np.int32)
+    ck = rng.integers(0, 64, 70_001).astype(np.int32)
+    cases.append(("wrap", pk, ck, rng.integers(i32.min, i32.max, 50_000),
+                  rng.integers(i32.min, i32.max, 70_001)))
+    db, _ = make_graph_db(1 << 20, 1 << 22, seed=SEED, device=dev)
+    src = db["edge"].columns["src"].cpu().numpy()    # zipf-skewed
+    dst = db["edge"].columns["dst"].cpu().numpy()
+    cases.append(("zipf", dst, src, rng.integers(0, 4, dst.shape[0]),
+                  rng.integers(0, 4, src.shape[0])))
+    out = []
+    for tag, pk, ck, pf, cf in cases:
+        t = [torch.tensor(a, device=dev) for a in (pk, ck)]
+        for dt in (torch.int32, torch.float32):
+            if tag == "wrap" and dt == torch.float32:
+                continue
+            npdt = np.int32 if dt == torch.int32 else np.float32
+            out.append((f"{tag} {str(dt)[6:]}", t[0],
+                        torch.tensor(pf.astype(npdt), device=dev),
+                        t[1], torch.tensor(cf.astype(npdt), device=dev)))
+        if tag == "ragged 1000x37":
+            # real-valued float32 frequencies
+            out.append((f"{tag} float32 real", t[0],
+                        torch.tensor(rng.random(pk.shape[0], np.float32) * 3,
+                                     device=dev),
+                        t[1],
+                        torch.tensor(rng.random(ck.shape[0], np.float32) * 3
+                                     - 1, device=dev)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the numpy oracle of V.1
+# ---------------------------------------------------------------------------
+def v1_oracle(h, regions=(2, 3), price_threshold=1200.0):
+    """V.1 over host copies of the tables, with no code of the port.
+
+    Every partsupp row joins one part, one supplier, one nation and one
+    region, so a partsupp row survives iff its part passes the price filter
+    and its supplier's nation lies in a selected region."""
+    live_rk = h["region"]["r_regionkey"][np.isin(h["region"]["r_name"],
+                                                 regions)]
+    live_nk = h["nation"]["n_nationkey"][np.isin(h["nation"]["n_regionkey"],
+                                                 live_rk)]
+    s_key = h["supplier"]["s_suppkey"]
+    live_sk = s_key[np.isin(h["supplier"]["s_nationkey"], live_nk)]
+    live_pk = h["part"]["p_partkey"][h["part"]["p_price"] > price_threshold]
+    ps = h["partsupp"]
+    ok = np.isin(ps["ps_partkey"], live_pk) & np.isin(ps["ps_suppkey"],
+                                                      live_sk)
+    count = int(ok.sum())
+    # surviving partsupp rows per supplier, read in supplier row order
+    sk_sorted = np.sort(ps["ps_suppkey"][ok])
+    per_supp = (np.searchsorted(sk_sorted, s_key, side="right")
+                - np.searchsorted(sk_sorted, s_key, side="left"))
+    has = per_supp > 0
+    bal = h["supplier"]["s_acctbal"][has]
+    w = per_supp[has].astype(np.int64)
+    order = np.argsort(bal, kind="stable")
+    cw = np.cumsum(w[order])
+    # lower weighted median: first value whose cumulative weight reaches
+    # half the total, i.e. 2·cw >= total
+    median = bal[order][np.searchsorted(2 * cw, cw[-1], side="left")]
+    return {"minmax": {"min(bal)": bal.min(), "max(bal)": bal.max()},
+            "count": {"count(*)": count},
+            "median": {"median(bal)": median}}
+
+
+def profile_run(torch, fn, db) -> dict:
+    """Device time by kernel name over one compiled run, from
+    ``torch.profiler``: device-side events only (a CPU op's row repeats the
+    time of the kernels it launched).  The idle share is the part of the
+    profiled run's wall time with no device work recorded, profiler
+    overhead included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(db)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(db)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((ev.key, ev.self_device_time_total / 1e3, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"profiled_wall_ms": wall_ms, "device_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "top": [[k[:60], ms, n] for k, ms, n in rows[:8]]}
+
+
+def answers_equal(got: dict, want: dict) -> bool:
+    for k, v in want.items():
+        g = got[k].cpu().numpy()
+        if g.shape != () or g.item() != np.asarray(v).item():
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import Executor, plan_query
+    from repro_torch.data import make_graph_db, make_tpch_db, tpch_v1_query
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import freq_join as fj
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.kernels import semi_join as sj
+
+    dev = "cuda"
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"setup: built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    db, schema = make_tpch_db(scale=SCALE, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"setup: make_tpch_db(scale={SCALE}) in "
+        f"{time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{r} {t.capacity}" for r, t in db.items()))
+    plans = {q: plan_query(tpch_v1_query(q), schema) for q in QUERIES}
+    log("plans: " + ", ".join(f"{q} {p.mode}" for q, p in plans.items()))
+
+    # -- the inputs the main path hands each kernel, recorded on one run --
+    kernels = {"semi_join": (sj, "semi_join_cuda", sj.K1),
+               "freq_join": (fj, "freq_join_cuda", fj.K2),
+               "segment_sum": (ss, "segment_sum_cuda", ss.K3)}
+    calls = {name: [] for name in kernels}
+    originals = {name: getattr(mod, attr)
+                 for name, (mod, attr, _) in kernels.items()}
+
+    def recorder(name):
+        def rec(*args):
+            calls[name].append(args)
+            return originals[name](*args)
+        return rec
+
+    for name, (mod, attr, _) in kernels.items():
+        setattr(mod, attr, recorder(name))
+    try:
+        for q in QUERIES:
+            Executor(db, schema).execute(plans[q])
+    finally:
+        for name, (mod, attr, _) in kernels.items():
+            setattr(mod, attr, originals[name])
+    torch.cuda.synchronize()
+
+    # -- each kernel against its plain version, timed, on those inputs ----
+    plain = {"semi_join": sj.semi_join_plain,
+             "freq_join": fj.freq_join_plain,
+             "segment_sum": ss.segment_sum_plain}
+    kern = {"semi_join": sj.semi_join_cuda, "freq_join": fj.freq_join_cuda,
+            "segment_sum": ss.segment_sum_cuda}
+    errs = {name: [] for name in kernels}
+    timing = {name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+              for name in kernels}
+    for name, cl in calls.items():
+        check(len(cl) > 0, f"main path made no {name} call")
+        for i, args in enumerate(cl):
+            if name == "segment_sum":
+                check_segsum(torch, kern[name], plain[name], errs[name],
+                             f"{name} call {i}", *args)
+                nbytes = segsum_bytes(args[0].shape[0])
+                shape = [args[0].shape[0]]
+            else:
+                check_join(torch, kern[name], plain[name], errs[name],
+                           f"{name} call {i}", *args)
+                nbytes = join_bytes(args[0].shape[0], args[2].shape[0])
+                shape = [args[0].shape[0], args[2].shape[0]]
+            k_ms = time_ms(torch, lambda: kern[name](*args))
+            p_ms = time_ms(torch, lambda: plain[name](*args))
+            timing[name]["ms"] += k_ms
+            timing[name]["plain_ms"] += p_ms
+            timing[name]["bytes"] += nbytes
+            log(json.dumps({"call": name, "index": i, "shape": shape,
+                            "ms": k_ms, "plain_ms": p_ms,
+                            "bound_ms": bound_ms(nbytes)}))
+    for tag, pk, pf, ck, cf in synthetic_cases(torch, make_graph_db, dev):
+        check_join(torch, sj.semi_join_cuda, sj.semi_join_plain,
+                   errs["semi_join"], f"semi_join {tag}", pk, pf, ck, cf)
+        check_join(torch, fj.freq_join_cuda, fj.freq_join_plain,
+                   errs["freq_join"], f"freq_join {tag}", pk, pf, ck, cf)
+        keys = torch.sort(ck).values
+        check_segsum(torch, ss.segment_sum_cuda, ss.segment_sum_plain,
+                     errs["segment_sum"], f"segment_sum {tag}", keys, cf)
+    log("kernels equal their plain versions: int32 bitwise, float32 within "
+        "the stated bounds")
+
+    # -- the main path, counted ------------------------------------------
+    oracle = v1_oracle({r: {c: t.cpu().numpy() for c, t in tab.columns.items()}
+                        for r, tab in db.items()})
+    for _, _, k in kernels.values():
+        k.launches = 0
+    query_lines = []
+    for q in QUERIES:
+        ex = Executor(db, schema)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.execute(plans[q])
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        fn = ex.compile(plans[q])
+        run_s = []
+        for _ in range(COMPILED_RUNS):
+            t0 = time.perf_counter()
+            out = fn(db)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+        want = oracle[q]
+        check(answers_equal(res, want), f"{q} execute: {res} != {want}")
+        check(answers_equal(out, want), f"{q} compile: {out} != {want}")
+        query_lines.append({
+            "query": q, "mode": plans[q].mode,
+            "answer": {k: np.asarray(v).item() for k, v in want.items()},
+            "execute_ms": exec_s * 1e3,
+            "compiled_ms": [s * 1e3 for s in run_s],
+            "peak_live_tuples": res["__stats__"].peak_tuples})
+    launches = {name: k.launches for name, (_, _, k) in kernels.items()}
+    for name, n in launches.items():
+        check(n > 0, f"the main path launched {name} no time")
+    log(f"main path launches: {launches}")
+
+    for line in query_lines:
+        log(json.dumps(line))
+    for q in QUERIES:
+        prof = profile_run(torch, Executor(db, schema).compile(plans[q]), db)
+        log(json.dumps({"profile": q, **prof}))
+    rows = []
+    for name in kernels:
+        source, replaces = KERNEL_META[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": max(errs[name]),
+                     "ms": timing[name]["ms"],
+                     "plain_ms": timing[name]["plain_ms"],
+                     "bound_ms": bound_ms(timing[name]["bytes"]),
+                     "bound_by": "bytes", "library_ms": None,
+                     "calls_timed": len(calls[name])})
+    log(smi)
+    log(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+from repro_torch.data.relational import (
+    make_graph_db,
+    make_tpch_db,
+    path_query,
+    star_query,
+    tpch_v1_query,
+    tree_query,
+)
+
+__all__ = [
+    "make_graph_db",
+    "make_tpch_db",
+    "path_query",
+    "star_query",
+    "tpch_v1_query",
+    "tree_query",
+]
