@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once), holds each kernel against its plain PyTorch version on
@@ -11,18 +11,32 @@ pre-grouping) — through ``plan_query`` and ``Executor.execute`` /
 ``Executor.compile`` at ``make_tpch_db(scale=100000)``, which has TPC-H
 SF10's supplier (100k), part (2M) and partsupp (8M) cardinalities.  Answers
 are held exactly against an independent numpy evaluation of V.1, and every
-kernel's launch count over that run must be positive.
+kernel's launch count over that run must be positive, as must the count of
+each path of the hash join (the table on the child side, on the parent
+side, or in shared memory) for K1 and K2.
 
-Prints the card's name and power limit, one JSON line per query with its
-times, one per query with its device time by kernel from ``torch.profiler``,
-one JSON line ``{"kernels": [...]}`` with each kernel's time, bound and
-plain-version time, and as its last line
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
-line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
+The kernels are held against their plain versions at the main path's
+inputs and on synthetic cases that reach every path: key −1 (the hash
+table's empty marker) in either side, int32's extremes, repeated parent
+keys, empty sides, int32 wrap-around and zipf-skewed keys.  K1 is timed
+beside ``torch.isin``, its library yardstick, and each K1/K2 main-path call
+is split into its phases (fill, build, probe, gather) by CUDA events; with
+``--parent DIR``, an unpacked earlier tree, that tree's ``freq_join.cu`` is
+built and timed the same way on the same inputs, in turns.
+
+Prints the card's name and power limit, one JSON line per kernel call and
+per phase split, one JSON line per query with its times, one per query with
+its device time by kernel from ``torch.profiler``, one JSON line
+``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
+library time, and as its last line ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero without that line.  Needs a CUDA GPU of compute
+capability 9.0 (sm_90a) and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -39,6 +53,7 @@ EPS32 = float(np.finfo(np.float32).eps)
 QUERIES = ("minmax", "count", "median")
 COMPILED_RUNS = 3
 TIMING_REPS = 20
+SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's clock: time to enqueue a call
 
 KERNEL_META = {
     "semi_join": ("src/repro_torch/kernels/csrc/freq_join.cu",
@@ -66,21 +81,38 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
-def time_ms(torch, fn, reps: int = TIMING_REPS, warm: int = 3) -> float:
-    """Median device time of one call of ``fn``, by CUDA events."""
+def time_ms(torch, fn, reps: int = TIMING_REPS, warm: int = 3,
+            queued: bool = False) -> float:
+    """Median time of one call of ``fn``, by CUDA events (``split_ms``)."""
+    return statistics.median(split_ms(torch, [fn], reps, warm, queued)[0])
+
+
+def split_ms(torch, steps, reps: int = TIMING_REPS, warm: int = 3,
+             queued: bool = False):
+    """Time of each of ``steps``, callables run back to back on one stream,
+    by CUDA events recorded between them: one list of ``reps`` times per
+    step.  Unqueued, a step's time includes the host's time to launch it
+    whenever the card waits for the host, as it does for a small call.
+    ``queued`` first holds the card in a spin kernel long enough for the
+    host to enqueue every step, so the events time the device alone."""
     for _ in range(warm):
-        fn()
+        for step in steps:
+            step()
     torch.cuda.synchronize()
-    times = []
+    times = [[] for _ in steps]
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(steps) + 1)]
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        for step, e in zip(steps, ev[1:]):
+            step()
+            e.record()
+        ev[-1].synchronize()
+        for k, t in enumerate(times):
+            t.append(ev[k].elapsed_time(ev[k + 1]))
+    return times
 
 
 def join_bytes(np_: int, nc: int) -> int:
@@ -145,6 +177,93 @@ def check_join(torch, kern, plain, errs, tag, pk, pf, ck, cf):
     want = plain(pk, pf, ck, cf)
     torch.cuda.synchronize()
     errs.append(compare(torch, tag, got, want, join_tolerance(torch, pf, cf)))
+    return got
+
+
+def isin_ms(torch, i, pk, pf, ck, cf) -> float:
+    """K1's library yardstick: ``torch.isin(pk, ck)`` at the call's shapes
+    (the membership test at the semi-join's core, without the live filter
+    and the multiply), timed; the same call on the live child keys, times
+    ``pf``, is held against the plain semi-join first."""
+    from repro_torch.kernels.semi_join import semi_join_plain
+    got = pf * torch.isin(pk, ck[cf > 0]).to(pf.dtype)
+    compare(torch, f"torch.isin semi_join call {i}", got,
+            semi_join_plain(pk, pf, ck, cf), 0.0)
+    return time_ms(torch, lambda: torch.isin(pk, ck))
+
+
+def phase_line(name, i, args, version, side, slots, table_bytes, phases,
+               times, total, device) -> dict:
+    med = {ph: statistics.median(t) for ph, t in zip(phases, times)}
+    return {"phases": name, "index": i,
+            "shape": [args[0].shape[0], args[2].shape[0]],
+            "version": version, "side": side, "slots": slots,
+            "table_bytes": table_bytes,
+            **{f"{ph}_ms": med[ph] for ph in phases},
+            "device_ms": statistics.median(device),
+            "ms": statistics.median(total)}
+
+
+def this_steps(torch, fj, kernel, mode, pk, pf, ck, cf):
+    """One call through this tree's kernel phase by phase: (path, phase
+    names, steps, output).  The table and output are allocated once; each
+    step launches one phase of the C entry (the shared path has one)."""
+    path = fj.join_path(pk.shape[0], ck.shape[0])
+    words = fj.table_words(path, mode)
+    table = (torch.empty(words, dtype=torch.int32, device=pk.device) if words
+             else None)
+    out = torch.empty_like(pf)
+    names = {"shared": ("shared",), "child": ("fill", "build", "probe"),
+             "parent": ("fill", "build", "probe", "gather")}[path.side]
+    bits = {"shared": fj.ALL_PHASES, "fill": fj.FILL, "build": fj.BUILD,
+            "probe": fj.PROBE, "gather": fj.GATHER}
+    steps = [lambda b=bits[n]: fj.launch_phases(kernel, path, mode, pk, pf,
+                                                ck, cf, table, out, b)
+             for n in names]
+    return path, 4 * words, names, steps, out
+
+
+def phase_lines(torch, fj, kernel, wrapper, plain, parent, name, i, mode,
+                args) -> list[dict]:
+    """Fill/build/probe(/gather) of one main-path K1/K2 call by CUDA events
+    between the phases (device time, queued), and the whole wrapper call,
+    unqueued (``ms``, host launch included) and queued (``device_ms``),
+    after the phase-by-phase answer is held against the plain version.
+    With ``parent``, the parent tree's kernel is timed on the same inputs
+    in turns."""
+    pk, pf, ck, cf = args
+    want = plain(*args)
+    path, nbytes, names, steps, out = this_steps(torch, fj, kernel, mode,
+                                                 *args)
+    for step in steps:
+        step()
+    torch.cuda.synchronize()
+    tol = join_tolerance(torch, pf, cf)
+    compare(torch, f"{name} call {i} phase by phase", out, want, tol)
+    versions = {"this": (steps, lambda: wrapper(*args))}
+    if parent is not None:
+        compare(torch, f"parent {name} call {i}", parent(*args, mode), want,
+                tol)
+        p_slots, p_bytes, _, p_steps = parent.steps(*args, mode)
+        versions["parent"] = (p_steps, lambda: parent(*args, mode))
+    # in turns (parent, this, this, parent), half the repetitions each
+    order = ("parent", "this", "this", "parent") if parent else ("this",)
+    reps = TIMING_REPS * len(versions) // len(order)
+    runs = {v: ([[] for _ in st], [], []) for v, (st, _) in versions.items()}
+    for v in order:
+        st, whole = versions[v]
+        phases, total, device = runs[v]
+        for acc, t in zip(phases, split_ms(torch, st, reps, queued=True)):
+            acc.extend(t)
+        total.extend(split_ms(torch, [whole], reps)[0])
+        device.extend(split_ms(torch, [whole], reps, queued=True)[0])
+    lines = [phase_line(name, i, args, "this", path.side, path.slots, nbytes,
+                        names, *runs["this"])]
+    if parent is not None:
+        lines.insert(0, phase_line(name, i, args, "parent", "child", p_slots,
+                                   p_bytes, ("fill", "build", "probe"),
+                                   *runs["parent"]))
+    return lines
 
 
 def check_segsum(torch, kern, plain, errs, tag, keys, vals):
@@ -157,8 +276,14 @@ def check_segsum(torch, kern, plain, errs, tag, keys, vals):
 
 
 def synthetic_cases(torch, make_graph_db, dev):
-    """Ragged sizes, negative and extreme keys, int32 wrap-around, and a
-    zipf-skewed key column from ``make_graph_db``."""
+    """Ragged sizes; key −1 (the hash table's empty marker, kept in a side
+    slot) in the parent, the child, both and neither, with int32's minimum
+    and maximum beside it, on each path of the hash join; repeated parent
+    keys with the table on the parent side; an empty parent and an empty
+    child; int32 wrap-around and a zipf-skewed key column from
+    ``make_graph_db``, each with the table on either side.  The lengths
+    pick the path (``freq_join.join_path``): a child of at most 2048 rows
+    is built in shared memory, else the shorter side is."""
     rng = np.random.default_rng(SEED + 1)
     i32 = np.iinfo(np.int32)
     cases = []
@@ -170,21 +295,54 @@ def synthetic_cases(torch, make_graph_db, dev):
         ck[: min(3, nc)] = [i32.max, -1, i32.min][: min(3, nc)]
         cases.append((f"ragged {np_}x{nc}", pk, ck,
                       rng.integers(0, 4, np_), rng.integers(-2, 4, nc)))
+    for side, (np_, nc) in (("shared", (5000, 1000)),
+                            ("child", (70_001, 50_000)),
+                            ("parent", (50_000, 70_001))):
+        for where in ("neither", "parent", "child", "both"):
+            pk = rng.integers(-50, 50, np_).astype(np.int32)
+            ck = rng.integers(-50, 50, nc).astype(np.int32)
+            pf, cf = rng.integers(0, 4, np_), rng.integers(-2, 4, nc)
+            pk[pk == -1] = 0
+            ck[ck == -1] = 0
+            if where in ("parent", "both"):
+                pk[::97] = -1
+                pf[0] = 2
+            if where in ("child", "both"):
+                ck[::89] = -1
+                cf[::89] = rng.integers(1, 4, cf[::89].shape[0])  # live
+            pk[1:3] = [i32.min, i32.max]
+            ck[1:3] = [i32.max, i32.min]
+            cases.append((f"key -1 in {where}, {side} side {np_}x{nc}", pk,
+                          ck, pf, cf))
+    cases.append(("repeated parent keys, parent side 30000x70001",
+                  rng.integers(0, 10, 30_000).astype(np.int32),
+                  rng.integers(0, 20, 70_001).astype(np.int32),
+                  rng.integers(0, 4, 30_000), rng.integers(-2, 4, 70_001)))
+    cases.append(("empty parent 0x100", np.zeros(0, np.int32),
+                  rng.integers(0, 9, 100).astype(np.int32),
+                  np.zeros(0, np.int64), rng.integers(0, 4, 100)))
+    cases.append(("empty child 100x0", rng.integers(0, 9, 100).astype(
+        np.int32), np.zeros(0, np.int32), rng.integers(0, 4, 100),
+        np.zeros(0, np.int64)))
     # int32 wrap-around: frequencies over the whole int32 range
-    pk = rng.integers(0, 64, 50_000).astype(np.int32)
-    ck = rng.integers(0, 64, 70_001).astype(np.int32)
-    cases.append(("wrap", pk, ck, rng.integers(i32.min, i32.max, 50_000),
-                  rng.integers(i32.min, i32.max, 70_001)))
+    for np_, nc in ((50_000, 70_001), (70_001, 50_000)):
+        cases.append((f"wrap {np_}x{nc}",
+                      rng.integers(0, 64, np_).astype(np.int32),
+                      rng.integers(0, 64, nc).astype(np.int32),
+                      rng.integers(i32.min, i32.max, np_),
+                      rng.integers(i32.min, i32.max, nc)))
     db, _ = make_graph_db(1 << 20, 1 << 22, seed=SEED, device=dev)
     src = db["edge"].columns["src"].cpu().numpy()    # zipf-skewed
     dst = db["edge"].columns["dst"].cpu().numpy()
-    cases.append(("zipf", dst, src, rng.integers(0, 4, dst.shape[0]),
-                  rng.integers(0, 4, src.shape[0])))
+    pf = rng.integers(0, 4, dst.shape[0])
+    cf = rng.integers(0, 4, src.shape[0])
+    cases.append(("zipf child side", dst, src, pf, cf))
+    cases.append(("zipf parent side", dst[:-1], src, pf[:-1], cf))
     out = []
     for tag, pk, ck, pf, cf in cases:
         t = [torch.tensor(a, device=dev) for a in (pk, ck)]
         for dt in (torch.int32, torch.float32):
-            if tag == "wrap" and dt == torch.float32:
+            if tag.startswith("wrap") and dt == torch.float32:
                 continue
             npdt = np.int32 if dt == torch.int32 else np.float32
             out.append((f"{tag} {str(dt)[6:]}", t[0],
@@ -199,6 +357,69 @@ def synthetic_cases(torch, make_graph_db, dev):
                         torch.tensor(rng.random(ck.shape[0], np.float32) * 3
                                      - 1, device=dev)))
     return out
+
+
+class ParentHashJoin:
+    """An earlier tree's ``freq_join.cu`` with the two-array C interface
+    that this tree's one-table layout replaced: a table of 64-bit keys
+    (all-ones when empty) beside a separate value array, both cleared by
+    PyTorch fills before the C entry, which launches the build (child rows,
+    when ``nc`` > 0) and the probe (parent rows, when ``np`` > 0).  Built
+    from that tree's own source with this tree's nvcc flags, it is timed
+    beside this tree's kernel on the same inputs in the same run."""
+
+    def __init__(self, torch, root: Path, build):
+        self.torch = torch
+        self.src = root / "src/repro_torch/kernels/csrc/freq_join.cu"
+        self.lib = build.BUILD_DIR / "parent-freq_join.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.proc = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(self.lib),
+             str(self.src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.fn = None
+
+    def finish_build(self) -> None:
+        log_, _ = self.proc.communicate()
+        check(self.proc.returncode == 0, f"nvcc failed on {self.src}:\n"
+              f"{log_}")
+        p, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        self.fn = ctypes.CDLL(str(self.lib)).repro_hash_join
+        self.fn.argtypes = [p, p, n, p, p, n, p, p, n, p, i, i, p]
+        self.fn.restype = ctypes.c_int
+
+    def steps(self, pk, pf, ck, cf, mode):
+        """(slots, table bytes, state, [fill, build, probe]); run in order,
+        the steps leave the answer in ``state["out"]``."""
+        torch = self.torch
+        nc = ck.shape[0]
+        slots = 1 << max(1, (2 * nc - 1).bit_length())
+        nvals = slots if mode == "sum" else 1
+        st = {}
+        stream = torch.cuda.current_stream().cuda_stream
+        fdtype = 0 if pf.dtype == torch.int32 else 1
+
+        def run(np_, nc_):
+            err = self.fn(pk.data_ptr(), pf.data_ptr(), np_, ck.data_ptr(),
+                          cf.data_ptr(), nc_, st["keys"].data_ptr(),
+                          st["vals"].data_ptr(), slots, st["out"].data_ptr(),
+                          1 if mode == "any" else 0, fdtype, stream)
+            check(err == 0, f"parent freq_join.cu returned CUDA error {err}")
+
+        def fill():
+            st["keys"] = torch.full((slots,), -1, dtype=torch.int64,
+                                    device=pk.device)
+            st["vals"] = torch.zeros(nvals, dtype=pf.dtype, device=pk.device)
+            st["out"] = torch.empty_like(pf)
+
+        return (slots, 8 * slots + 4 * nvals, st,
+                [fill, lambda: run(0, nc), lambda: run(pk.shape[0], 0)])
+
+    def __call__(self, pk, pf, ck, cf, mode):
+        *_, st, steps = self.steps(pk, pf, ck, cf, mode)
+        for step in steps:
+            step()
+        return st["out"]
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +486,17 @@ def profile_run(torch, fn, db) -> dict:
             "top": [[k[:60], ms, n] for k, ms, n in rows[:8]]}
 
 
+def took_every_path(kernels, joins, sides, run: str) -> dict:
+    """The launches of each hash-join path per kernel since the counts were
+    last reset; fails unless every path was taken."""
+    paths = {name: dict(kernels[name][2].paths) for name, _ in joins}
+    for name, _ in joins:
+        for side in sides:
+            check(paths[name].get(side, 0) > 0,
+                  f"{run} took no {side} path of {name}")
+    return paths
+
+
 def answers_equal(got: dict, want: dict) -> bool:
     for k, v in want.items():
         g = got[k].cpu().numpy()
@@ -274,7 +506,14 @@ def answers_equal(got: dict, want: dict) -> bool:
 
 
 # ---------------------------------------------------------------------------
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
+                    help="an unpacked earlier tree whose freq_join.cu has "
+                    "the two-array C interface (ParentHashJoin): time it "
+                    "beside this tree's, phase by phase, on the main "
+                    "path's inputs")
+    args_ = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -297,7 +536,11 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    parent = (ParentHashJoin(torch, args_.parent.resolve(), _build)
+              if args_.parent is not None else None)
     libs = _build.build_all()
+    if parent is not None:
+        parent.finish_build()
     log(f"setup: built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -340,8 +583,9 @@ def main() -> int:
     kern = {"semi_join": sj.semi_join_cuda, "freq_join": fj.freq_join_cuda,
             "segment_sum": ss.segment_sum_cuda}
     errs = {name: [] for name in kernels}
-    timing = {name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
-              for name in kernels}
+    timing = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                     "bytes": 0, "library_ms": None} for name in kernels}
+    timing["semi_join"]["library_ms"] = 0.0
     for name, cl in calls.items():
         check(len(cl) > 0, f"main path made no {name} call")
         for i, args in enumerate(cl):
@@ -356,29 +600,67 @@ def main() -> int:
                 nbytes = join_bytes(args[0].shape[0], args[2].shape[0])
                 shape = [args[0].shape[0], args[2].shape[0]]
             k_ms = time_ms(torch, lambda: kern[name](*args))
+            kd_ms = time_ms(torch, lambda: kern[name](*args), queued=True)
             p_ms = time_ms(torch, lambda: plain[name](*args))
             timing[name]["ms"] += k_ms
+            timing[name]["device_ms"] += kd_ms
             timing[name]["plain_ms"] += p_ms
             timing[name]["bytes"] += nbytes
-            log(json.dumps({"call": name, "index": i, "shape": shape,
-                            "ms": k_ms, "plain_ms": p_ms,
-                            "bound_ms": bound_ms(nbytes)}))
+            line = {"call": name, "index": i, "shape": shape, "ms": k_ms,
+                    "device_ms": kd_ms, "plain_ms": p_ms,
+                    "bound_ms": bound_ms(nbytes)}
+            if name == "semi_join":
+                line["library_ms"] = isin_ms(torch, i, *args)
+                timing[name]["library_ms"] += line["library_ms"]
+            log(json.dumps(line))
+    joins = (("semi_join", "any"), ("freq_join", "sum"))
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    side_hits = {}
     for tag, pk, pf, ck, cf in synthetic_cases(torch, make_graph_db, dev):
-        check_join(torch, sj.semi_join_cuda, sj.semi_join_plain,
-                   errs["semi_join"], f"semi_join {tag}", pk, pf, ck, cf)
-        check_join(torch, fj.freq_join_cuda, fj.freq_join_plain,
-                   errs["freq_join"], f"freq_join {tag}", pk, pf, ck, cf)
+        side = fj.join_path(pk.shape[0], ck.shape[0]).side
+        for name, mode in joins:
+            got = check_join(torch, kern[name], plain[name], errs[name],
+                             f"{name} {tag}", pk, pf, ck, cf)
+            if tag.startswith("key -1 in both"):
+                # parent rows with key −1 whose answer came through the
+                # side slot: every one with pf > 0 in any mode
+                hits = int(((pk == -1) & (got != 0)).sum())
+                side_hits[f"{name} {side} {tag.split()[-1]}"] = hits
+                check(hits > 0, f"{name} {tag}: no parent row with key -1 "
+                      "matched through the side slot")
+            if tag.startswith("zipf"):
+                log(json.dumps({
+                    "synthetic": tag, "kernel": name, "side": side,
+                    "shape": [pk.shape[0], ck.shape[0]],
+                    "ms": time_ms(torch, lambda: kern[name](pk, pf, ck, cf)),
+                    "plain_ms": time_ms(
+                        torch, lambda: plain[name](pk, pf, ck, cf)),
+                    "bound_ms": bound_ms(join_bytes(pk.shape[0],
+                                                    ck.shape[0]))}))
         keys = torch.sort(ck).values
         check_segsum(torch, ss.segment_sum_cuda, ss.segment_sum_plain,
                      errs["segment_sum"], f"segment_sum {tag}", keys, cf)
+    log(json.dumps({"synthetic_paths": took_every_path(
+        kernels, joins, fj.SIDES, "the synthetic cases"),
+        "side_slot_hits": side_hits}))
     log("kernels equal their plain versions: int32 bitwise, float32 within "
         "the stated bounds")
+    for name, mode in joins:
+        timing[name]["parent_ms"] = 0.0
+        for i, args in enumerate(calls[name]):
+            for line in phase_lines(torch, fj, kernels[name][2], kern[name],
+                                    plain[name], parent, name, i, mode,
+                                    args):
+                if line["version"] == "parent":
+                    timing[name]["parent_ms"] += line["ms"]
+                log(json.dumps(line))
 
     # -- the main path, counted ------------------------------------------
     oracle = v1_oracle({r: {c: t.cpu().numpy() for c, t in tab.columns.items()}
                         for r, tab in db.items()})
     for _, _, k in kernels.values():
-        k.launches = 0
+        k.reset_counts()
     query_lines = []
     for q in QUERIES:
         ex = Executor(db, schema)
@@ -406,7 +688,9 @@ def main() -> int:
     launches = {name: k.launches for name, (_, _, k) in kernels.items()}
     for name, n in launches.items():
         check(n > 0, f"the main path launched {name} no time")
+    paths = took_every_path(kernels, joins, fj.SIDES, "the main path")
     log(f"main path launches: {launches}")
+    log(json.dumps({"main_path_paths": paths}))
 
     for line in query_lines:
         log(json.dumps(line))
@@ -420,9 +704,14 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(errs[name]),
                      "ms": timing[name]["ms"],
+                     "device_ms": timing[name]["device_ms"],
                      "plain_ms": timing[name]["plain_ms"],
                      "bound_ms": bound_ms(timing[name]["bytes"]),
-                     "bound_by": "bytes", "library_ms": None,
+                     "bound_by": "bytes",
+                     "library_ms": timing[name]["library_ms"],
+                     **({"parent_ms": timing[name]["parent_ms"]}
+                        if parent is not None and "parent_ms" in timing[name]
+                        else {}),
                      "calls_timed": len(calls[name])})
     log(smi)
     log(json.dumps({"kernels": rows}))

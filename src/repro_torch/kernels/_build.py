@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -105,7 +106,8 @@ class CudaKernel:
     ``argtypes`` lists the ctypes types of the arguments before the stream,
     which ``launch`` appends: PyTorch's current stream on the tensors'
     device.  ``launches`` rises by one for every call that launched (a plain
-    int that callers may reset).
+    int that callers may reset), and ``paths`` counts those calls by the
+    path the caller names, where it names one.
     """
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
@@ -114,6 +116,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
+        self.paths: Counter[str] = Counter()
         self._fn = None
 
     def _entry(self):
@@ -124,7 +127,11 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, device, *args) -> None:
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.paths.clear()
+
+    def launch(self, device, *args, path: str | None = None) -> None:
         import torch
         fn = self._entry()
         with torch.cuda.device(device):
@@ -134,3 +141,5 @@ class CudaKernel:
                 f"{self.name} ({self.source}:{self.symbol}) returned CUDA "
                 f"error {err}")
         self.launches += 1
+        if path is not None:
+            self.paths[path] += 1

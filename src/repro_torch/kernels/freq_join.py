@@ -2,16 +2,19 @@
 
 ``freq_join_cuda`` launches ``csrc/freq_join.cu`` in sum mode; the semi-join
 (K1, ``semi_join.py``) is the same source in the Boolean semiring.  Both
-wrappers share ``hash_join``, which checks the inputs, allocates the output
-and the hash table, and launches.  ``freq_join_plain`` is the JAX package's
-XLA formulation in PyTorch (sort + prefix sum + searchsorted, or one dense
-scatter-add when the key domain is known and small): the path on the CPU,
-and the version the kernels are held against on the card.
+wrappers share ``hash_join``, which checks the inputs, picks the call's path
+from the two lengths (``join_path``: the side the table holds, or a small
+child built in shared memory), allocates the output and the table, and
+launches.  ``freq_join_plain`` is the JAX package's XLA formulation in
+PyTorch (sort + prefix sum + searchsorted, or one dense scatter-add when the
+key domain is known and small): the path on the CPU, and the version the
+kernels are held against on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -19,27 +22,81 @@ from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.autotune import DEFAULT_CONFIG, KernelConfig
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-HASH_JOIN_ARGTYPES = (_P, _P, _N, _P, _P, _N, _P, _P, _N, _P, _I, _I)
+HASH_JOIN_ARGTYPES = (_P, _P, _N, _P, _P, _N, _P, _N, _P, _I, _I, _I, _I)
 
 K2 = CudaKernel("freq_join", "freq_join.cu", "repro_hash_join",
                 HASH_JOIN_ARGTYPES)
 
 _MODES = {"sum": 0, "any": 1}
 _FDTYPES = {torch.int32: 0, torch.float32: 1}
+SIDES = {"child": 0, "parent": 1, "shared": 2}
+
+# A child of at most this many rows is built in each block's shared memory:
+# 2·2048 slots of 8 bytes and the side slot fit the 48 KiB a block gets
+# without opting in to more.
+SHARED_MAX_ROWS = 2048
+
+# Phases of the C entry, one bit each; ``hash_join`` runs them all.
+FILL, BUILD, PROBE, GATHER = 1, 2, 4, 8
+ALL_PHASES = FILL | BUILD | PROBE | GATHER
 
 
-def table_slots(n_child: int) -> int:
-    """Hash-table size for a child of ``n_child`` rows: the power of two
-    ≥ 2·n_child (load factor ≤ 1/2), at least 2.  Sized from the child's
-    length, not its live count, so sizing needs no device sync."""
-    return 1 << max(1, (2 * n_child - 1).bit_length())
+class JoinPath(NamedTuple):
+    """How one call runs: the side whose keys the table holds (``child``,
+    ``parent``, or ``shared``, a child built in shared memory in the one
+    launch) and the table's slots."""
+    side: str
+    slots: int
+
+
+def table_slots(n_build: int) -> int:
+    """Hash-table size for a build side of ``n_build`` rows: the power of
+    two ≥ 2·n_build (load factor ≤ 1/2), at least 2.  Sized from the
+    length, not the live count, so sizing needs no device sync."""
+    return 1 << max(1, (2 * n_build - 1).bit_length())
+
+
+def join_path(n_parent: int, n_child: int) -> JoinPath:
+    """The path of a call, from the two lengths alone (no device sync): a
+    child of at most ``SHARED_MAX_ROWS`` rows goes to shared memory; else
+    the table holds the shorter side, the child on a tie."""
+    if n_child <= SHARED_MAX_ROWS:
+        return JoinPath("shared", table_slots(n_child))
+    if n_parent < n_child:
+        return JoinPath("parent", table_slots(n_parent))
+    return JoinPath("child", table_slots(n_child))
+
+
+def table_words(path: JoinPath, mode: str) -> int:
+    """int32 words of the device table for ``path``: the slots and one
+    side slot (for key −1) of 8 bytes — key and value — or, in ``any`` mode
+    on the child side, of 4 bytes (key only), rounded up to whole 16-byte
+    stores.  The shared path needs no device table."""
+    if path.side == "shared":
+        return 0
+    per_slot = 1 if mode == "any" and path.side == "child" else 2
+    return -(-per_slot * (path.slots + 1) // 4) * 4
+
+
+def launch_phases(kernel: CudaKernel, path: JoinPath, mode: str, pk, pf, ck,
+                  cf, table, out, phases: int) -> None:
+    """Launch the ``phases`` of one call of ``repro_hash_join`` on the
+    current stream, with ``table`` (``table_words`` int32 words, or None
+    on the shared path) as scratch and the answer into ``out``; counts one
+    launch of ``path``."""
+    kernel.launch(pk.device, pk.data_ptr(), pf.data_ptr(), pk.shape[0],
+                  ck.data_ptr(), cf.data_ptr(), ck.shape[0],
+                  None if table is None else table.data_ptr(), path.slots,
+                  out.data_ptr(), _MODES[mode], _FDTYPES[pf.dtype],
+                  SIDES[path.side], phases, path=path.side)
 
 
 def hash_join(kernel: CudaKernel, parent_keys, parent_freq, child_keys,
               child_freq, mode: str) -> torch.Tensor:
     """Launch ``kernel`` (K1 or K2, both ``repro_hash_join``) on CUDA
     tensors: int32 keys, int32 or float32 frequencies of one dtype, 1-D and
-    contiguous.  Returns the new parent frequencies."""
+    contiguous.  Returns the new parent frequencies.  The table is
+    allocated here and lives only for the call."""
     ts = (parent_keys, parent_freq, child_keys, child_freq)
     dev = parent_keys.device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -59,15 +116,15 @@ def hash_join(kernel: CudaKernel, parent_keys, parent_freq, child_keys,
     if parent_freq.shape[0] != np_ or child_freq.shape[0] != nc:
         raise ValueError(f"{kernel.name}: keys and frequencies differ in "
                          "length")
-    slots = table_slots(nc)
-    slot_keys = torch.full((slots,), -1, dtype=torch.int64, device=dev)
-    slot_vals = torch.zeros(slots if mode == "sum" else 1,
-                            dtype=parent_freq.dtype, device=dev)
     out = torch.empty_like(parent_freq)
-    kernel.launch(dev, parent_keys.data_ptr(), parent_freq.data_ptr(), np_,
-                  child_keys.data_ptr(), child_freq.data_ptr(), nc,
-                  slot_keys.data_ptr(), slot_vals.data_ptr(), slots,
-                  out.data_ptr(), _MODES[mode], _FDTYPES[parent_freq.dtype])
+    if np_ == 0:
+        return out
+    path = join_path(np_, nc)
+    words = table_words(path, mode)
+    table = (torch.empty(words, dtype=torch.int32, device=dev) if words
+             else None)
+    launch_phases(kernel, path, mode, parent_keys, parent_freq, child_keys,
+                  child_freq, table, out, ALL_PHASES)
     return out
 
 

@@ -46,6 +46,95 @@ def test_joins_match_plain(cuda, np_, nc, fdt):
         assert torch.equal(got, want)
 
 
+# lengths that take each path of the hash join (freq_join.join_path)
+PATH_SHAPES = {"shared": (5000, 1000), "child": (7001, 5000),
+               "parent": (5000, 7001)}
+I32 = np.iinfo(np.int32)
+
+
+def _edge_keys(rng, np_, nc, where):
+    """Keys in [-50, 50) with −1 (the table's empty marker, kept in a side
+    slot) in the parent, the child, both or neither, and int32's minimum
+    and maximum on both sides; child rows with key −1 are live."""
+    pk = rng.integers(-50, 50, np_).astype(np.int32)
+    ck = rng.integers(-50, 50, nc).astype(np.int32)
+    pk[pk == -1] = 0
+    ck[ck == -1] = 0
+    if where in ("parent", "both"):
+        pk[::97] = -1
+    if where in ("child", "both"):
+        ck[::89] = -1
+    pk[1:3] = [I32.min, I32.max]
+    ck[1:3] = [I32.max, I32.min]
+    return pk, ck
+
+
+def _join_on_path(cuda, side, mode, pk, pf, ck, cf):
+    """The kernel's answer, after checking that the lengths take ``side``
+    and that the call counted one launch of that path."""
+    assert tfj.join_path(pk.shape[0], ck.shape[0]).side == side
+    kernel = tsj.K1 if mode == "any" else tfj.K2
+    t = [torch.tensor(a, device=cuda) for a in (pk, pf, ck, cf)]
+    before = kernel.paths[side]
+    got = tops.freq_join(*t, mode=mode)
+    assert kernel.paths[side] == before + 1
+    return got, tfj.freq_join_plain(*t, mode=mode)
+
+
+@pytest.mark.parametrize("side", list(PATH_SHAPES))
+@pytest.mark.parametrize("where", ["neither", "parent", "child", "both"])
+@pytest.mark.parametrize("mode", ["sum", "any"])
+@pytest.mark.parametrize("fdt", [np.int32, np.float32])
+def test_join_paths_with_edge_keys_match_plain(cuda, side, where, mode, fdt):
+    np_, nc = PATH_SHAPES[side]
+    rng = np.random.default_rng([np_, nc, len(where)])
+    pk, ck = _edge_keys(rng, np_, nc, where)
+    pf = rng.integers(0, 4, np_).astype(fdt)
+    cf = rng.integers(-2, 4, nc).astype(fdt)
+    cf[ck == -1] = 2
+    got, want = _join_on_path(cuda, side, mode, pk, pf, ck, cf)
+    assert torch.equal(got, want)   # integer-valued: exact in float32 too
+    if where == "both":
+        assert bool((got[torch.tensor(pk, device=cuda) == -1] != 0).any())
+
+
+@pytest.mark.parametrize("mode", ["sum", "any"])
+@pytest.mark.parametrize("fdt", [np.int32, np.float32])
+def test_parent_side_with_repeated_parent_keys(cuda, mode, fdt):
+    rng = np.random.default_rng(3)
+    pk = rng.integers(0, 10, 3000).astype(np.int32)
+    ck = rng.integers(0, 20, 7001).astype(np.int32)
+    got, want = _join_on_path(cuda, "parent", mode, pk,
+                              rng.integers(0, 4, 3000).astype(fdt), ck,
+                              rng.integers(-2, 4, 7001).astype(fdt))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("side", ["child", "parent"])
+def test_int32_wrap_on_both_sides(cuda, side):
+    np_, nc = PATH_SHAPES[side]
+    rng = np.random.default_rng(4)
+    got, want = _join_on_path(
+        cuda, side, "sum", rng.integers(0, 64, np_).astype(np.int32),
+        rng.integers(I32.min, I32.max, np_).astype(np.int32),
+        rng.integers(0, 64, nc).astype(np.int32),
+        rng.integers(I32.min, I32.max, nc).astype(np.int32))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("np_,nc", [(0, 100), (100, 0), (0, 0), (0, 9000)])
+@pytest.mark.parametrize("mode", ["sum", "any"])
+def test_empty_sides(cuda, np_, nc, mode):
+    rng = np.random.default_rng(5)
+    t = [torch.tensor(a, device=cuda) for a in (
+        rng.integers(0, 9, np_).astype(np.int32),
+        rng.integers(0, 4, np_).astype(np.int32),
+        rng.integers(0, 9, nc).astype(np.int32),
+        rng.integers(0, 4, nc).astype(np.int32))]
+    got = tops.freq_join(*t, mode=mode)
+    assert torch.equal(got, tfj.freq_join_plain(*t, mode=mode))
+
+
 @pytest.mark.parametrize("n", [1, 17, 1024, 1025, 300_001])
 @pytest.mark.parametrize("vdt", [np.int32, np.float32])
 def test_segment_sum_matches_plain(cuda, n, vdt):

@@ -230,3 +230,54 @@ def test_table_slots_power_of_two_at_half_load():
         s = tfj.table_slots(nc)
         assert s >= 2 and s & (s - 1) == 0 and s >= 2 * nc
         assert s == 2 or s < 4 * nc
+
+
+# V.1's join edges at make_tpch_db(scale=100000): (parent rows, child rows)
+V1_EDGES = {"n⋉r": (25, 5), "s⋉n": (100_000, 25),
+            "ps⋉p": (8_000_000, 2_000_000), "s⋉ps": (100_000, 8_000_000),
+            "ps⋉s": (8_000_000, 100_000)}
+
+
+@pytest.mark.parametrize("np_,nc,side,n_build", [
+    (25, 5, "shared", 5), (100_000, 25, "shared", 25),
+    (0, 0, "shared", 0), (10, 2048, "shared", 2048),
+    (2049, 2049, "child", 2049), (2048, 2049, "parent", 2048),
+    (8_000_000, 2_000_000, "child", 2_000_000),
+    (100_000, 8_000_000, "parent", 100_000),
+    (8_000_000, 100_000, "child", 100_000), (0, 5000, "parent", 0),
+])
+def test_join_path_builds_on_the_shorter_side(np_, nc, side, n_build):
+    """A child of at most SHARED_MAX_ROWS rows is built in shared memory;
+    else the table holds the shorter side (the child on a tie), sized
+    from that side's length."""
+    path = tfj.join_path(np_, nc)
+    assert path == tfj.JoinPath(side, tfj.table_slots(n_build))
+
+
+def test_v1_edges_take_every_path():
+    sides = {e: tfj.join_path(*n).side for e, n in V1_EDGES.items()}
+    assert sides == {"n⋉r": "shared", "s⋉n": "shared", "ps⋉p": "child",
+                     "s⋉ps": "parent", "ps⋉s": "child"}
+    # the s⋉ps table: 2^18 slots of the 100k suppliers, not 2^24 of the
+    # 8M partsupp rows
+    assert tfj.join_path(*V1_EDGES["s⋉ps"]).slots == 1 << 18
+
+
+@pytest.mark.parametrize("side,mode,words", [
+    ("child", "any", 1 * (1024 + 1)), ("child", "sum", 2 * (1024 + 1)),
+    ("parent", "any", 2 * (1024 + 1)), ("parent", "sum", 2 * (1024 + 1)),
+    ("shared", "any", 0), ("shared", "sum", 0),
+])
+def test_table_words_hold_every_slot_and_the_side_slot(side, mode, words):
+    """8-byte {key, value} slots, or bare 4-byte keys for the child side in
+    any mode, plus the side slot of key −1, in whole 16-byte stores."""
+    got = tfj.table_words(tfj.JoinPath(side, 1024), mode)
+    assert got >= words and got % 4 == 0 and got - words < 4
+
+
+def test_shared_table_fits_a_blocks_default_shared_memory():
+    """The largest child the shared path takes fits the 48 KiB a block may
+    use without opting in: 8-byte slots and the side slot."""
+    slots = tfj.table_slots(tfj.SHARED_MAX_ROWS)
+    assert 4 * tfj.table_words(tfj.JoinPath("child", slots), "sum") \
+        <= 48 * 1024
