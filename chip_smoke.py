@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once), holds each kernel against its plain PyTorch version on
@@ -20,12 +20,13 @@ inputs and on synthetic cases that reach every path: key −1 (the hash
 table's empty marker) in either side, int32's extremes, repeated parent
 keys, empty sides, int32 wrap-around and zipf-skewed keys.  K1 is timed
 beside ``torch.isin``, its library yardstick, and each K1/K2 main-path call
-is split into its phases (fill, build, probe, gather) by CUDA events; with
-``--parent DIR``, an unpacked earlier tree, that tree's ``freq_join.cu`` is
-built and timed the same way on the same inputs, in turns.
+is split into its phases (fill, build, probe, gather) by CUDA events.  Both
+sides of each of ``freq_join.join_path``'s choices (shared memory or the
+child side for a child at the row limit, the parent or the child side at
+equal lengths) are timed on the same synthetic inputs near where it flips.
 
-Prints the card's name and power limit, one JSON line per kernel call and
-per phase split, one JSON line per query with its times, one per query with
+Prints the card's name and power limit, one JSON line per kernel call, per
+phase split and per cut-off case, one JSON line per query with its times, one per query with
 its device time by kernel from ``torch.profiler``, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
 library time, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -35,8 +36,6 @@ capability 9.0 (sm_90a) and nvcc.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import statistics
 import subprocess
@@ -192,27 +191,16 @@ def isin_ms(torch, i, pk, pf, ck, cf) -> float:
     return time_ms(torch, lambda: torch.isin(pk, ck))
 
 
-def phase_line(name, i, args, version, side, slots, table_bytes, phases,
-               times, total, device) -> dict:
-    med = {ph: statistics.median(t) for ph, t in zip(phases, times)}
-    return {"phases": name, "index": i,
-            "shape": [args[0].shape[0], args[2].shape[0]],
-            "version": version, "side": side, "slots": slots,
-            "table_bytes": table_bytes,
-            **{f"{ph}_ms": med[ph] for ph in phases},
-            "device_ms": statistics.median(device),
-            "ms": statistics.median(total)}
-
-
-def this_steps(torch, fj, kernel, mode, pk, pf, ck, cf):
-    """One call through this tree's kernel phase by phase: (path, phase
-    names, steps, output).  The table and output are allocated once; each
+def phase_line(torch, fj, kernel, wrapper, plain, name, i, mode,
+               args) -> dict:
+    """Fill/build/probe(/gather) of one main-path K1/K2 call by CUDA events
+    between the phases (device time, queued), and the whole wrapper call,
+    unqueued (``ms``, host launch included) and queued (``device_ms``),
+    after the phase-by-phase answer is held against the plain version.  The
+    table and output are allocated once (``freq_join.prepare_call``); each
     step launches one phase of the C entry (the shared path has one)."""
-    path = fj.join_path(pk.shape[0], ck.shape[0])
-    words = fj.table_words(path, mode)
-    table = (torch.empty(words, dtype=torch.int32, device=pk.device) if words
-             else None)
-    out = torch.empty_like(pf)
+    pk, pf, ck, cf = args
+    path, table, out = fj.prepare_call(pf, ck.shape[0], mode)
     names = {"shared": ("shared",), "child": ("fill", "build", "probe"),
              "parent": ("fill", "build", "probe", "gather")}[path.side]
     bits = {"shared": fj.ALL_PHASES, "fill": fj.FILL, "build": fj.BUILD,
@@ -220,49 +208,63 @@ def this_steps(torch, fj, kernel, mode, pk, pf, ck, cf):
     steps = [lambda b=bits[n]: fj.launch_phases(kernel, path, mode, pk, pf,
                                                 ck, cf, table, out, b)
              for n in names]
-    return path, 4 * words, names, steps, out
-
-
-def phase_lines(torch, fj, kernel, wrapper, plain, parent, name, i, mode,
-                args) -> list[dict]:
-    """Fill/build/probe(/gather) of one main-path K1/K2 call by CUDA events
-    between the phases (device time, queued), and the whole wrapper call,
-    unqueued (``ms``, host launch included) and queued (``device_ms``),
-    after the phase-by-phase answer is held against the plain version.
-    With ``parent``, the parent tree's kernel is timed on the same inputs
-    in turns."""
-    pk, pf, ck, cf = args
-    want = plain(*args)
-    path, nbytes, names, steps, out = this_steps(torch, fj, kernel, mode,
-                                                 *args)
     for step in steps:
         step()
     torch.cuda.synchronize()
-    tol = join_tolerance(torch, pf, cf)
-    compare(torch, f"{name} call {i} phase by phase", out, want, tol)
-    versions = {"this": (steps, lambda: wrapper(*args))}
-    if parent is not None:
-        compare(torch, f"parent {name} call {i}", parent(*args, mode), want,
-                tol)
-        p_slots, p_bytes, _, p_steps = parent.steps(*args, mode)
-        versions["parent"] = (p_steps, lambda: parent(*args, mode))
-    # in turns (parent, this, this, parent), half the repetitions each
-    order = ("parent", "this", "this", "parent") if parent else ("this",)
-    reps = TIMING_REPS * len(versions) // len(order)
-    runs = {v: ([[] for _ in st], [], []) for v, (st, _) in versions.items()}
-    for v in order:
-        st, whole = versions[v]
-        phases, total, device = runs[v]
-        for acc, t in zip(phases, split_ms(torch, st, reps, queued=True)):
-            acc.extend(t)
-        total.extend(split_ms(torch, [whole], reps)[0])
-        device.extend(split_ms(torch, [whole], reps, queued=True)[0])
-    lines = [phase_line(name, i, args, "this", path.side, path.slots, nbytes,
-                        names, *runs["this"])]
-    if parent is not None:
-        lines.insert(0, phase_line(name, i, args, "parent", "child", p_slots,
-                                   p_bytes, ("fill", "build", "probe"),
-                                   *runs["parent"]))
+    compare(torch, f"{name} call {i} phase by phase", out, plain(*args),
+            join_tolerance(torch, pf, cf))
+    phases = split_ms(torch, steps, queued=True)
+    return {"phases": name, "index": i, "shape": [pk.shape[0], ck.shape[0]],
+            "side": path.side, "slots": path.slots,
+            "table_bytes": 0 if table is None else 4 * table.numel(),
+            **{f"{n}_ms": statistics.median(t)
+               for n, t in zip(names, phases)},
+            "device_ms": time_ms(torch, lambda: wrapper(*args), queued=True),
+            "ms": time_ms(torch, lambda: wrapper(*args))}
+
+
+def cutoff_lines(torch, fj, kernels, dev) -> list[dict]:
+    """Both sides of each of ``join_path``'s choices near where it flips,
+    forced on the same inputs: the shared path against the child side for
+    children of 512 to 2048 rows under parents of 100k and 8M rows (V.1's
+    supplier and partsupp), and the parent side against the child side at
+    equal lengths (2M × 2M).  Keys are uniform over twice the child's length.
+    Each forced path's answer is held bitwise against the plain version;
+    its whole call is timed unqueued (``ms``) and queued (``device_ms``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    i32 = torch.int32
+
+    def draw(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=i32)
+
+    cases = [(np_, nc, ("shared", "child")) for np_ in (100_000, 8_000_000)
+             for nc in (512, 1024, 2048)]
+    lines = []
+    for np_, nc, sides in cases + [(2_000_000, 2_000_000,
+                                    ("child", "parent"))]:
+        pk, ck = draw(0, 2 * nc, np_), draw(0, 2 * nc, nc)
+        pf, cf = draw(0, 4, np_), draw(-2, 4, nc)
+        for name, mode in (("semi_join", "any"), ("freq_join", "sum")):
+            kernel = kernels[name][2]
+            want = fj.freq_join_plain(pk, pf, ck, cf, mode=mode)
+            line = {"cutoff": name, "shape": [np_, nc],
+                    "chosen": fj.join_path(np_, nc).side}
+            for side in sides:
+                forced = fj.JoinPath(side, fj.table_slots(
+                    np_ if side == "parent" else nc))
+                path, table, out = fj.prepare_call(pf, nc, mode, forced)
+
+                def step(path=path, table=table, out=out):
+                    fj.launch_phases(kernel, path, mode, pk, pf, ck, cf,
+                                     table, out, fj.ALL_PHASES)
+                step()
+                torch.cuda.synchronize()
+                compare(torch, f"{name} cutoff {np_}x{nc} {side} side", out,
+                        want, 0.0)
+                line[f"{side}_ms"] = time_ms(torch, step)
+                line[f"{side}_device_ms"] = time_ms(torch, step, queued=True)
+            lines.append(line)
     return lines
 
 
@@ -282,7 +284,7 @@ def synthetic_cases(torch, make_graph_db, dev):
     keys with the table on the parent side; an empty parent and an empty
     child; int32 wrap-around and a zipf-skewed key column from
     ``make_graph_db``, each with the table on either side.  The lengths
-    pick the path (``freq_join.join_path``): a child of at most 2048 rows
+    pick the path (``freq_join.join_path``): a child of at most 1024 rows
     is built in shared memory, else the shorter side is."""
     rng = np.random.default_rng(SEED + 1)
     i32 = np.iinfo(np.int32)
@@ -357,69 +359,6 @@ def synthetic_cases(torch, make_graph_db, dev):
                         torch.tensor(rng.random(ck.shape[0], np.float32) * 3
                                      - 1, device=dev)))
     return out
-
-
-class ParentHashJoin:
-    """An earlier tree's ``freq_join.cu`` with the two-array C interface
-    that this tree's one-table layout replaced: a table of 64-bit keys
-    (all-ones when empty) beside a separate value array, both cleared by
-    PyTorch fills before the C entry, which launches the build (child rows,
-    when ``nc`` > 0) and the probe (parent rows, when ``np`` > 0).  Built
-    from that tree's own source with this tree's nvcc flags, it is timed
-    beside this tree's kernel on the same inputs in the same run."""
-
-    def __init__(self, torch, root: Path, build):
-        self.torch = torch
-        self.src = root / "src/repro_torch/kernels/csrc/freq_join.cu"
-        self.lib = build.BUILD_DIR / "parent-freq_join.so"
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        self.proc = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(self.lib),
-             str(self.src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        self.fn = None
-
-    def finish_build(self) -> None:
-        log_, _ = self.proc.communicate()
-        check(self.proc.returncode == 0, f"nvcc failed on {self.src}:\n"
-              f"{log_}")
-        p, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        self.fn = ctypes.CDLL(str(self.lib)).repro_hash_join
-        self.fn.argtypes = [p, p, n, p, p, n, p, p, n, p, i, i, p]
-        self.fn.restype = ctypes.c_int
-
-    def steps(self, pk, pf, ck, cf, mode):
-        """(slots, table bytes, state, [fill, build, probe]); run in order,
-        the steps leave the answer in ``state["out"]``."""
-        torch = self.torch
-        nc = ck.shape[0]
-        slots = 1 << max(1, (2 * nc - 1).bit_length())
-        nvals = slots if mode == "sum" else 1
-        st = {}
-        stream = torch.cuda.current_stream().cuda_stream
-        fdtype = 0 if pf.dtype == torch.int32 else 1
-
-        def run(np_, nc_):
-            err = self.fn(pk.data_ptr(), pf.data_ptr(), np_, ck.data_ptr(),
-                          cf.data_ptr(), nc_, st["keys"].data_ptr(),
-                          st["vals"].data_ptr(), slots, st["out"].data_ptr(),
-                          1 if mode == "any" else 0, fdtype, stream)
-            check(err == 0, f"parent freq_join.cu returned CUDA error {err}")
-
-        def fill():
-            st["keys"] = torch.full((slots,), -1, dtype=torch.int64,
-                                    device=pk.device)
-            st["vals"] = torch.zeros(nvals, dtype=pf.dtype, device=pk.device)
-            st["out"] = torch.empty_like(pf)
-
-        return (slots, 8 * slots + 4 * nvals, st,
-                [fill, lambda: run(0, nc), lambda: run(pk.shape[0], 0)])
-
-    def __call__(self, pk, pf, ck, cf, mode):
-        *_, st, steps = self.steps(pk, pf, ck, cf, mode)
-        for step in steps:
-            step()
-        return st["out"]
 
 
 # ---------------------------------------------------------------------------
@@ -506,14 +445,7 @@ def answers_equal(got: dict, want: dict) -> bool:
 
 
 # ---------------------------------------------------------------------------
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
-                    help="an unpacked earlier tree whose freq_join.cu has "
-                    "the two-array C interface (ParentHashJoin): time it "
-                    "beside this tree's, phase by phase, on the main "
-                    "path's inputs")
-    args_ = ap.parse_args(argv)
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -536,11 +468,7 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    parent = (ParentHashJoin(torch, args_.parent.resolve(), _build)
-              if args_.parent is not None else None)
     libs = _build.build_all()
-    if parent is not None:
-        parent.finish_build()
     log(f"setup: built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -647,14 +575,12 @@ def main(argv=None) -> int:
     log("kernels equal their plain versions: int32 bitwise, float32 within "
         "the stated bounds")
     for name, mode in joins:
-        timing[name]["parent_ms"] = 0.0
         for i, args in enumerate(calls[name]):
-            for line in phase_lines(torch, fj, kernels[name][2], kern[name],
-                                    plain[name], parent, name, i, mode,
-                                    args):
-                if line["version"] == "parent":
-                    timing[name]["parent_ms"] += line["ms"]
-                log(json.dumps(line))
+            log(json.dumps(phase_line(torch, fj, kernels[name][2],
+                                      kern[name], plain[name], name, i, mode,
+                                      args)))
+    for line in cutoff_lines(torch, fj, kernels, dev):
+        log(json.dumps(line))
 
     # -- the main path, counted ------------------------------------------
     oracle = v1_oracle({r: {c: t.cpu().numpy() for c, t in tab.columns.items()}
@@ -709,9 +635,6 @@ def main(argv=None) -> int:
                      "bound_ms": bound_ms(timing[name]["bytes"]),
                      "bound_by": "bytes",
                      "library_ms": timing[name]["library_ms"],
-                     **({"parent_ms": timing[name]["parent_ms"]}
-                        if parent is not None and "parent_ms" in timing[name]
-                        else {}),
                      "calls_timed": len(calls[name])})
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -17,18 +17,20 @@
 // rows (load factor <= 1/2, so every probe ends).  The host picks the path
 // from the two lengths:
 //
-//   child side  (a child longer than kSharedMaxRows rows and no longer than
-//       the parent): contributing child rows (cf != 0 for sum, cf > 0 for
-//       any) claim slots and, in sum mode, atomicAdd their frequency;
-//       parent rows then probe their key.  Launches: fill, build, probe.
+//   child side  (a child longer than the host's shared-path limit,
+//       SHARED_MAX_ROWS in freq_join.py, and no longer than the parent):
+//       contributing child rows (cf != 0 for sum, cf > 0 for any) claim
+//       slots and, in sum mode, atomicAdd their frequency; parent rows
+//       then probe their key.  Launches: fill, build, probe.
 //   parent side (a parent shorter than such a child): parent keys claim
 //       slots; child rows stream through and add their frequency (sum) or
 //       set a flag (any) in the slot of their key, if it is there; parent
 //       rows then read their slot.  Exact for both semirings and for
 //       repeated parent keys.  Launches: fill, build, probe, gather.
-//   shared      (a child of at most kSharedMaxRows rows, whatever the
-//       parent's length): one launch; every block builds the child's table
-//       in shared memory and probes its stripe of parent rows.
+//   shared      (a child within that limit, whatever the parent's length;
+//       its table must fit kSharedBytes): one launch; every block builds
+//       the child's table in shared memory and probes its stripe of
+//       parent rows.
 //
 // A slot is one 8-byte word {uint32 key, uint32 or float value}, or in any
 // mode on the child side a bare uint32 key (presence is the answer).  The
@@ -61,7 +63,7 @@ constexpr uint32_t kAbsent = 0xFFFFFFFFu;  // lookup result: key not there
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 32;
 constexpr long long kSharedMaxBlocks = 132 * 8;
-constexpr long long kSharedMaxRows = 2048;
+constexpr long long kSharedBytes = 48 * 1024;  // a block's, without opt-in
 
 enum Side { kChild = 0, kParent = 1, kShared = 2 };
 enum Phase { kFill = 1, kBuild = 2, kProbe = 4, kGather = 8 };
@@ -248,8 +250,9 @@ probe_child(const int32_t* __restrict__ ck, const F* __restrict__ cf,
   }
 }
 
-// One launch: each block builds the whole child (nc <= kSharedMaxRows) in
-// its shared memory, then probes a grid-strided stripe of parent rows.
+// One launch: each block builds the whole child (its table fits
+// kSharedBytes) in its shared memory, then probes a grid-strided stripe of
+// parent rows.
 template <typename F, bool kAny>
 __global__ void __launch_bounds__(kThreads)
 shared_join(const int32_t* __restrict__ pk, const F* __restrict__ pf,
@@ -325,22 +328,29 @@ int run(const int32_t* pk, const F* pf, long long np, const int32_t* ck,
 // mode: 0 = sum (FreqJoin), 1 = any (semi-join).  fdtype: 0 = int32,
 // 1 = float32; pf, cf and out share it.  side: 0 child, 1 parent, 2 shared.
 // slots: a power of two >= 2 and >= 2 * (rows of the build side); on the
-// shared side nc <= 2048.  table: the wrapper's scratch of
-// table_words(slots, pair) uint32 words, 16-byte aligned (unused on the
-// shared side); pair = sum mode or the parent side.
+// shared side the table (4 * table_words(slots, sum mode) bytes) must fit
+// kSharedBytes.  table: the wrapper's scratch of table_len uint32 words,
+// 16-byte aligned, at least table_words(slots, pair), where pair = sum mode
+// or the parent side (unused on the shared side).  A table or a shared
+// table out of those bounds is refused with cudaErrorInvalidValue.
 // phases: a mask of 1 fill, 2 build, 4 probe, 8 gather (parent side), so
 // that a caller can time the phases one by one; 15 runs the join.
 // Returns cudaGetLastError().
 extern "C" int repro_hash_join(const void* pk, const void* pf, long long np,
                                const void* ck, const void* cf, long long nc,
-                               void* table, long long slots, void* out,
+                               void* table, long long table_len,
+                               long long slots, void* out,
                                int mode, int fdtype, int side, int phases,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long build_rows = side == kParent ? np : nc;
   if (slots < 2 || (slots & (slots - 1)) != 0 || slots > (1ll << 31) ||
       slots < 2 * build_rows || side < kChild || side > kShared ||
-      (side == kShared && nc > kSharedMaxRows) || mode < 0 || mode > 1)
+      mode < 0 || mode > 1)
+    return (int)cudaErrorInvalidValue;
+  if (side == kShared ? 4 * table_words(slots, mode == 0) > kSharedBytes
+                      : table_len < table_words(slots, mode == 0 ||
+                                                side == kParent))
     return (int)cudaErrorInvalidValue;
   const int32_t* k_p = (const int32_t*)pk;
   const int32_t* k_c = (const int32_t*)ck;

@@ -4,8 +4,8 @@
 (K1, ``semi_join.py``) is the same source in the Boolean semiring.  Both
 wrappers share ``hash_join``, which checks the inputs, picks the call's path
 from the two lengths (``join_path``: the side the table holds, or a small
-child built in shared memory), allocates the output and the table, and
-launches.  ``freq_join_plain`` is the JAX package's XLA formulation in
+child built in shared memory), allocates the output and the table
+(``prepare_call``), and launches.  ``freq_join_plain`` is the JAX package's XLA formulation in
 PyTorch (sort + prefix sum + searchsorted, or one dense scatter-add when the
 key domain is known and small): the path on the CPU, and the version the
 kernels are held against on the card.
@@ -22,7 +22,8 @@ from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.autotune import DEFAULT_CONFIG, KernelConfig
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-HASH_JOIN_ARGTYPES = (_P, _P, _N, _P, _P, _N, _P, _N, _P, _I, _I, _I, _I)
+HASH_JOIN_ARGTYPES = (_P, _P, _N, _P, _P, _N, _P, _N, _N, _P, _I, _I, _I,
+                      _I)
 
 K2 = CudaKernel("freq_join", "freq_join.cu", "repro_hash_join",
                 HASH_JOIN_ARGTYPES)
@@ -31,10 +32,15 @@ _MODES = {"sum": 0, "any": 1}
 _FDTYPES = {torch.int32: 0, torch.float32: 1}
 SIDES = {"child": 0, "parent": 1, "shared": 2}
 
-# A child of at most this many rows is built in each block's shared memory:
-# 2·2048 slots of 8 bytes and the side slot fit the 48 KiB a block gets
-# without opting in to more.
-SHARED_MAX_ROWS = 2048
+# A child of at most this many rows is built in each block's shared memory.
+# Its table (2·1024 slots of 8 bytes and the side slot) is well inside the
+# 48 KiB a block gets without opting in, which the C entry checks (it
+# refuses a shared table that does not fit, as that of a child of more
+# than 2048 rows would in sum mode and of more than 4096 in any mode).  The limit is measured: chip_smoke.py's
+# ``cutoff`` lines time the shared path against the child side at 512,
+# 1024 and 2048 child rows under 100k- and 8M-row parents; at 2048 the
+# shared path lost in device time on both parents, at 1024 it did not.
+SHARED_MAX_ROWS = 1024
 
 # Phases of the C entry, one bit each; ``hash_join`` runs them all.
 FILL, BUILD, PROBE, GATHER = 1, 2, 4, 8
@@ -59,7 +65,9 @@ def table_slots(n_build: int) -> int:
 def join_path(n_parent: int, n_child: int) -> JoinPath:
     """The path of a call, from the two lengths alone (no device sync): a
     child of at most ``SHARED_MAX_ROWS`` rows goes to shared memory; else
-    the table holds the shorter side, the child on a tie."""
+    the table holds the shorter side, the child on a tie (the child side
+    makes one pass fewer).  chip_smoke.py's ``cutoff`` lines time both
+    sides of each choice near where it flips."""
     if n_child <= SHARED_MAX_ROWS:
         return JoinPath("shared", table_slots(n_child))
     if n_parent < n_child:
@@ -78,15 +86,30 @@ def table_words(path: JoinPath, mode: str) -> int:
     return -(-per_slot * (path.slots + 1) // 4) * 4
 
 
+def prepare_call(parent_freq, n_child: int, mode: str,
+                 path: JoinPath | None = None):
+    """``(path, table, out)`` of one call: the path (``join_path`` of the
+    two lengths unless given), its table of ``table_words`` int32 words
+    (None on the shared path) and the output, both ``torch.empty`` on
+    ``parent_freq``'s device, for this call only."""
+    if path is None:
+        path = join_path(parent_freq.shape[0], n_child)
+    words = table_words(path, mode)
+    table = (torch.empty(words, dtype=torch.int32, device=parent_freq.device)
+             if words else None)
+    return path, table, torch.empty_like(parent_freq)
+
+
 def launch_phases(kernel: CudaKernel, path: JoinPath, mode: str, pk, pf, ck,
                   cf, table, out, phases: int) -> None:
     """Launch the ``phases`` of one call of ``repro_hash_join`` on the
-    current stream, with ``table`` (``table_words`` int32 words, or None
-    on the shared path) as scratch and the answer into ``out``; counts one
-    launch of ``path``."""
+    current stream, with ``table`` (from ``prepare_call``; the C entry
+    refuses one shorter than its layout needs) as scratch and the answer
+    into ``out``; counts one launch of ``path``."""
     kernel.launch(pk.device, pk.data_ptr(), pf.data_ptr(), pk.shape[0],
                   ck.data_ptr(), cf.data_ptr(), ck.shape[0],
-                  None if table is None else table.data_ptr(), path.slots,
+                  None if table is None else table.data_ptr(),
+                  0 if table is None else table.numel(), path.slots,
                   out.data_ptr(), _MODES[mode], _FDTYPES[pf.dtype],
                   SIDES[path.side], phases, path=path.side)
 
@@ -116,13 +139,9 @@ def hash_join(kernel: CudaKernel, parent_keys, parent_freq, child_keys,
     if parent_freq.shape[0] != np_ or child_freq.shape[0] != nc:
         raise ValueError(f"{kernel.name}: keys and frequencies differ in "
                          "length")
-    out = torch.empty_like(parent_freq)
     if np_ == 0:
-        return out
-    path = join_path(np_, nc)
-    words = table_words(path, mode)
-    table = (torch.empty(words, dtype=torch.int32, device=dev) if words
-             else None)
+        return torch.empty_like(parent_freq)
+    path, table, out = prepare_call(parent_freq, nc, mode)
     launch_phases(kernel, path, mode, parent_keys, parent_freq, child_keys,
                   child_freq, table, out, ALL_PHASES)
     return out

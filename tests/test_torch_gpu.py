@@ -20,6 +20,7 @@ from repro_torch.kernels import freq_join as tfj
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import segment_sum as tss
 from repro_torch.kernels import semi_join as tsj
+from repro_torch.kernels._build import KernelLaunchError
 
 pytestmark = pytest.mark.gpu
 
@@ -133,6 +134,39 @@ def test_empty_sides(cuda, np_, nc, mode):
         rng.integers(0, 4, nc).astype(np.int32))]
     got = tops.freq_join(*t, mode=mode)
     assert torch.equal(got, tfj.freq_join_plain(*t, mode=mode))
+
+
+@pytest.mark.parametrize("mode", ["sum", "any"])
+@pytest.mark.parametrize("side", ["child", "parent"])
+def test_short_table_is_refused(cuda, mode, side):
+    """The C entry checks the table it is handed against its own layout: a
+    table one 16-byte store short raises instead of writing past its end."""
+    rng = np.random.default_rng(6)
+    pk, pf, ck, cf = (torch.tensor(a, device=cuda) for a in (
+        rng.integers(0, 9, 5000).astype(np.int32),
+        rng.integers(0, 4, 5000).astype(np.int32),
+        rng.integers(0, 9, 7001).astype(np.int32),
+        rng.integers(0, 4, 7001).astype(np.int32)))
+    path = tfj.JoinPath(side, tfj.table_slots(5000 if side == "parent"
+                                              else 7001))
+    words = tfj.table_words(path, mode)
+    table = torch.empty(words - 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(KernelLaunchError):
+        tfj.launch_phases(tfj.K2, path, mode, pk, pf, ck, cf, table,
+                          torch.empty_like(pf), tfj.ALL_PHASES)
+
+
+@pytest.mark.parametrize("mode", ["sum", "any"])
+def test_shared_table_over_budget_is_refused(cuda, mode):
+    """A shared-memory table larger than a block's 48 KiB is refused by the
+    C entry (the row limit lives in ``join_path`` alone): 2^14 slots are
+    64 KiB even as bare keys."""
+    pk = torch.zeros(100, dtype=torch.int32, device=cuda)
+    ck = torch.zeros(4097, dtype=torch.int32, device=cuda)
+    path = tfj.JoinPath("shared", tfj.table_slots(ck.shape[0]))
+    with pytest.raises(KernelLaunchError):
+        tfj.launch_phases(tfj.K2, path, mode, pk, pk, ck, ck, None,
+                          torch.empty_like(pk), tfj.ALL_PHASES)
 
 
 @pytest.mark.parametrize("n", [1, 17, 1024, 1025, 300_001])

@@ -240,8 +240,8 @@ V1_EDGES = {"n⋉r": (25, 5), "s⋉n": (100_000, 25),
 
 @pytest.mark.parametrize("np_,nc,side,n_build", [
     (25, 5, "shared", 5), (100_000, 25, "shared", 25),
-    (0, 0, "shared", 0), (10, 2048, "shared", 2048),
-    (2049, 2049, "child", 2049), (2048, 2049, "parent", 2048),
+    (0, 0, "shared", 0), (10, 1024, "shared", 1024),
+    (1025, 1025, "child", 1025), (1024, 1025, "parent", 1024),
     (8_000_000, 2_000_000, "child", 2_000_000),
     (100_000, 8_000_000, "parent", 100_000),
     (8_000_000, 100_000, "child", 100_000), (0, 5000, "parent", 0),
@@ -281,3 +281,23 @@ def test_shared_table_fits_a_blocks_default_shared_memory():
     slots = tfj.table_slots(tfj.SHARED_MAX_ROWS)
     assert 4 * tfj.table_words(tfj.JoinPath("child", slots), "sum") \
         <= 48 * 1024
+
+
+@pytest.mark.parametrize("np_,nc,mode", [
+    (25, 5, "any"), (100_000, 25, "sum"), (9000, 3000, "any"),
+    (9000, 3000, "sum"), (3000, 9000, "any"), (3000, 9000, "sum"),
+])
+def test_prepare_call_allocates_the_paths_table(np_, nc, mode):
+    """``prepare_call`` takes ``join_path``'s path unless given one, and
+    allocates that path's table (``table_words`` int32 words, none on the
+    shared path) and an output like the parent frequencies."""
+    pf = torch.zeros(np_, dtype=torch.float32)
+    for given in (None, tfj.JoinPath("child", tfj.table_slots(nc))):
+        path, table, out = tfj.prepare_call(pf, nc, mode, given)
+        assert path == (given or tfj.join_path(np_, nc))
+        words = tfj.table_words(path, mode)
+        if words:
+            assert table.dtype == torch.int32 and table.numel() == words
+        else:
+            assert table is None and path.side == "shared"
+        assert out.shape == pf.shape and out.dtype == pf.dtype
