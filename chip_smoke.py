@@ -24,9 +24,16 @@ is split into its phases (fill, build, probe, gather) by CUDA events.  Both
 sides of each of ``freq_join.join_path``'s choices (shared memory or the
 child side for a child at the row limit, the parent or the child side at
 equal lengths) are timed on the same synthetic inputs near where it flips.
+K3 is also held against its plain version with one key over 8M rows and with
+every row its own run (bitwise, float32 too: its values there are small
+integers), and on views at storage offsets 1-3; each main-path
+K3 call is timed beside ``torch.cumsum`` of its values (``cumsum_ms``,
+device time), a single-pass scan that moves 8 of K3's 13 bytes a row: a
+yardstick of the card's scan rate, not a library call of the same function.
 
 Prints the card's name and power limit, one JSON line per kernel call, per
-phase split and per cut-off case, one JSON line per query with its times, one per query with
+phase split, per cut-off case and per timed K3 case (``segsum_case``), one
+JSON line per query with its times, one per query with
 its device time by kernel from ``torch.profiler``, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
 library time, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -268,13 +275,58 @@ def cutoff_lines(torch, fj, kernels, dev) -> list[dict]:
     return lines
 
 
-def check_segsum(torch, kern, plain, errs, tag, keys, vals):
+def check_segsum(torch, kern, plain, errs, tag, keys, vals, exact=False):
+    """``exact``: float32 values whose every partial sum is exact (integers
+    below 2^24 in magnitude), so the sums are held bitwise."""
     got_s, got_v = kern(keys, vals)
     want_s, want_v = plain(keys, vals)
     torch.cuda.synchronize()
     errs.append(compare(torch, tag + " valid", got_v, want_v, 0.0))
-    errs.append(compare(torch, tag + " sums", got_s, want_s,
-                        segsum_tolerance(torch, plain, keys, vals)))
+    tol = 0.0 if exact else segsum_tolerance(torch, plain, keys, vals)
+    errs.append(compare(torch, tag + " sums", got_s, want_s, tol))
+
+
+def segsum_cases(torch, ss, errs, dev) -> list[dict]:
+    """K3 cases the join-derived ones miss, held against the plain version:
+    at 8M rows one key over all rows (every tile but the first walks back
+    through tiles with no run start) and every row its own run (no tile
+    walks back), int32 over the whole int32 range and float32 of integer
+    values in {-1, 0, 1}, whose partial sums stay exact below 2^24, so both
+    are held bitwise (a lost carry shows), each timed (device ms, queued);
+    and views at storage offsets 1-3 (not 16-byte aligned: the kernel's
+    scalar path) of lengths tile-1, tile and tile+1, checked only.  Returns one ``segsum_case`` line per timed case."""
+    rng = np.random.default_rng(SEED + 3)
+    n = 8_000_000
+    lines = []
+    for tag, keys in (("one key", torch.full((n,), 7, dtype=torch.int32,
+                                            device=dev)),
+                      ("every row a run", torch.arange(
+                          n, dtype=torch.int32, device=dev))):
+        line = {"segsum_case": tag, "shape": [n],
+                "bound_ms": bound_ms(segsum_bytes(n))}
+        for dt, vals in (("int32", rng.integers(-2**31, 2**31, n,
+                                                dtype=np.int32)),
+                         ("float32", rng.integers(-1, 2, n)
+                          .astype(np.float32))):
+            v = torch.tensor(vals, device=dev)
+            check_segsum(torch, ss.segment_sum_cuda, ss.segment_sum_plain,
+                         errs, f"segment_sum {tag} {dt}", keys, v,
+                         exact=True)
+            line[f"{dt}_device_ms"] = time_ms(
+                torch, lambda: ss.segment_sum_cuda(keys, v), queued=True)
+        lines.append(line)
+    for off in (1, 2, 3):
+        for m in (ss.TILE - 1, ss.TILE, ss.TILE + 1):
+            kb = torch.tensor(np.sort(rng.integers(0, m // 40 + 2, m + 3))
+                              .astype(np.int32), device=dev)
+            for dt in (np.int32, np.float32):
+                vb = torch.tensor(rng.integers(-9, 9, m + 3).astype(dt),
+                                  device=dev)
+                check_segsum(torch, ss.segment_sum_cuda,
+                             ss.segment_sum_plain, errs,
+                             f"segment_sum offset {off} length {m}",
+                             kb[off:off + m], vb[off:off + m])
+    return lines
 
 
 def synthetic_cases(torch, make_graph_db, dev):
@@ -540,6 +592,11 @@ def main() -> int:
             if name == "semi_join":
                 line["library_ms"] = isin_ms(torch, i, *args)
                 timing[name]["library_ms"] += line["library_ms"]
+            if name == "segment_sum":
+                v = args[1]
+                line["cumsum_ms"] = time_ms(
+                    torch, lambda: torch.cumsum(v, 0, dtype=v.dtype),
+                    queued=True)
             log(json.dumps(line))
     joins = (("semi_join", "any"), ("freq_join", "sum"))
     for _, _, k in kernels.values():
@@ -569,6 +626,8 @@ def main() -> int:
         keys = torch.sort(ck).values
         check_segsum(torch, ss.segment_sum_cuda, ss.segment_sum_plain,
                      errs["segment_sum"], f"segment_sum {tag}", keys, cf)
+    for line in segsum_cases(torch, ss, errs["segment_sum"], dev):
+        log(json.dumps(line))
     log(json.dumps({"synthetic_paths": took_every_path(
         kernels, joins, fj.SIDES, "the synthetic cases"),
         "side_slot_hits": side_hits}))

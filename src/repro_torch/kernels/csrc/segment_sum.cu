@@ -1,4 +1,5 @@
-// Sorted GROUP BY SUM (K3) as a three-pass segmented scan, for sm_90a.
+// Sorted GROUP BY SUM (K3) as one single-pass segmented scan with
+// decoupled look-back, for sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/segment_sum.py
 // (segment_sum_pallas / _segment_sum_kernel).  Over key-sorted
@@ -7,45 +8,107 @@
 //                is the LAST row of its run, else 0
 //     valid[i] = row i is the last row of its run (the end of the array
 //                always ends a run)
-// The TPU kernel walks the blocks in grid order and carries the sum of a run
-// that spans blocks in an SMEM scalar.  A CUDA grid runs its blocks in no
-// order, so the carry becomes a pass of its own:
+// The TPU kernel walks the blocks in grid order and carries the sum of a
+// run that spans blocks in an SMEM scalar.  Here every block scans one tile
+// of kTile rows and learns the carry that enters it from its predecessors'
+// published states, in the same launch.
 //
-//   1. tile_scan: one block per 1024-row tile, staged through shared memory
-//      with coalesced loads.  Each thread scans its 4 rows (restarting at run
-//      starts), the block scans the 256 thread aggregates with warp shuffles
-//      under the segmented operator (s1,f1)+(s2,f2) = (f2 ? s2 : s1+s2,
-//      f1|f2), and writes sums and valid as if no run entered the tile from
-//      the left.  It also writes the tile's aggregate (sum since its last run
-//      start, or of the whole tile) and the offset of its first run start.
-//   2. tile_carry: one block scans the tile aggregates in tile order into
-//      the carry that enters each tile from the left.
-//   3. fix_up: rows before a tile's first run start continue the carried
-//      run, and only the last of them can be a run's last row, so one thread
-//      per tile adds the carry to that one row if it is valid.
+// Bound on an H100 (3.35 TB/s): the bytes the function must move, 13 per
+// row (keys and values read, sums written, 4 B each; valid written as one
+// byte).  The tile states add 12 bytes per kTile rows.
 //
-// int32 values add in uint32: wrap-around addition is associative, so the
-// result equals the reference bit for bit whatever the order.  float32 sums
-// are taken in another order than the reference's and differ in rounding.
+// What the design does about the faults of the three-pass version it
+// replaces (tile scan, a one-block carry scan over all tiles, a fix-up):
 //
-// Bound on an H100 (3.35 TB/s): the bytes the function must move, 13*n
-// (keys and values read, sums written, valid written as one byte); the tile
-// aggregates add 12 bytes per 1024 rows.  The wrapper allocates them.
+//   1. One launch.  A block takes its tile from an atomic counter, so every
+//      tile it waits on has started and the look-back cannot deadlock.  It
+//      scans its tile to a segmented aggregate (sum since the tile's last
+//      run start, or of the whole tile; flag = a run starts in the tile) and
+//      publishes it in a 64-bit state word {status, value} with one release
+//      store.  A tile whose flag is set holds its own carry-out, so it
+//      publishes "prefix" (P) at once; a tile with no run start publishes
+//      "aggregate" (A), and its carry-out (P) once its look-back ends.  The
+//      carry that enters a tile changes one row at most: the run end before
+//      its first run start (in a tile with no run start, its last row).  So
+//      every warp writes its rows at once, and only the warp that holds that
+//      row (or, in a tile with no run start, the last warp) walks back, 32
+//      predecessors a step with acquire loads, to the nearest P: for runs
+//      shorter than a tile, the previous tile.  Then it rewrites that row.
+//      A call of more than one tile clears its scratch (counter and states)
+//      with one cudaMemsetAsync first; a call of one tile needs none.
+//   2. 16-byte accesses.  Each of the 256 threads owns kItems consecutive
+//      rows: keys and values load as int4 and sums store as int4, the
+//      kItems valid bytes as one word.  Neighbour keys come from the next
+//      lane by warp shuffles; lanes 0 and 31 load the one key before
+//      and after their warp's rows (a cache hit but at the tile's edges).
+//      A scalar path in the same kernel takes the ragged last tile and
+//      base pointers that are not 16-byte aligned (a view at a storage
+//      offset).
+//   3. A lean host path: the wrapper allocates sums, valid and, above one
+//      tile, one scratch tensor, whose length the C entry checks.
+//
+// Fixed combine order.  No value is ever added atomically.  The look-back
+// finds the nearest P, then folds the aggregates of the tiles after it in
+// tile order, left to right, onto P's value.  A P published by a tile with
+// no run start was folded the same way, so whichever P a walk stops at, the
+// carry is the same left fold from the tile where the run started: float32
+// results are bitwise the same from run to run.  int32 values add in
+// uint32, which wraps as the reference does; wrap-around addition is
+// associative, so int32 results equal the reference bit for bit.  float32
+// sums are taken in another order than the reference's and differ in
+// rounding.
+//
+// Chosen on an H100 by a sweep of these constants (PERF.md, section 6):
+// 256 threads of 8 rows at 6 blocks per SM, against 4 or 16 rows, 128 or
+// 512 threads, and no or 8 blocks per SM.  Tried and dropped: a hand-over
+// box per tile in which the carry and the row that needs it meet, written
+// by whichever comes second, so that no warp waits on a predecessor.  It
+// was slower on every case timed: the hand-over's acq_rel update drains
+// the thread's row stores before it, where the look-back's release store
+// comes before them.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 4;
+constexpr int kItems = 8;  // rows per thread: 4, 8 or 16
 constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCarryThreads = 1024;
+// blocks the compiler must fit on one SM: 6 caps a thread at 40 registers
+constexpr int kMinBlocks = 6;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kItems == 4 || kItems == 8 || kItems == 16,
+              "a thread's valid bytes are one 4-, 8- or 16-byte store");
+
+// status in a tile state's high word; its low word holds the value's bits
+constexpr uint32_t kAggregate = 1, kPrefix = 2;
 
 template <typename T> struct Acc;
 template <> struct Acc<int32_t> { using T = uint32_t; };
 template <> struct Acc<float> { using T = float; };
+
+__device__ __forceinline__ uint32_t bits(uint32_t x) { return x; }
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+template <typename A> __device__ __forceinline__ A from_bits(uint32_t x);
+template <> __device__ __forceinline__ uint32_t from_bits(uint32_t x) {
+  return x;
+}
+template <> __device__ __forceinline__ float from_bits(uint32_t x) {
+  return __uint_as_float(x);
+}
+
+using State = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
+using Word = cuda::atomic_ref<uint32_t, cuda::thread_scope_device>;
+
+// scratch layout, in uint32 words: [0] tile counter, [1] unused,
+// [2, 2 + 2*nt) tile states (8-byte aligned), [2 + 2*nt, 2 + 3*nt) the
+// aggregates of tiles with no run start.  Only counter and states need
+// clearing.
+long long scratch_words(long long nt) { return 2 + 3 * nt; }
+long long cleared_words(long long nt) { return 2 + 2 * nt; }
 
 template <typename A>
 struct Seg {
@@ -64,186 +127,244 @@ template <typename A>
 __device__ __forceinline__ Seg<A> warp_scan(Seg<A> s, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    A os = __shfl_up_sync(0xffffffffu, s.sum, off);
-    int of = __shfl_up_sync(0xffffffffu, s.flag, off);
+    const A os = __shfl_up_sync(kFull, s.sum, off);
+    const int of = __shfl_up_sync(kFull, s.flag, off);
     if (lane >= off) s = combine(Seg<A>{os, of}, s);
   }
   return s;
 }
 
-// exclusive scan of one Seg per thread over the block; the block total goes
-// to *total.  wsum/wflag hold one entry per warp.
-template <typename A, int kBlockWarps>
-__device__ __forceinline__ Seg<A> block_exclusive(Seg<A> s, A* wsum, int* wflag,
-                                                  Seg<A>* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Seg<A> incl = warp_scan(s, lane);
-  A ps = __shfl_up_sync(0xffffffffu, incl.sum, 1);
-  int pf = __shfl_up_sync(0xffffffffu, incl.flag, 1);
-  Seg<A> excl = lane == 0 ? Seg<A>{A(0), 0} : Seg<A>{ps, pf};
-  if (lane == 31) {
-    wsum[warp] = incl.sum;
-    wflag[warp] = incl.flag;
+__device__ __forceinline__ void publish(unsigned long long* states, int tile,
+                                        uint32_t status, uint32_t value) {
+  State(states[tile]).store(((unsigned long long)status << 32) | value,
+                            cuda::memory_order_release);
+}
+
+// The carry that enters `tile` from the left: the sum of the run open at
+// the end of tile - 1.  Run by all lanes of one warp; each returns it.
+template <typename A>
+__device__ A look_back(unsigned long long* states, uint32_t* aggs, int tile,
+                       int lane) {
+  // 1. the nearest predecessor q whose state is P: lane k reads tile w - k
+  int q;
+  uint32_t pq;
+  for (int w = tile - 1;; w -= 32) {
+    const int p = w - lane;
+    unsigned long long s;
+    unsigned ready, prefix;
+    do {
+      // tile 0 always holds a run start, so the walk finds a P at p >= 0
+      s = p >= 0 ? State(states[p]).load(cuda::memory_order_acquire)
+                 : (unsigned long long)kPrefix << 32;
+      const uint32_t status = (uint32_t)(s >> 32);
+      prefix = __ballot_sync(kFull, status == kPrefix);
+      ready = __ballot_sync(kFull, status != 0);
+      // wait only for the lanes up to the nearest P
+    } while (~ready & (prefix ? (prefix ^ (prefix - 1)) : kFull));
+    if (prefix) {
+      const int k = __ffs(prefix) - 1;
+      q = w - k;
+      pq = __shfl_sync(kFull, (uint32_t)s, k);
+      break;
+    }
   }
-  __syncthreads();
-  Seg<A> before{A(0), 0};
-  for (int w = 0; w < warp; ++w) before = combine(before, Seg<A>{wsum[w], wflag[w]});
-  Seg<A> all{A(0), 0};
-  for (int w = 0; w < kBlockWarps; ++w) all = combine(all, Seg<A>{wsum[w], wflag[w]});
-  *total = all;
-  __syncthreads();  // wsum/wflag may be reused after return
-  return combine(before, excl);
+  // 2. fold the aggregates of tiles q+1 .. tile-1 onto P, in tile order
+  A carry = from_bits<A>(pq);
+  for (int w = q + 1; w < tile; w += 32) {
+    const int p = w + lane;
+    A v = A(0);
+    if (p < tile) {
+      State(states[p]).load(cuda::memory_order_acquire);  // at least A
+      v = from_bits<A>(Word(aggs[p]).load(cuda::memory_order_relaxed));
+    }
+    const int m = min(32, tile - w);
+    for (int i = 0; i < m; ++i) carry = carry + __shfl_sync(kFull, v, i);
+  }
+  return carry;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tile_scan(const int32_t* __restrict__ keys, const T* __restrict__ vals,
-          long long n, T* __restrict__ sums, bool* __restrict__ valid,
-          typename Acc<T>::T* __restrict__ tile_agg,
-          int32_t* __restrict__ tile_first) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+segment_scan(const int32_t* __restrict__ keys, const T* __restrict__ vals,
+             long long n, int aligned, T* __restrict__ sums,
+             uint8_t* __restrict__ valid, uint32_t* __restrict__ scratch) {
   using A = typename Acc<T>::T;
-  __shared__ int32_t skeys[kTile + 2];  // skeys[j + 1] = keys[base + j]
-  __shared__ A svals[kTile];
+  __shared__ int s_tile;
   __shared__ A wsum[kWarps];
   __shared__ int wflag[kWarps];
-  __shared__ int first;
 
-  const long long base = (long long)blockIdx.x * kTile;
-  const int t = threadIdx.x;
-  for (int j = t; j < kTile; j += kThreads) {
-    const long long i = base + j;
-    skeys[j + 1] = i < n ? keys[i] : 0;
-    svals[j] = i < n ? (A)vals[i] : A(0);
-  }
-  if (t == 0) {
-    skeys[0] = base > 0 ? keys[base - 1] : 0;
-    first = kTile;
-  }
-  if (t == 1) skeys[kTile + 1] = base + kTile < n ? keys[base + kTile] : 0;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool multi = scratch != nullptr;
+  if (t == 0) s_tile = multi ? (int)atomicAdd(scratch, 1u) : 0;
   __syncthreads();
+  const int tile = s_tile;
+  const long long nt = (n + kTile - 1) / kTile;
+  unsigned long long* states =
+      multi ? (unsigned long long*)(scratch + 2) : nullptr;
+  uint32_t* aggs = multi ? scratch + 2 + 2 * nt : nullptr;
 
-  A incl[kItems];
-  bool last[kItems];
-  A run = A(0);
-  int tflag = 0, tfirst = kTile;
+  const long long base = (long long)tile * kTile;
+  const long long row0 = base + (long long)t * kItems;
+  const bool vec = aligned && base + kTile <= n;
+
+  int32_t k[kItems];
+  A v[kItems];
+  if (vec) {
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = t * kItems + k;
-    const long long i = base + j;
-    const bool in = i < n;
-    const bool start = in && (i == 0 || skeys[j] != skeys[j + 1]);
-    last[k] = in && (i == n - 1 || skeys[j + 1] != skeys[j + 2]);
-    if (start) {
-      run = svals[j];
-      if (!tflag) tfirst = j;
-      tflag = 1;
-    } else {
-      run = run + svals[j];
+    for (int j = 0; j < kItems; j += 4) {
+      const int4 kk = __ldg((const int4*)(keys + row0 + j));
+      const int4 vv = __ldg((const int4*)(vals + row0 + j));
+      k[j] = kk.x, k[j + 1] = kk.y, k[j + 2] = kk.z, k[j + 3] = kk.w;
+      v[j] = from_bits<A>(vv.x), v[j + 1] = from_bits<A>(vv.y);
+      v[j + 2] = from_bits<A>(vv.z), v[j + 3] = from_bits<A>(vv.w);
     }
-    incl[k] = run;
-  }
-  if (tflag) atomicMin(&first, tfirst);
-
-  Seg<A> total;
-  const Seg<A> prefix =
-      block_exclusive<A, kWarps>(Seg<A>{run, tflag}, wsum, wflag, &total);
-  bool started = false;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = t * kItems + k;
-    const long long i = base + j;
-    started = started || (tflag && j >= tfirst);
-    const A v = started ? incl[k] : prefix.sum + incl[k];
-    if (i < n) {
-      sums[i] = last[k] ? (T)v : T(0);
-      valid[i] = last[k];
-    }
-  }
-  __syncthreads();  // `first` is final
-  if (t == 0) {
-    tile_agg[blockIdx.x] = total.sum;
-    tile_first[blockIdx.x] = first;
-  }
-}
-
-// carry[b] = sum of the run that enters tile b from the left (exclusive
-// segmented scan of the tile aggregates), for nt tiles, in one block.
-template <typename A>
-__global__ void __launch_bounds__(kCarryThreads)
-tile_carry(const A* __restrict__ tile_agg, const int32_t* __restrict__ tile_first,
-           long long nt, A* __restrict__ carry) {
-  constexpr int kW = kCarryThreads / 32;
-  __shared__ A wsum[kW];
-  __shared__ int wflag[kW];
-  Seg<A> running{A(0), 0};
-  for (long long c = 0; c < nt; c += kCarryThreads) {
-    const long long b = c + threadIdx.x;
-    Seg<A> s{A(0), 0};
-    if (b < nt) s = Seg<A>{tile_agg[b], tile_first[b] < kTile};
-    Seg<A> total;
-    const Seg<A> excl = block_exclusive<A, kW>(s, wsum, wflag, &total);
-    if (b < nt) carry[b] = combine(running, excl).sum;
-    running = combine(running, total);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fix_up(long long n, long long nt, const int32_t* __restrict__ tile_first,
-       const typename Acc<T>::T* __restrict__ carry, T* __restrict__ sums,
-       const bool* __restrict__ valid) {
-  using A = typename Acc<T>::T;
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nt || b == 0) return;  // row 0 always starts a run
-  const int f = tile_first[b];
-  if (f == 0) return;             // the tile starts with a run start
-  const long long base = b * kTile;
-  long long r;
-  if (f < kTile) {
-    r = base + f - 1;             // always the last row of the carried run
   } else {
-    r = base + kTile < n ? base + kTile - 1 : n - 1;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = row0 + j;
+      k[j] = i < n ? keys[i] : 0;
+      v[j] = i < n ? (A)vals[i] : A(0);
+    }
   }
-  if (valid[r]) sums[r] = (T)((A)sums[r] + carry[b]);
+  // the keys just before and just after this thread's rows
+  int32_t kprev = __shfl_up_sync(kFull, k[kItems - 1], 1);
+  int32_t knext = __shfl_down_sync(kFull, k[0], 1);
+  if (lane == 0) kprev = row0 > 0 && row0 <= n ? keys[row0 - 1] : 0;
+  if (lane == 31) knext = row0 + kItems < n ? keys[row0 + kItems] : 0;
+
+  // run starts and run ends, and the scan of this thread's rows
+  bool start[kItems], last[kItems];
+  A incl[kItems];
+  A run = A(0);
+  int tflag = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = row0 + j;
+    const bool in = i < n;
+    start[j] = in && (i == 0 || k[j] != (j ? k[j - 1] : kprev));
+    last[j] = in && (i == n - 1 ||
+                     k[j] != (j + 1 < kItems ? k[j + 1] : knext));
+    run = start[j] ? v[j] : run + v[j];
+    tflag |= start[j];
+    incl[j] = run;
+  }
+
+  // segmented exclusive scan of the thread aggregates over the block
+  const Seg<A> winc = warp_scan(Seg<A>{run, tflag}, lane);
+  const A xs = __shfl_up_sync(kFull, winc.sum, 1);
+  const int xf = __shfl_up_sync(kFull, winc.flag, 1);
+  Seg<A> prefix = lane == 0 ? Seg<A>{A(0), 0} : Seg<A>{xs, xf};
+  if (lane == 31) {
+    wsum[warp] = winc.sum;
+    wflag[warp] = winc.flag;
+  }
+  __syncthreads();
+  Seg<A> before{A(0), 0}, total{A(0), 0};
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const Seg<A> ws{wsum[w], wflag[w]};
+    if (w < warp) before = combine(before, ws);
+    total = combine(total, ws);
+  }
+  prefix = combine(before, prefix);
+
+  // Every row once, with the carry from the left left out: the one row
+  // that needs it is the run end before the tile's first run start (or, in
+  // a tile with no run start, its last row), if there is one.
+  A out[kItems], fix_val = A(0);
+  int fix = -1;
+  bool seen = false;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    seen = seen || start[j];
+    const A x = seen ? incl[j] : prefix.sum + incl[j];
+    out[j] = last[j] ? x : A(0);
+    if (last[j] && !seen && !prefix.flag) fix = j, fix_val = x;
+  }
+  if (multi && total.flag && t == 0)
+    publish(states, tile, kPrefix, bits(total.sum));
+  if (vec) {
+    uint32_t vw[kItems / 4];
+#pragma unroll
+    for (int j = 0; j < kItems; j += 4) {
+      *(uint4*)(sums + row0 + j) =
+          make_uint4(bits(out[j]), bits(out[j + 1]), bits(out[j + 2]),
+                     bits(out[j + 3]));
+      vw[j / 4] = (uint32_t)last[j] | (uint32_t)last[j + 1] << 8 |
+                  (uint32_t)last[j + 2] << 16 | (uint32_t)last[j + 3] << 24;
+    }
+    if constexpr (kItems == 4) {
+      *(uint32_t*)(valid + row0) = vw[0];
+    } else if constexpr (kItems == 8) {
+      *(uint2*)(valid + row0) = make_uint2(vw[0], vw[1]);
+    } else {
+      *(uint4*)(valid + row0) = make_uint4(vw[0], vw[1], vw[2], vw[3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = row0 + j;
+      if (i < n) {
+        sums[i] = (T)out[j];
+        valid[i] = last[j];
+      }
+    }
+  }
+  if (!multi) return;
+
+  // One warp learns the carry: the warp that holds the row that needs it,
+  // and in a tile with no run start that has a successor, the last warp,
+  // which publishes the tile's aggregate first and its carry-out after.
+  const bool pub = !total.flag && warp == kWarps - 1 && tile + 1 < nt;
+  if (!__any_sync(kFull, fix >= 0) && !pub) return;
+  if (pub && lane == 0) {
+    Word(aggs[tile]).store(bits(total.sum), cuda::memory_order_relaxed);
+    publish(states, tile, kAggregate, bits(total.sum));
+  }
+  const A carry = look_back<A>(states, aggs, tile, lane);
+  if (pub && lane == 0) publish(states, tile, kPrefix, bits(carry + total.sum));
+  if (fix >= 0) sums[row0 + fix] = (T)(carry + fix_val);
 }
 
 template <typename T>
 int run(const void* keys, const void* vals, long long n, void* sums,
-        void* valid, void* tile_agg, void* tile_first, void* carry,
-        cudaStream_t stream) {
-  using A = typename Acc<T>::T;
-  if (n <= 0) return (int)cudaGetLastError();
+        void* valid, uint32_t* scratch, cudaStream_t stream) {
   const long long nt = (n + kTile - 1) / kTile;
-  if (nt > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  tile_scan<T><<<(unsigned)nt, kThreads, 0, stream>>>(
-      (const int32_t*)keys, (const T*)vals, n, (T*)sums, (bool*)valid,
-      (A*)tile_agg, (int32_t*)tile_first);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nt == 1) return (int)err;
-  tile_carry<A><<<1, kCarryThreads, 0, stream>>>(
-      (const A*)tile_agg, (const int32_t*)tile_first, nt, (A*)carry);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fix_up<T><<<(unsigned)((nt + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      n, nt, (const int32_t*)tile_first, (const A*)carry, (T*)sums,
-      (const bool*)valid);
+  const int aligned =
+      ((uintptr_t)keys | (uintptr_t)vals | (uintptr_t)sums) % 16 == 0 &&
+      (uintptr_t)valid % kItems == 0;
+  if (nt > 1) {
+    const cudaError_t err =
+        cudaMemsetAsync(scratch, 0, 4 * cleared_words(nt), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  segment_scan<T><<<(unsigned)nt, kThreads, 0, stream>>>(
+      (const int32_t*)keys, (const T*)vals, n, aligned, (T*)sums,
+      (uint8_t*)valid, nt > 1 ? scratch : nullptr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // keys: int32[n], sorted.  vals and sums: vdtype 0 = int32, 1 = float32.
-// valid: bool[n].  tile_agg and carry: ceil(n/tile) of the accumulator type
-// (uint32 or float32), tile_first: ceil(n/tile) int32, tile = 1024 rows.
-// Returns cudaGetLastError().
+// valid: bool[n].  tile: the caller's rows per tile, which must be kTile.
+// scratch: scratch_len uint32 words, at least 2 + 3*ceil(n/tile) when n >
+// tile (the C entry clears what it needs), unused (may be null) when n <=
+// tile.  Launches nothing for n <= 0.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a tile, scratch or vdtype it does not take.
 extern "C" int repro_segment_sum(const void* keys, const void* vals,
                                  long long n, void* sums, void* valid,
-                                 void* tile_agg, void* tile_first, void* carry,
-                                 int vdtype, void* stream) {
+                                 void* scratch, long long scratch_len,
+                                 int tile, int vdtype, void* stream) {
+  if (tile != kTile || (vdtype != 0 && vdtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  const long long nt = (n + kTile - 1) / kTile;
+  if (nt > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  if (nt > 1 && (scratch == nullptr || scratch_len < scratch_words(nt)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vdtype == 0)
-    return run<int32_t>(keys, vals, n, sums, valid, tile_agg, tile_first, carry, s);
-  if (vdtype == 1)
-    return run<float>(keys, vals, n, sums, valid, tile_agg, tile_first, carry, s);
-  return (int)cudaErrorInvalidValue;
+  uint32_t* w = (uint32_t*)scratch;
+  if (vdtype == 0) return run<int32_t>(keys, vals, n, sums, valid, w, s);
+  return run<float>(keys, vals, n, sums, valid, w, s);
 }

@@ -17,10 +17,43 @@ from repro_torch.kernels._build import CudaKernel
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 K3 = CudaKernel("segment_sum", "segment_sum.cu", "repro_segment_sum",
-                (_P, _P, _N, _P, _P, _P, _P, _P, _I))
+                (_P, _P, _N, _P, _P, _P, _N, _I, _I))
 
-TILE = 1024  # rows per block of the tile scan: kTile in csrc/segment_sum.cu
+TILE = 2048  # rows per block of the scan: kTile in csrc/segment_sum.cu
 _VDTYPES = {torch.int32: 0, torch.float32: 1}
+
+
+def scratch_words(n: int) -> int:
+    """int32 words of the scratch a call of ``n`` rows needs: none for one
+    tile, else the tile counter and a spare word, one 8-byte state per tile
+    and one aggregate per tile."""
+    if n <= TILE:
+        return 0
+    return 2 + 3 * -(-n // TILE)
+
+
+def prepare_call(values):
+    """``(sums, valid, scratch)`` of one call over ``values``, all
+    ``torch.empty`` on its device: ``scratch`` holds ``scratch_words``
+    int32 words (None for a call of at most one tile), which the C entry
+    clears itself."""
+    n = values.shape[0]
+    words = scratch_words(n)
+    scratch = (torch.empty(words, dtype=torch.int32, device=values.device)
+               if words else None)
+    return (torch.empty_like(values),
+            torch.empty(n, dtype=torch.bool, device=values.device), scratch)
+
+
+def launch_call(sorted_keys, values, sums, valid, scratch) -> None:
+    """Launch K3 on the current stream with the outputs and scratch of
+    ``prepare_call`` (the C entry refuses a scratch shorter than its layout
+    needs); counts one launch."""
+    K3.launch(sorted_keys.device, sorted_keys.data_ptr(), values.data_ptr(),
+              sorted_keys.shape[0], sums.data_ptr(), valid.data_ptr(),
+              None if scratch is None else scratch.data_ptr(),
+              0 if scratch is None else scratch.numel(), TILE,
+              _VDTYPES[values.dtype])
 
 
 def segment_sum_cuda(sorted_keys, values):
@@ -38,16 +71,9 @@ def segment_sum_cuda(sorted_keys, values):
             or not sorted_keys.is_contiguous() or not values.is_contiguous():
         raise ValueError("segment_sum: keys and values must be 1-D, "
                          "contiguous and of one length")
-    n = sorted_keys.shape[0]
-    n_tiles = max(1, -(-n // TILE))
-    sums = torch.empty_like(values)
-    valid = torch.empty(n, dtype=torch.bool, device=dev)
-    tile_agg = torch.empty(n_tiles, dtype=values.dtype, device=dev)
-    tile_first = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    carry = torch.empty(n_tiles, dtype=values.dtype, device=dev)
-    K3.launch(dev, sorted_keys.data_ptr(), values.data_ptr(), n,
-              sums.data_ptr(), valid.data_ptr(), tile_agg.data_ptr(),
-              tile_first.data_ptr(), carry.data_ptr(), _VDTYPES[values.dtype])
+    sums, valid, scratch = prepare_call(values)
+    if sorted_keys.shape[0]:
+        launch_call(sorted_keys, values, sums, valid, scratch)
     return sums, valid
 
 

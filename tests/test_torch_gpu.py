@@ -169,7 +169,11 @@ def test_shared_table_over_budget_is_refused(cuda, mode):
                           torch.empty_like(pk), tfj.ALL_PHASES)
 
 
-@pytest.mark.parametrize("n", [1, 17, 1024, 1025, 300_001])
+TILE = tss.TILE
+
+
+@pytest.mark.parametrize("n", [1, 17, 1024, 1025, 300_001, 0, TILE - 1,
+                               TILE, TILE + 1, 3 * TILE + 5, 1 << 23])
 @pytest.mark.parametrize("vdt", [np.int32, np.float32])
 def test_segment_sum_matches_plain(cuda, n, vdt):
     rng = np.random.default_rng(n)
@@ -179,6 +183,101 @@ def test_segment_sum_matches_plain(cuda, n, vdt):
     got = tops.segment_sum_sorted(k, v)
     want = tss.segment_sum_plain(k, v)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _segsum_equal(k, v):
+    got = tss.segment_sum_cuda(k, v)
+    want = tss.segment_sum_plain(k, v)
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("keys", ["one run", "every row a run"])
+@pytest.mark.parametrize("vdt", [np.int32, np.float32])
+def test_segment_sum_one_run_and_every_row_a_run(cuda, keys, vdt):
+    """One key over 2^20 rows (every tile but the first walks back through
+    tiles with no run start) and every row its own run (none walks back);
+    integer-valued, so float32 sums are exact too."""
+    n = 1 << 20
+    k = (torch.full((n,), -4, dtype=torch.int32, device=cuda)
+         if keys == "one run"
+         else torch.arange(n, dtype=torch.int32, device=cuda))
+    rng = np.random.default_rng(7)
+    v = torch.tensor(rng.integers(-3, 5, n).astype(vdt), device=cuda)
+    assert _segsum_equal(k, v)
+
+
+@pytest.mark.parametrize("run", [1, 80, 5 * TILE])
+def test_segment_sum_int32_wraps(cuda, run):
+    """int32 values over the whole int32 range add in uint32 and wrap, as
+    the plain version's int32 scatter-add does."""
+    n = 4 * TILE * 5 + 3
+    rng = np.random.default_rng(run)
+    k = torch.tensor(np.arange(n, dtype=np.int32) // run, device=cuda)
+    v = torch.tensor(rng.integers(I32.min, I32.max, n, endpoint=True,
+                                  dtype=np.int32), device=cuda)
+    assert _segsum_equal(k, v)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("which", ["keys", "values", "both"])
+@pytest.mark.parametrize("n", [TILE - 1, TILE + 1, 3 * TILE + 5])
+def test_segment_sum_misaligned_views(cuda, offset, which, n):
+    """Views at a storage offset are not 16-byte aligned: the kernel takes
+    its scalar path for them."""
+    rng = np.random.default_rng([offset, n])
+    kb = torch.tensor(np.sort(rng.integers(0, n // 50 + 2, n + 3))
+                      .astype(np.int32), device=cuda)
+    vb = torch.tensor(rng.integers(-9, 9, n + 3).astype(np.int32),
+                      device=cuda)
+    ko = offset if which in ("keys", "both") else 0
+    vo = offset if which in ("values", "both") else 0
+    k, v = kb[ko:ko + n], vb[vo:vo + n]
+    assert k.is_contiguous() and v.is_contiguous()
+    assert _segsum_equal(k, v)
+
+
+def test_segment_sum_back_to_back_calls(cuda):
+    """Two calls of different lengths queued on one stream with no sync
+    between them: each clears its own scratch (counter and tile states)."""
+    rng = np.random.default_rng(8)
+    ins = []
+    for n in (5 * TILE + 7, 3 * TILE + 1, 7 * TILE):
+        k = torch.tensor(np.sort(rng.integers(0, n // 90 + 1, n))
+                         .astype(np.int32), device=cuda)
+        ins.append((k, torch.tensor(rng.integers(-9, 9, n).astype(np.int32),
+                                    device=cuda)))
+    got = [tss.segment_sum_cuda(k, v) for k, v in ins]
+    for (k, v), g in zip(ins, got):
+        want = tss.segment_sum_plain(k, v)
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+@pytest.mark.parametrize("runs", ["one run", "mixed"])
+def test_segment_sum_float32_is_bitwise_repeatable(cuda, runs):
+    """Real-valued float32 sums are bitwise equal over calls: the look-back
+    combines the tiles' aggregates in tile order, never atomically."""
+    n = 1 << 21
+    rng = np.random.default_rng(9)
+    keys = (np.zeros(n, np.int32) if runs == "one run"
+            else np.sort(rng.integers(0, 64, n)).astype(np.int32))
+    k = torch.tensor(keys, device=cuda)
+    v = torch.tensor(rng.random(n, np.float32) * 2 - 1, device=cuda)
+    first = tss.segment_sum_cuda(k, v)
+    for _ in range(3):
+        again = tss.segment_sum_cuda(k, v)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_segment_sum_short_scratch_is_refused(cuda):
+    """The C entry checks the scratch against its own layout: one word short
+    of ``scratch_words``, or none above one tile, raises."""
+    n = 3 * TILE + 5
+    k = torch.zeros(n, dtype=torch.int32, device=cuda)
+    sums, valid, scratch = tss.prepare_call(k)
+    assert scratch.numel() == tss.scratch_words(n)
+    for short in (scratch[:-1], None):
+        with pytest.raises(KernelLaunchError):
+            tss.launch_call(k, k, sums, valid, short)
 
 
 @pytest.mark.parametrize("agg", ["minmax", "count", "median"])

@@ -74,14 +74,25 @@ def test_semi_join_matches_reference(np_, nc, backend):
     _eq(tref.semi_join_ref(*_torch(*arrays)), want)
 
 
-@pytest.mark.parametrize("n", [1024, 1000, 4096, 17, 2048])
+# (rows, one run over all rows): K3's tile width and either side of it,
+# and one run across several tiles; ids are the row counts
+SEGSUM_CASES = [(1024, False), (1000, False), (4096, False), (17, False),
+                (2048, False), (tss.TILE - 1, False), (tss.TILE + 1, False),
+                (3 * tss.TILE + 5, True)]
+
+
+@pytest.mark.parametrize("n,one_run", SEGSUM_CASES,
+                         ids=[f"{n}{'-one-run' if one else ''}"
+                              for n, one in SEGSUM_CASES])
 @pytest.mark.parametrize("vdt", [np.int32, np.float32])
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_segment_sum_matches_reference(n, vdt, backend):
+def test_segment_sum_matches_reference(n, one_run, vdt, backend):
     """Both packages emit at the LAST row of each run: sums and valid are
     compared bitwise, and per-key totals against the first-row oracle."""
     rng = np.random.default_rng(n)
     keys = np.sort(rng.integers(0, max(2, n // 8), n).astype(np.int32))
+    if one_run:
+        keys[:] = 7
     vals = rng.integers(-3, 5, n).astype(vdt)
     want_s, want_v = jops.segment_sum_sorted(*_jax(keys, vals),
                                              backend=backend)
@@ -301,3 +312,22 @@ def test_prepare_call_allocates_the_paths_table(np_, nc, mode):
         else:
             assert table is None and path.side == "shared"
         assert out.shape == pf.shape and out.dtype == pf.dtype
+
+
+@pytest.mark.parametrize("n,words", [
+    (0, 0), (1, 0), (tss.TILE - 1, 0), (tss.TILE, 0),
+    (tss.TILE + 1, 2 + 3 * 2), (3 * tss.TILE + 5, 2 + 3 * 4),
+    (8_000_000, 2 + 3 * 3907)])
+def test_segment_sum_prepare_call_allocates_the_scratch(n, words):
+    """A call of at most one tile allocates its outputs only; a larger one
+    adds one int32 scratch of the counter, a spare word, an 8-byte state and
+    an aggregate per tile (``scratch_words``)."""
+    assert tss.scratch_words(n) == words
+    for dt in (torch.int32, torch.float32):
+        sums, valid, scratch = tss.prepare_call(torch.zeros(n, dtype=dt))
+        assert sums.shape == (n,) and sums.dtype == dt
+        assert valid.shape == (n,) and valid.dtype == torch.bool
+        if words:
+            assert scratch.dtype == torch.int32 and scratch.numel() == words
+        else:
+            assert scratch is None
