@@ -31,10 +31,30 @@ K3 call is timed beside ``torch.cumsum`` of its values (``cumsum_ms``,
 device time), a single-pass scan that moves 8 of K3's 13 bytes a row: a
 yardstick of the card's scan rate, not a library call of the same function.
 
+Two more phases drive the materialising baselines (``MaterializeJoinOp``,
+plain PyTorch sorts and gathers on the card), each run with the kernels'
+counts set to 0 just before it and read just after.  ``baseline``: V.1 under
+``ref`` and ``opt``, with and without FK/PK degradation, at the same scale;
+answers must equal the numpy oracle and ``ExecStats.steps`` the JAX
+package's (``V1_BASELINE_STEPS``).  ``fig6``: the paper's Fig. 6 peak tuples
+on ``make_graph_db(5000, 60000, seed=2)`` (path-2/3/4) and
+``make_stats_db(5000, 20000, 100000, 60000)`` (stats-full) under ``ref``,
+``opt`` and ``opt_plus`` with ``oom_guard=50_000_000``: each path row's
+peaks, guard trip and COUNT as ``path_oracle`` (numpy on the run's edge
+list) gives them, stats-full's as the JAX package gives them at int32
+(``FIG6_STATS_ROW``), each guard trip a ``MaterialisationLimit`` raised
+before the refused expansion could be allocated, Opt⁺ at most the largest
+base relation, and one COUNT across the modes that finish.  Each case
+prints its wall ms, the device memory it allocated above what was live
+before it, and its kernel launches; every kernel call of its counted run
+(K1 under Opt with FK/PK, K3 in Opt's regroup, K2 and K3 under Opt⁺) is
+recorded and its output held against the plain version on the same inputs.
+
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
 JSON line per query with its times, one per query with
-its device time by kernel from ``torch.profiler``, one JSON line
+its device time by kernel from ``torch.profiler``, one per ``baseline`` and
+``fig6`` case, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
 library time, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero without that line.  Needs a CUDA GPU of compute
@@ -43,7 +63,9 @@ capability 9.0 (sm_90a) and nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +91,73 @@ KERNEL_META = {
     "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
                     "src/repro/kernels/segment_sum.py:79"),
 }
+
+BASELINE_MODES = (("ref", False), ("ref", True), ("opt", False), ("opt", True))
+BASELINE_REPS = 3
+
+# ExecStats.steps of V.1 under the baselines at make_tpch_db(scale=100000,
+# seed=0), as the JAX package records them on the CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c '
+#   import repro.core as c, repro.data.relational as r
+#   db, s = r.make_tpch_db(scale=100000)
+#   for q in ("minmax", "count", "median"):
+#       for m in ("ref", "opt"):
+#           for f in (False, True):
+#               p = c.plan_query(r.tpch_v1_query(q), s, mode=m, use_fkpk=f)
+#               print(q, m, f, c.Executor(db, s).execute(p)["__stats__"].steps)'
+# minmax and median are rooted at supplier, count at partsupp; a ref plan
+# is the same with and without FK/PK degradation.
+_STEPS_S = {
+    "ref": [("scan(s)", 100000), ("scan(ps)", 8000000),
+            ("join(s⋈ps)", 8000000), ("scan(p)", 866676),
+            ("join(s⋈p)", 3464696), ("scan(n)", 25), ("join(s⋈n)", 3464696),
+            ("scan(r)", 2), ("join(s⋈r)", 1388068)],
+    "opt": [("scan(s)", 100000), ("scan(n)", 25), ("scan(r)", 2),
+            ("join(n⋈r)", 10), ("regroup(n)", 10), ("join(s⋈n)", 40057),
+            ("regroup(s)", 40057), ("scan(ps)", 8000000), ("scan(p)", 866676),
+            ("join(ps⋈p)", 3464696), ("regroup(ps)", 3464696),
+            ("join(s⋈ps)", 1388068), ("regroup(s)", 40057)],
+    "opt_fkpk": [("scan(s)", 100000), ("scan(n)", 25), ("scan(r)", 2),
+                 ("semijoin(n⋉r)", 10), ("semijoin(s⋉n)", 40057),
+                 ("scan(ps)", 8000000), ("scan(p)", 866676),
+                 ("semijoin(ps⋉p)", 3464696), ("join(s⋈ps)", 1388068),
+                 ("regroup(s)", 40057)],
+}
+_STEPS_PS = {
+    "ref": [("scan(ps)", 8000000), ("scan(s)", 100000),
+            ("join(ps⋈s)", 8000000), ("scan(n)", 25),
+            ("join(ps⋈n)", 8000000), ("scan(r)", 2), ("join(ps⋈r)", 3205148),
+            ("scan(p)", 866676), ("join(ps⋈p)", 1388068)],
+    "opt": [("scan(ps)", 8000000), ("scan(p)", 866676),
+            ("join(ps⋈p)", 3464696), ("regroup(ps)", 3464696),
+            ("scan(s)", 100000), ("scan(n)", 25), ("scan(r)", 2),
+            ("join(n⋈r)", 10), ("regroup(n)", 10), ("join(s⋈n)", 40057),
+            ("regroup(s)", 40057), ("join(ps⋈s)", 1388068),
+            ("regroup(ps)", 1388068)],
+    "opt_fkpk": [("scan(ps)", 8000000), ("scan(p)", 866676),
+                 ("semijoin(ps⋉p)", 3464696), ("scan(s)", 100000),
+                 ("scan(n)", 25), ("scan(r)", 2), ("semijoin(n⋉r)", 10),
+                 ("semijoin(s⋉n)", 40057), ("semijoin(ps⋉s)", 1388068)],
+}
+V1_BASELINE_STEPS = {
+    (q, mode, fkpk): (_STEPS_PS if q == "count" else _STEPS_S)[
+        "opt_fkpk" if (mode, fkpk) == ("opt", True) else mode]
+    for q in QUERIES for mode, fkpk in BASELINE_MODES}
+
+# Fig. 6 at the JAX package's sizes (benchmarks/materialisation.py), int32.
+# The graph's zipf sources come from numpy's Generator.zipf, whose stream
+# differs between numpy versions, so the path rows are held against
+# path_oracle on the run's own edge list.  stats-full's data are drawn with
+# Generator.integers only; its row (largest base relation, peak tuples per
+# mode, COUNT(*)) is the JAX package's on the CPU with
+# Executor(oom_guard=FIG6_GUARD).
+FIG6_GUARD = 50_000_000
+FIG6_MODES = ("ref", "opt", "opt_plus")
+FIG6_GRAPH = {"n_nodes": 5_000, "n_edges": 60_000, "seed": 2}
+FIG6_STATS = {"n_users": 5_000, "n_posts": 20_000, "n_comments": 100_000,
+              "n_votes": 60_000}
+FIG6_STATS_ROW = (100000, {"ref": 299887, "opt": 100000, "opt_plus": 100000},
+                  299887)
 
 
 class SmokeFailure(RuntimeError):
@@ -178,12 +267,18 @@ def segsum_tolerance(torch, plain_ss, keys, vals):
     return 2 * EPS32 * length.double() * abs_sum.double()
 
 
-def check_join(torch, kern, plain, errs, tag, pk, pf, ck, cf):
-    got = kern(pk, pf, ck, cf)
+def hold_join(torch, plain, errs, tag, got, pk, pf, ck, cf):
+    """Hold a K1/K2 output ``got`` against the plain version's on the same
+    inputs."""
     want = plain(pk, pf, ck, cf)
     torch.cuda.synchronize()
     errs.append(compare(torch, tag, got, want, join_tolerance(torch, pf, cf)))
     return got
+
+
+def check_join(torch, kern, plain, errs, tag, pk, pf, ck, cf):
+    return hold_join(torch, plain, errs, tag, kern(pk, pf, ck, cf),
+                     pk, pf, ck, cf)
 
 
 def isin_ms(torch, i, pk, pf, ck, cf) -> float:
@@ -278,7 +373,13 @@ def cutoff_lines(torch, fj, kernels, dev) -> list[dict]:
 def check_segsum(torch, kern, plain, errs, tag, keys, vals, exact=False):
     """``exact``: float32 values whose every partial sum is exact (integers
     below 2^24 in magnitude), so the sums are held bitwise."""
-    got_s, got_v = kern(keys, vals)
+    hold_segsum(torch, plain, errs, tag, kern(keys, vals), keys, vals, exact)
+
+
+def hold_segsum(torch, plain, errs, tag, got, keys, vals, exact=False):
+    """Hold a K3 output ``got`` = (sums, valid) against the plain
+    version's on the same inputs."""
+    got_s, got_v = got
     want_s, want_v = plain(keys, vals)
     torch.cuda.synchronize()
     errs.append(compare(torch, tag + " valid", got_v, want_v, 0.0))
@@ -451,7 +552,7 @@ def v1_oracle(h, regions=(2, 3), price_threshold=1200.0):
 
 
 def profile_run(torch, fn, db) -> dict:
-    """Device time by kernel name over one compiled run, from
+    """Device time by kernel name over one run of ``fn(db)``, from
     ``torch.profiler``: device-side events only (a CPU op's row repeats the
     time of the kernels it launched).  The idle share is the part of the
     profiled run's wall time with no device work recorded, profiler
@@ -496,6 +597,230 @@ def answers_equal(got: dict, want: dict) -> bool:
     return True
 
 
+@contextlib.contextmanager
+def routed(kernels, hook):
+    """While the block runs, each kernel's wrapper, looked up on its module
+    at call time, goes through ``hook(name, wrapper, args)``."""
+    originals = {name: getattr(mod, attr)
+                 for name, (mod, attr, _) in kernels.items()}
+    for name, (mod, attr, _) in kernels.items():
+        setattr(mod, attr, lambda *args, name=name: hook(
+            name, originals[name], args))
+    try:
+        yield
+    finally:
+        for name, (mod, attr, _) in kernels.items():
+            setattr(mod, attr, originals[name])
+
+
+def copied(x, device):
+    """A tensor, or a tuple of them, copied to ``device``."""
+    if isinstance(x, tuple):
+        return tuple(copied(t, device) for t in x)
+    return x.to(device)
+
+
+def hold_calls(torch, plain, errs, tag, seen, dev) -> dict:
+    """Hold each recorded kernel call's output against the plain version on
+    the card, on the same inputs (int32 bitwise, float32 within the stated
+    bounds); returns the calls held per kernel."""
+    held = {}
+    for name, args, out in seen:
+        i = held[name] = held.get(name, 0) + 1
+        hold = hold_segsum if name == "segment_sum" else hold_join
+        hold(torch, plain[name], errs[name], f"{tag} {name} call {i - 1}",
+             copied(out, dev), *copied(args, dev))
+    return held
+
+
+# ---------------------------------------------------------------------------
+# the materialising baselines
+# ---------------------------------------------------------------------------
+def measured(torch, kernels, plain, errs, tag, fn, dev,
+             reps: int = BASELINE_REPS):
+    """``fn()`` once, with every kernel's counts set to 0 just before it and
+    read just after, and the device memory it allocates above what was live
+    before it (``max_memory_allocated``); then ``reps`` more calls, each
+    timed on the host's clock to ``torch.cuda.synchronize()``.  Every kernel
+    call of the first run is recorded (inputs and output copied to the
+    host, so the record holds no device memory) and afterwards held against
+    the plain version.  Returns the first call's result and a line with the
+    launches, the calls held, ``peak_bytes`` and the median ``ms``."""
+    seen = []
+
+    def keep(name, wrapper, args):
+        out = wrapper(*args)
+        seen.append((name, copied(args, "cpu"), copied(out, "cpu")))
+        return out
+
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with routed(kernels, keep):
+        out = fn()
+    torch.cuda.synchronize()
+    line = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "launches": {name: k.launches
+                         for name, (_, _, k) in kernels.items()}}
+    line["held"] = hold_calls(torch, plain, errs, tag, seen, dev)
+    for name, n in line["launches"].items():
+        check(n == 0 or line["held"].get(name, 0) > 0,
+              f"{tag}: {name} launched {n} times, no call held")
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    line["ms"] = statistics.median(ms)
+    return out, line
+
+
+def largest_join(steps) -> int:
+    return max((n for name, n in steps if name.startswith("join(")),
+               default=0)
+
+
+def baseline_lines(torch, tc, kernels, plain, errs, db, schema, plans,
+                   oracle, tpch_v1_query, dev) -> list[dict]:
+    """V.1 under Ref and Opt, with and without FK/PK degradation, through
+    ``Executor.execute``: answers held against the numpy oracle, steps
+    against the JAX package's and each kernel call against its plain
+    version, with one ``torch.profiler`` run of each; beside each, the
+    query's 0MA/Opt⁺ plan."""
+    lines = []
+    ex = tc.Executor(db, schema)
+    for q in QUERIES:
+        res, fast = measured(torch, kernels, plain, errs,
+                             f"baseline {q} {plans[q].mode}",
+                             lambda: ex.execute(plans[q]), dev)
+        check(answers_equal(res, oracle[q]), f"{q} {plans[q].mode}: {res}")
+        fast.update(mode=plans[q].mode,
+                    peak_tuples=res["__stats__"].peak_tuples)
+        for mode, fkpk in BASELINE_MODES:
+            plan = tc.plan_query(tpch_v1_query(q), schema, mode=mode,
+                                 use_fkpk=fkpk)
+            tag = f"baseline {q} {mode} use_fkpk={fkpk}"
+            res, line = measured(torch, kernels, plain, errs, tag,
+                                 lambda: ex.execute(plan), dev)
+            steps = res["__stats__"].steps
+            check(answers_equal(res, oracle[q]),
+                  f"{tag}: {res} != {oracle[q]}")
+            check(steps == V1_BASELINE_STEPS[q, mode, fkpk],
+                  f"{tag}: steps {steps}")
+            prof = profile_run(torch, lambda _: ex.execute(plan), db)
+            lines.append({
+                "baseline": q, "mode": mode, "use_fkpk": fkpk,
+                "answer": {k: np.asarray(v).item()
+                           for k, v in oracle[q].items()},
+                "peak_tuples": res["__stats__"].peak_tuples,
+                "largest_join": largest_join(steps), **line,
+                "profile": {**prof, "top": prof["top"][:4]},
+                "zero_materialisation": fast})
+    return lines
+
+
+def wrap32(n: int) -> int:
+    return (n + 2**31) % 2**32 - 2**31
+
+
+def path_oracle(src, dst, k: int, guard: int):
+    """Fig. 6's path-k row by numpy on one edge list, independent of the
+    port.  The Ref plan roots at e0 and joins e1, ..., ek onto it in turn,
+    so its j-th join holds the (j+1)-edge paths; the Opt plan joins e(k-1),
+    ..., e0 onto the leaf's rows in turn and regroups each join to the
+    parent's distinct (src, dst) pairs; Opt⁺ holds no more than one scanned
+    relation.  Returns (peak per mode, None where the guard trips; the
+    tuples the guard refused, or None; COUNT(*) at int32)."""
+    n = int(max(src.max(), dst.max())) + 1
+    outdeg = np.bincount(src, minlength=n).astype(np.int64)
+    paths = np.bincount(dst, minlength=n).astype(np.int64)  # 1-edge paths
+    ref_peak, refused = len(src), None
+    for _ in range(k):
+        total = int(paths @ outdeg)      # paths one edge longer, by end
+        if refused is None and total > guard:
+            refused = total
+        ref_peak = max(ref_peak, total)
+        longer = np.zeros(n, np.int64)
+        np.add.at(longer, dst, paths[src])
+        paths = longer
+    pairs = src.astype(np.int64) * n + dst
+    opt_peak, child_src = len(src), src
+    for _ in range(k):
+        matches = np.bincount(child_src, minlength=n)[dst]
+        kept = np.unique(pairs[matches > 0])
+        opt_peak = max(opt_peak, int(matches.sum()), kept.size)
+        child_src = kept // n
+    peaks = {"ref": None if refused else ref_peak, "opt": opt_peak,
+             "opt_plus": len(src)}
+    return peaks, refused, wrap32(total)
+
+
+def fig6_lines(torch, tc, data, kernels, plain, errs, dev) -> list[dict]:
+    """Fig. 6's rows at the JAX package's sizes under ``oom_guard``: each
+    peak, guard trip and COUNT as ``path_oracle`` gives them for the path
+    rows and as ``FIG6_STATS_ROW`` gives them for stats-full, and each
+    kernel call against its plain version.  A trip must come before the
+    refused expansion is allocated: the device memory the run allocated
+    stays below 12 bytes (its row index and frequency) for each refused
+    tuple."""
+    graph = data.make_graph_db(**FIG6_GRAPH, device=dev)
+    stats_db = data.make_stats_db(**FIG6_STATS, device=dev)
+    src, dst = (graph[0]["edge"].columns[c].cpu().numpy()
+                for c in ("src", "dst"))
+    lines = [{"fig6_data": {"numpy": np.__version__}}]
+    cases = [(f"path-{k}", graph, data.path_query(k),
+              (FIG6_GRAPH["n_edges"], *path_oracle(src, dst, k, FIG6_GUARD)))
+             for k in (2, 3, 4)]
+    base_max, peaks, count = FIG6_STATS_ROW
+    cases.append(("stats-full", stats_db, data.stats_count_query(),
+                  (base_max, peaks, None, count)))
+    for name, (db, schema), query, want in cases:
+        base_max, peaks, refused_want, count = want
+        got_base = max(int(t.live_count()) for t in db.values())
+        check(got_base == base_max, f"fig6 {name}: base max {got_base}")
+        ex = tc.Executor(db, schema, oom_guard=FIG6_GUARD)
+        got, counts = {}, {}
+        for mode in FIG6_MODES:
+            plan = tc.plan_query(query, schema, mode=mode)
+
+            def run(plan=plan):
+                stats = tc.ExecStats()
+                try:
+                    return ex.execute(plan, stats), stats
+                except tc.MaterialisationLimit as err:
+                    return err, stats
+
+            tag = f"fig6 {name} {mode}"
+            (out, stats), line = measured(torch, kernels, plain, errs, tag,
+                                          run, dev)
+            row = {"fig6": name, "mode": mode, "base_max": base_max}
+            if peaks[mode] is None:
+                check(isinstance(out, tc.MaterialisationLimit),
+                      f"{tag}: the guard did not trip")
+                refused = int(re.search(r"would materialise (\d+) tuples",
+                                        str(out)).group(1))
+                check(refused_want in (None, refused),
+                      f"{tag}: refused {refused}, oracle {refused_want}")
+                check(line["peak_bytes"] < 12 * refused,
+                      f"{tag}: {line['peak_bytes']} bytes allocated before "
+                      f"the guard refused {refused} tuples")
+                row.update(peak_tuples=None, guard_trip=refused,
+                           steps_before_trip=stats.steps)
+            else:
+                check(isinstance(out, dict), f"{tag}: {out}")
+                got[mode] = stats.peak_tuples
+                check(got[mode] == peaks[mode], f"{tag}: peak {got[mode]}")
+                counts[mode] = int(out["count(*)"])
+                row.update(peak_tuples=got[mode], count=counts[mode])
+            lines.append({**row, **line})
+        check(got["opt_plus"] <= base_max, f"fig6 {name}: Opt⁺ above base")
+        check(set(counts.values()) == {count}, f"fig6 {name}: {counts}")
+    return lines
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     import torch
@@ -503,6 +828,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import core as tc
+    from repro_torch import data
     from repro_torch.core import Executor, plan_query
     from repro_torch.data import make_graph_db, make_tpch_db, tpch_v1_query
     from repro_torch.kernels import _build
@@ -537,23 +864,14 @@ def main() -> int:
                "freq_join": (fj, "freq_join_cuda", fj.K2),
                "segment_sum": (ss, "segment_sum_cuda", ss.K3)}
     calls = {name: [] for name in kernels}
-    originals = {name: getattr(mod, attr)
-                 for name, (mod, attr, _) in kernels.items()}
 
-    def recorder(name):
-        def rec(*args):
-            calls[name].append(args)
-            return originals[name](*args)
-        return rec
+    def keep(name, wrapper, args):
+        calls[name].append(args)
+        return wrapper(*args)
 
-    for name, (mod, attr, _) in kernels.items():
-        setattr(mod, attr, recorder(name))
-    try:
+    with routed(kernels, keep):
         for q in QUERIES:
             Executor(db, schema).execute(plans[q])
-    finally:
-        for name, (mod, attr, _) in kernels.items():
-            setattr(mod, attr, originals[name])
     torch.cuda.synchronize()
 
     # -- each kernel against its plain version, timed, on those inputs ----
@@ -682,6 +1000,23 @@ def main() -> int:
     for q in QUERIES:
         prof = profile_run(torch, Executor(db, schema).compile(plans[q]), db)
         log(json.dumps({"profile": q, **prof}))
+
+    # -- the materialising baselines, counted on their own -----------------
+    calls_timed = {name: len(cl) for name, cl in calls.items()}
+    calls.clear()          # the main path's kernel inputs
+    torch.cuda.synchronize()
+    log(json.dumps({"baseline_setup": {
+        "db_bytes": sum(t.numel() * t.element_size() for tab in db.values()
+                        for t in (*tab.columns.values(), tab.freq)),
+        "allocated_bytes": torch.cuda.memory_allocated()}}))
+    for line in baseline_lines(torch, tc, kernels, plain, errs, db, schema,
+                               plans, oracle, tpch_v1_query, dev):
+        log(json.dumps(line))
+    for line in fig6_lines(torch, tc, data, kernels, plain, errs, dev):
+        log(json.dumps(line))
+    log("the baseline and fig6 phases' kernel calls equal their plain "
+        "versions")
+
     rows = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -694,7 +1029,7 @@ def main() -> int:
                      "bound_ms": bound_ms(timing[name]["bytes"]),
                      "bound_by": "bytes",
                      "library_ms": timing[name]["library_ms"],
-                     "calls_timed": len(calls[name])})
+                     "calls_timed": calls_timed[name]})
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

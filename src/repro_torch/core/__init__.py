@@ -3,9 +3,9 @@ classification, rule-based rewrites (§4), and the frequency-propagating
 executor whose sweep runs the hand-written CUDA kernels (§5)."""
 
 from repro_torch.core.executor import (
-    BaselineNotPorted,
     ExecStats,
     Executor,
+    MaterialisationLimit,
 )
 from repro_torch.core.hypergraph import JoinTree, build_join_tree
 from repro_torch.core.oma import Classification, classify
@@ -18,12 +18,12 @@ __all__ = [
     "Agg",
     "AggQuery",
     "Atom",
-    "BaselineNotPorted",
     "Classification",
     "Decision",
     "ExecStats",
     "Executor",
     "JoinTree",
+    "MaterialisationLimit",
     "PhysicalPlan",
     "PlanNode",
     "PlanningError",

@@ -3,22 +3,29 @@
 Both execution surfaces interpret the plan's op DAG (``PhysicalPlan.root``
 / ``nodes``) on the device of the database's tables:
 
-  * ``execute`` — node by node, recording the paper's headline metric (live
-    tuples per step, ``ExecStats.peak_tuples``), which needs a device sync
-    per step.
+  * ``execute`` — node by node, every plan class, recording the paper's
+    headline metric (live or materialised tuples per step,
+    ``ExecStats.peak_tuples``, Fig. 6), which needs a device sync per
+    step.  The materialising baselines (Ref, Opt) expand each join's rows
+    with plain PyTorch sorts and gathers on the tables' device;
+    ``oom_guard`` bounds that expansion and raises
+    ``MaterialisationLimit`` (the paper's X entries) before it is
+    allocated.
   * ``compile`` / ``compile_multi`` — the zero-materialisation plan classes
     (oma / opt_plus) as closures ``db → aggregates`` with no per-step
-    syncs.  Node results are memoised by their content keys
-    (``PlanNode.key``): ``compile_multi`` shares one memo across all member
-    plans, so a sub-DAG two members have in common — a filtered dimension
-    scan, a semi-join chain — is computed once per call.  PyTorch runs
-    eagerly, so "compile" builds no program: capturing a CUDA graph per
-    shape bucket is left to a later slice.
+    syncs.  Materialising plans and ``oom_guard`` are refused: both need
+    concrete per-step sizes.  Node results are memoised by their content
+    keys (``PlanNode.key``): ``compile_multi`` shares one memo across all
+    member plans, so a sub-DAG two members have in common — a filtered
+    dimension scan, a semi-join chain — is computed once per call.
+    PyTorch runs eagerly, so "compile" builds no program: capturing a CUDA
+    graph per shape bucket is left to a later slice.
 
 The sweep runs one kernel per join-tree edge: the semi-join (K1) in 0MA
 plans, the FreqJoin (K2) in Opt⁺ plans, after a sorted group-by-SUM (K3)
 that pre-groups the child when its key domain is unknown or the dense path
-is off.  The materialising baselines (Ref, Opt) arrive in a later slice.
+is off.  Opt plans with FK/PK degradation run K1 on their FK→PK edges,
+and Opt's regroup sums its runs with K3.
 """
 
 from __future__ import annotations
@@ -42,10 +49,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.tables.table import Schema, Table, pack_keys
 
 
-class BaselineNotPorted(NotImplementedError):
-    """The materialising Ref/Opt baselines (``MaterializeJoinOp``) are not
-    ported yet; they arrive with the slice that reproduces the paper's
-    Fig. 6 peak-tuple parity."""
+class MaterialisationLimit(RuntimeError):
+    """Raised when a baseline plan exceeds the allowed intermediate size
+    (the paper's 'X — out of memory' condition)."""
 
 
 @dataclasses.dataclass
@@ -73,19 +79,39 @@ class Executor:
 
     ``dense_domain`` (beyond the paper) passes known key domains to the
     FreqJoin, which skips the child pre-grouping and, on the CPU, takes the
-    dense scatter-add path.  ``tuning`` is reserved for the kernel tuner of
-    a later slice and must be None."""
+    dense scatter-add path.  ``oom_guard`` bounds the tuples one
+    materialising join may produce (``execute`` only).  ``tuning`` is
+    reserved for the kernel tuner of a later slice and must be None.
+
+    Frequencies are int32 or float32: the aggregates and K1–K3 accumulate
+    in 32 bits, so 64-bit frequencies are refused rather than narrowed
+    (fault F1) until the x64 slice gives them 64-bit accumulation."""
 
     def __init__(self, db: dict[str, Table], schema: Schema,
                  freq_dtype: torch.dtype = torch.int32,
-                 dense_domain: bool = False, tuning=None):
+                 dense_domain: bool = False, tuning=None,
+                 oom_guard: int | None = None):
         if tuning is not None:
             raise NotImplementedError(
                 "kernel tuning is not ported yet; pass tuning=None")
+        if freq_dtype in (torch.int64, torch.float64):
+            raise ValueError(
+                f"freq_dtype {freq_dtype} is refused (fault F1): the "
+                "aggregates and kernels accumulate in 32 bits and would "
+                "narrow 64-bit frequencies silently. 64-bit frequencies "
+                "arrive with the x64 slice; use torch.int32 or "
+                "torch.float32.")
         self.db = db
         self.schema = schema
         self.freq_dtype = freq_dtype
         self.dense_domain = dense_domain
+        self.oom_guard = oom_guard
+
+    def jittable(self) -> "Executor":
+        """Copy with eager-only options stripped — the configuration
+        ``compile()`` accepts."""
+        return Executor(self.db, self.schema, self.freq_dtype,
+                        dense_domain=self.dense_domain)
 
     # ------------------------------------------------------------------
     def _domains(self, plan: PhysicalPlan, alias: str) -> dict[str, int | None]:
@@ -145,7 +171,6 @@ class Executor:
         Intermediate states are dropped after their last consumer, so peak
         device memory tracks the largest live intermediate."""
         stats = stats if stats is not None else ExecStats()
-        self._check_ported([plan])
         consumers: dict[int, int] = {}
         for node in plan.nodes:
             for i in node.inputs:
@@ -166,9 +191,11 @@ class Executor:
                 st = self._freq_join(plan, op, ins[0], ins[1])
                 stats.record(f"freqjoin({op.parent}⋉ᶠ{op.child})",
                              _live(st.freq))
+            elif isinstance(op, MaterializeJoinOp):
+                st = self._materialize_join(plan, op, ins[0], ins[1], stats)
             elif isinstance(op, FinalAggOp):
                 st = results = self._final_agg(plan, op, ins[0])
-            else:  # pragma: no cover — _check_ported rejects the rest
+            else:  # pragma: no cover
                 raise TypeError(op)
             vals[id(node)] = st
             for i in node.inputs:
@@ -178,6 +205,66 @@ class Executor:
         results = dict(results)
         results["__stats__"] = stats
         return results
+
+    # ------------------------------------------------------------------
+    def _materialize_join(self, plan, op: MaterializeJoinOp,
+                          p: _State, c: _State, stats) -> _State:
+        """Eager row-expanding join (the Ref/Opt baselines), on the tables'
+        device.  Output rows come in the JAX package's order: live parent
+        rows in row order, each followed by its live matches in the stable
+        order of the child's keys.  An empty live side gives an empty state
+        (where the JAX package's numpy expansion raises)."""
+        pk = self._key(plan, op.parent, p, op.on_vars)[0]
+        ck = self._key(plan, op.child, c, op.on_vars)[0]
+        plive = torch.nonzero(p.freq > 0).squeeze(1)
+        clive = torch.nonzero(c.freq > 0).squeeze(1)
+        pk, ck = pk[plive], ck[clive]
+        cks, order = torch.sort(ck, stable=True)
+        lo = torch.searchsorted(cks, pk, side="left")
+        counts = torch.searchsorted(cks, pk, side="right") - lo
+        total = int(counts.sum())   # synced here: the guard precedes any expansion
+        if self.oom_guard is not None and total > self.oom_guard:
+            raise MaterialisationLimit(
+                f"join {op.parent}⋈{op.child} would materialise {total} "
+                f"tuples (> {self.oom_guard})")
+        stats.record(f"join({op.parent}⋈{op.child})", total)
+        pidx = torch.repeat_interleave(counts, output_size=total)
+        # match j of parent i sits at sorted child position lo[i] + j, and
+        # output row offs[i] + j, so its position is (lo - offs)[i] + row
+        offs = torch.cumsum(counts, 0) - counts
+        cidx = order[(lo - offs)[pidx]
+                     + torch.arange(total, device=pk.device)]
+        prow, crow = plive[pidx], clive[cidx]
+        out_cols = {v: col[prow] for v, col in p.cols.items()}
+        for v, col in c.cols.items():
+            if v not in out_cols:
+                out_cols[v] = col[crow]
+        out_freq = p.freq[prow] * c.freq[crow]
+        if not op.regroup:
+            return _State(out_cols, out_freq)
+
+        # §4.2 Opt: group straight back to the parent's attributes, sorted
+        # as np.lexsort(reversed(parent_vars)): stable sorts from the last
+        # parent var to the first
+        parent_vars = list(p.cols)
+        perm = torch.arange(total, device=pk.device)
+        for v in reversed(parent_vars):
+            perm = perm[torch.sort(out_cols[v][perm], stable=True).indices]
+        cols = {v: out_cols[v][perm] for v in parent_vars}
+        boundary = torch.zeros(total, dtype=torch.bool, device=pk.device)
+        boundary[:1] = True
+        for col in cols.values():
+            boundary[1:] |= col[1:] != col[:-1]
+        starts = torch.nonzero(boundary).squeeze(1)
+        # each run's sum by the sorted group-by (K3 on the card) over run
+        # ids: one fixed order in every dtype, so float32 repeats bit for
+        # bit; int32 wraps as np.add.reduceat does.  Ids past 2^31 wrap,
+        # and adjacent runs still differ, which is all K3 reads.
+        run = torch.cumsum(boundary, 0, dtype=torch.int32)
+        sums, ends = kops.segment_sum_sorted(run, out_freq[perm].contiguous())
+        stats.record(f"regroup({op.parent})", starts.shape[0])
+        return _State({v: col[starts] for v, col in cols.items()},
+                      sums[ends])
 
     # ------------------------------------------------------------------
     def _final_agg(self, plan, op: FinalAggOp, st: _State):
@@ -196,15 +283,19 @@ class Executor:
         return out
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _check_ported(plans) -> None:
+    def _check_jittable(self, plans) -> None:
         for plan in plans:
             if any(isinstance(op, MaterializeJoinOp) for op in plan.ops):
-                raise BaselineNotPorted(
-                    f"plan mode {plan.mode!r} materialises joins; the Ref/Opt "
-                    "baselines arrive in the slice that ports them with "
-                    "Fig. 6 peak-tuple parity. Plan with mode 'oma' or "
-                    "'opt_plus'.")
+                raise ValueError(f"plan mode {plan.mode} materialises joins; "
+                                 "only oma/opt_plus plans are jittable")
+        if self.oom_guard is not None:
+            raise ValueError(
+                "oom_guard is an eager-only option: it needs concrete "
+                "per-step tuple counts, which do not exist under jit "
+                "tracing (and compiled oma/opt_plus plans never "
+                "materialise beyond the base relations anyway). Use "
+                "execute() for guarded baselines, or build the Executor "
+                "without oom_guard to compile.")
 
     def _trace_plan(self, db: dict[str, Table], plan: PhysicalPlan,
                     memo: dict) -> Any:
@@ -242,7 +333,7 @@ class Executor:
                         memo[key] = st.freq
             elif isinstance(op, FinalAggOp):
                 st = self._final_agg(plan, op, ev(node.inputs[0]))
-            else:  # pragma: no cover — _check_ported rejects these
+            else:  # pragma: no cover — _check_jittable rejects these
                 raise TypeError(op)
             vals[id(node)] = st
             return st
@@ -251,7 +342,7 @@ class Executor:
 
     def compile(self, plan: PhysicalPlan):
         """The static plan classes (oma / opt_plus) as ``db → aggregates``."""
-        self._check_ported([plan])
+        self._check_jittable([plan])
 
         def run(db: dict[str, Table]):
             # a fresh memo still dedups repeated sub-DAGs *within* the plan
@@ -266,7 +357,7 @@ class Executor:
         is computed once per call.  Results come in plan order."""
         if not plans:
             raise ValueError("compile_multi needs at least one plan")
-        self._check_ported(plans)
+        self._check_jittable(plans)
 
         def run(db: dict[str, Table]):
             memo: dict = {}

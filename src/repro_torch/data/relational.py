@@ -3,6 +3,7 @@
   make_graph_db  — power-law directed graph (SNAP stand-in, Table 1)
   make_tpch_db   — mini TPC-H star schema: region→nation→supplier→partsupp
                    ←part, with FK/PK metadata (running example, §1/§4)
+  make_stats_db  — FK/FK-joined tables à la STATS-CEB (Table 2)
 
 plus query builders for the paper's path/tree/star counting queries.  The
 generators draw from numpy with the JAX package's seeds and calls, so one
@@ -203,3 +204,74 @@ def _isin(arr, values):
     for v in values:
         m = m | (arr == v)
     return m
+
+
+# --------------------------------------------------------------------------
+# STATS-CEB-like FK/FK schema
+# --------------------------------------------------------------------------
+def make_stats_db(n_users: int = 2000, n_posts: int = 8000,
+                  n_comments: int = 30000, n_votes: int = 20000,
+                  seed: int = 0, device=None):
+    """users ← posts ← {comments, votes}: joins are FK/FK-style (many-many
+    through shared key columns), like STATS-CEB."""
+    rng = np.random.default_rng(seed)
+    users = {
+        "u_id": np.arange(n_users, dtype=np.int32),
+        "u_rep": rng.integers(0, 1000, n_users).astype(np.int32),
+    }
+    posts = {
+        "p_id": np.arange(n_posts, dtype=np.int32),
+        "p_owner": rng.integers(0, n_users, n_posts).astype(np.int32),
+        "p_score": rng.integers(-10, 100, n_posts).astype(np.int32),
+    }
+    comments = {
+        "c_post": rng.integers(0, n_posts, n_comments).astype(np.int32),
+        "c_user": rng.integers(0, n_users, n_comments).astype(np.int32),
+        "c_score": rng.integers(0, 50, n_comments).astype(np.int32),
+    }
+    votes = {
+        "v_post": rng.integers(0, n_posts, n_votes).astype(np.int32),
+        "v_user": rng.integers(0, n_users, n_votes).astype(np.int32),
+    }
+    schema = Schema(
+        relations={
+            "users": RelSchema("users", (
+                ColumnMeta("u_id", unique=True, domain=n_users),
+                ColumnMeta("u_rep", domain=1000),
+            )),
+            "posts": RelSchema("posts", (
+                ColumnMeta("p_id", unique=True, domain=n_posts),
+                ColumnMeta("p_owner", domain=n_users),
+                ColumnMeta("p_score"),
+            )),
+            "comments": RelSchema("comments", (
+                ColumnMeta("c_post", domain=n_posts),
+                ColumnMeta("c_user", domain=n_users),
+                ColumnMeta("c_score"),
+            )),
+            "votes": RelSchema("votes", (
+                ColumnMeta("v_post", domain=n_posts),
+                ColumnMeta("v_user", domain=n_users),
+            )),
+        },
+        foreign_keys=(
+            ForeignKey("posts", "p_owner", "users", "u_id"),
+            ForeignKey("comments", "c_post", "posts", "p_id"),
+            ForeignKey("votes", "v_post", "posts", "p_id"),
+        ),
+    )
+    db = {name: Table.from_numpy(d, device=device) for name, d in
+          [("users", users), ("posts", posts), ("comments", comments),
+           ("votes", votes)]}
+    return db, schema
+
+
+def stats_count_query() -> AggQuery:
+    """COUNT(*) over users⋈posts⋈comments⋈votes (STATS-CEB shape)."""
+    atoms = (
+        Atom("users", "u", ("uid", "rep")),
+        Atom("posts", "po", ("pid", "uid", "score")),
+        Atom("comments", "co", ("pid", "cuid", "cscore")),
+        Atom("votes", "v", ("pid", "vuid")),
+    )
+    return AggQuery(atoms=atoms, aggregates=(Agg("count"),))

@@ -5,9 +5,9 @@ The JAX package's tables are carried into the port with ``db_from_numpy``
 answers of ``execute`` and ``compile`` must be equal bit for bit: MIN, MAX,
 COUNT and MEDIAN, group rows and their validity.  Float SUM/AVG inside a
 GROUP BY are compared within rtol 1e-6, since the two packages add in other
-orders.  Only the zero-materialisation plan classes (oma, opt_plus) run: the
-reference's Ref/Opt baselines crash on empty intermediates (reference fault
-R1) and are not ported yet, and its mesh path (R2) is not exercised.
+orders.  The zero-materialisation plan classes (oma, opt_plus) run here; the
+materialising Ref/Opt baselines are held in ``test_torch_baselines.py``.
+The reference's mesh path (its fault R2) is not exercised.
 """
 
 import subprocess
@@ -157,21 +157,32 @@ def test_cpu_run_launches_no_kernel(tpch):
     assert (tsj.K1.launches, tfj.K2.launches, tss.K3.launches) == before
 
 
-@pytest.mark.parametrize("mode", ["ref", "opt"])
-def test_materialising_baselines_raise_typed_error(tpch, mode):
-    _, _, tdb, tschema = tpch
-    plan = tcore.plan_query(trel.tpch_v1_query("median"), tschema, mode=mode)
-    ex = tcore.Executor(tdb, tschema)
-    with pytest.raises(tcore.BaselineNotPorted, match="Fig. 6"):
-        ex.execute(plan)
-    with pytest.raises(NotImplementedError):
-        ex.compile(plan)
-
-
 def test_tuning_is_not_ported(tpch):
     _, _, tdb, tschema = tpch
     with pytest.raises(NotImplementedError, match="tuning"):
         tcore.Executor(tdb, tschema, tuning=object())
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_64bit_frequencies_are_refused(tpch, dtype):
+    """Fault F1: 64-bit frequencies would be narrowed to 32-bit sums, so the
+    Executor refuses them until the x64 slice."""
+    _, _, tdb, tschema = tpch
+    with pytest.raises(ValueError, match="F1.*x64 slice"):
+        tcore.Executor(tdb, tschema, freq_dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("agg", V1_AGGS)
+def test_32bit_frequencies_run_v1(tpch, dtype, agg):
+    jdb, jschema, tdb, tschema = tpch
+    jplan = jcore.plan_query(jrel.tpch_v1_query(agg), jschema)
+    tplan = tcore.plan_query(trel.tpch_v1_query(agg), tschema)
+    want = jcore.Executor(jdb, jschema,
+                          freq_dtype=getattr(jnp, dtype)).execute(jplan)
+    got = tcore.Executor(tdb, tschema,
+                         freq_dtype=getattr(torch, dtype)).execute(tplan)
+    _assert_answers_equal(got, want)
 
 
 def test_int32_aggregates_wrap_like_reference():

@@ -7,8 +7,11 @@ Every test skips without a CUDA device; on one, run them with
 This file imports no JAX, so it runs where only PyTorch is installed.  Each
 kernel is held against its plain PyTorch version on the same card tensors
 (integer-valued inputs, so float32 results are exact too), and the slice's
-queries on the GPU against the same queries on the CPU.
+queries on the GPU against the same queries on the CPU, the materialising
+Ref/Opt joins included.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -20,7 +23,15 @@ from repro_torch.kernels import freq_join as tfj
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import segment_sum as tss
 from repro_torch.kernels import semi_join as tsj
+from repro_torch.core.executor import ExecStats
+from repro_torch.core.plan import MaterializeJoinOp
 from repro_torch.kernels._build import KernelLaunchError
+from repro_torch.tables.table import (
+    ColumnMeta,
+    RelSchema,
+    Schema,
+    db_from_numpy,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -319,3 +330,144 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tfj.freq_join_cuda(k[::2], f[::2], k, f)
     with pytest.raises(TypeError):
         tss.segment_sum_cuda(k, f.double())
+
+
+def _join_inputs(db, schema, query, mode, freq_dtype=torch.int32):
+    """The executor, the plan's one materialising join and its two scanned
+    input states, for a query of two atoms."""
+    plan = tcore.plan_query(query, schema, mode=mode)
+    ex = tcore.Executor(db, schema, freq_dtype=freq_dtype)
+    (node,) = [n for n in plan.nodes if isinstance(n.op, MaterializeJoinOp)]
+    p, c = (ex._scan(db, plan, n.op) for n in node.inputs)
+    return ex, plan, node.op, p, c
+
+
+def _join_on(device, db_of, query, mode, dead=(), freq_dtype=torch.int32):
+    db, schema = db_of(device)
+    ex, plan, op, p, c = _join_inputs(db, schema, query, mode, freq_dtype)
+    for st, side in ((p, "parent"), (c, "child")):
+        if side in dead:
+            st.freq = torch.zeros_like(st.freq)
+    stats = ExecStats()
+    return ex._materialize_join(plan, op, p, c, stats), stats
+
+
+def _assert_states_equal(got, want):
+    assert list(got.cols) == list(want.cols)
+    for v in want.cols:
+        assert got.cols[v].dtype == want.cols[v].dtype
+        assert torch.equal(got.cols[v].cpu(), want.cols[v]), v
+    assert got.freq.dtype == want.freq.dtype == torch.int32
+    assert torch.equal(got.freq.cpu(), want.freq)
+
+
+@pytest.mark.parametrize("mode", ["ref", "opt"])
+def test_materialize_join_on_gpu_matches_cpu(cuda, mode):
+    """On a zipf graph, e0 ⋈ e1 expanded (Ref) and regrouped (Opt) on the
+    card equals the CPU run bit for bit, int32 frequencies."""
+    def db_of(device):
+        return trel.make_graph_db(3000, 30_000, seed=5, device=device)
+    got, gstats = _join_on(cuda, db_of, trel.path_query(1), mode)
+    want, wstats = _join_on("cpu", db_of, trel.path_query(1), mode)
+    _assert_states_equal(got, want)
+    assert gstats.steps == wstats.steps and wstats.steps[0][1] > 30_000
+
+
+def test_float32_regroup_on_gpu_repeats_and_matches_cpu(cuda):
+    """Opt's regroup over real-valued float32 frequencies on a zipf graph:
+    two runs on the card agree bit for bit (K3 adds each run in one fixed
+    order), and each group's sum lies within 2·eps·len·sum of the CPU
+    run's, len and sum being the group's rows and the sum of their
+    (positive) frequencies."""
+    def db_of(device, ones=False):
+        db, schema = trel.make_graph_db(3000, 30_000, seed=5, device=device)
+        edge = db["edge"]
+        w = np.random.default_rng(9).uniform(0.5, 2.0, edge.capacity)
+        freq = edge.freq.to(torch.float32) * torch.tensor(
+            np.ones_like(w) if ones else w, dtype=torch.float32,
+            device=device)
+        return {**db, "edge": edge.with_freq(freq)}, schema
+    query, f32 = trel.path_query(1), torch.float32
+    first, stats = _join_on(cuda, db_of, query, "opt", freq_dtype=f32)
+    again, _ = _join_on(cuda, db_of, query, "opt", freq_dtype=f32)
+    want, wstats = _join_on("cpu", db_of, query, "opt", freq_dtype=f32)
+    rows, _ = _join_on("cpu", lambda d: db_of(d, ones=True), query, "opt",
+                       freq_dtype=f32)
+    assert stats.steps == wstats.steps
+    assert first.freq.dtype == want.freq.dtype == f32
+    assert torch.equal(first.freq, again.freq)
+    for v in want.cols:
+        assert torch.equal(first.cols[v].cpu(), want.cols[v]), v
+    eps = float(torch.finfo(f32).eps)
+    tol = 2 * eps * rows.freq.double() * want.freq.double()
+    assert ((first.freq.cpu().double() - want.freq.double()).abs()
+            <= tol).all()
+
+
+@pytest.mark.parametrize("mode", ["ref", "opt"])
+def test_graph_baselines_on_gpu_match_cpu(cuda, mode):
+    gdb, schema = trel.make_graph_db(500, 4000, seed=8, device=cuda)
+    cdb, _ = trel.make_graph_db(500, 4000, seed=8, device="cpu")
+    plan = tcore.plan_query(trel.path_query(3), schema, mode=mode)
+    got = tcore.Executor(gdb, schema).execute(plan)
+    want = tcore.Executor(cdb, schema).execute(plan)
+    assert got["count(*)"].cpu().item() == want["count(*)"].item()
+    assert got["__stats__"].steps == want["__stats__"].steps
+
+
+def _two_relation_db(device):
+    """R(a, b) ⋈ S(b, c) on key b in [0, 4), frequencies in [0, 3] (0 is a
+    dead row), c a float32 column."""
+    rng = np.random.default_rng(7)
+    schema = Schema(relations={
+        "R": RelSchema("R", (ColumnMeta("a", domain=9),
+                             ColumnMeta("b", domain=4))),
+        "S": RelSchema("S", (ColumnMeta("b", domain=4), ColumnMeta("c"))),
+    })
+    db = db_from_numpy({
+        "R": {"a": rng.integers(0, 9, 11).astype(np.int32),
+              "b": rng.integers(0, 4, 11).astype(np.int32),
+              "freq": rng.integers(0, 4, 11).astype(np.int32)},
+        "S": {"b": rng.integers(0, 4, 13).astype(np.int32),
+              "c": rng.normal(size=13).astype(np.float32),
+              "freq": rng.integers(0, 4, 13).astype(np.int32)},
+    }, device=device)
+    return db, schema
+
+
+def _two_relation_query():
+    return tcore.AggQuery(atoms=(tcore.Atom("R", "r", ("a", "b")),
+                                 tcore.Atom("S", "s", ("b", "c"))),
+                          aggregates=(tcore.Agg("count"),))
+
+
+@pytest.mark.parametrize("dead", [("parent",), ("child",),
+                                  ("parent", "child")])
+@pytest.mark.parametrize("mode", ["ref", "opt"])
+def test_empty_live_side_on_gpu(cuda, dead, mode):
+    """Fault R1 of the JAX package: an empty live side gives an empty state
+    in the input dtypes on the card, as on the CPU, and records 0."""
+    query = _two_relation_query()
+    got, gstats = _join_on(cuda, _two_relation_db, query, mode, dead)
+    want, wstats = _join_on("cpu", _two_relation_db, query, mode, dead)
+    _assert_states_equal(got, want)
+    assert got.freq.shape == (0,)
+    assert gstats.steps == wstats.steps and \
+        {n for _, n in gstats.steps} == {0}
+
+
+def test_guard_fires_before_the_expansion_is_allocated(cuda):
+    """The guard raises after one count of the join's size, before the
+    expansion's index (8 bytes a tuple) could be allocated."""
+    db, schema = trel.make_graph_db(1000, 200_000, seed=3, device=cuda)
+    ex = tcore.Executor(db, schema, oom_guard=1_000_000)
+    plan = tcore.plan_query(trel.path_query(1), schema, mode="ref")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with pytest.raises(tcore.MaterialisationLimit) as err:
+        ex.execute(plan)
+    total = int(re.search(r"would materialise (\d+) tuples",
+                          str(err.value)).group(1))
+    assert total > 1_000_000
+    assert torch.cuda.max_memory_allocated() - base < 8 * total
