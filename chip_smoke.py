@@ -50,15 +50,36 @@ before it, and its kernel launches; every kernel call of its counted run
 (K1 under Opt with FK/PK, K3 in Opt's regroup, K2 and K3 under Opt⁺) is
 recorded and its output held against the plain version on the same inputs.
 
+The last phase, ``x64``, runs the same paths with 64-bit frequencies (the
+JAX package's x64 setting: int64 keys, int64/float64 frequencies, K1–K3's
+64-bit instances), counted on its own.  V.1 at the same scale with int64
+frequencies: each kernel call of one pass held and timed beside its bytes
+bound at 64-bit widths (``call_x64``), then 0MA/Opt⁺ through ``execute``
+and ``compile`` and Ref/Opt (± FK/PK) through ``execute``, every answer
+equal to the oracle in the reference's x64 dtypes (COUNT int64), steps and
+peaks equal to the int32 run's.  Fig. 6 with int64 frequencies: each COUNT
+``path_oracle``'s unwrapped, peaks and guard trips the int32 rows'.  Table
+2 (``benchmarks/graph_counting.py``: ``make_graph_db(20000, 200000)``,
+path-3/4/5 and tree-1/2/3, float64, Opt⁺ compiled, Ref/Opt under its
+20M-tuple guard), each run held against the same Executor on CPU copies
+of the tables.  Synthetic 64-bit cases on every path × mode × key dtype ×
+frequency dtype (key −1, int64's extremes, keys equal in their low 32
+bits, int64 sums that wrap past 2^63) and K3 at 8M rows (one key, every
+row a run; int64 and float64).  Every kernel call of the phase is held
+against its plain version: int64 bitwise, float64 within the stated
+bounds.
+
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
 JSON line per query with its times, one per query with
 its device time by kernel from ``torch.profiler``, one per ``baseline`` and
-``fig6`` case, one JSON line
+``fig6`` case, one per ``x64`` call, query and case (each with the card's
+name and power limit), one JSON line ``{"kernels_x64": [...]}`` with the
+64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
-library time, and as its last line ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero without that line.  Needs a CUDA GPU of compute
-capability 9.0 (sm_90a) and nvcc.
+library time on the int32 main path, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
+that line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
 """
 
 from __future__ import annotations
@@ -77,7 +98,6 @@ import numpy as np
 SCALE = 100_000            # supplier 100k, part 2M, partsupp 8M rows
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-EPS32 = float(np.finfo(np.float32).eps)
 QUERIES = ("minmax", "count", "median")
 COMPILED_RUNS = 3
 TIMING_REPS = 20
@@ -96,9 +116,11 @@ BASELINE_MODES = (("ref", False), ("ref", True), ("opt", False), ("opt", True))
 BASELINE_REPS = 3
 
 # ExecStats.steps of V.1 under the baselines at make_tpch_db(scale=100000,
-# seed=0), as the JAX package records them on the CPU:
+# seed=0), as the JAX package records them on the CPU (this script never
+# loads that package; the command does, by module name):
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c '
-#   import repro.core as c, repro.data.relational as r
+#   from importlib import import_module as im
+#   c, r = im("repro.core"), im("repro.data.relational")
 #   db, s = r.make_tpch_db(scale=100000)
 #   for q in ("minmax", "count", "median"):
 #       for m in ("ref", "opt"):
@@ -210,14 +232,26 @@ def split_ms(torch, steps, reps: int = TIMING_REPS, warm: int = 3,
     return times
 
 
-def join_bytes(np_: int, nc: int) -> int:
-    # pk, pf read and out written (4 B each per parent row); ck, cf read
-    return 12 * np_ + 8 * nc
+def join_bytes(np_: int, nc: int, kbytes: int = 4, fbytes: int = 4) -> int:
+    # pk, pf read and out written per parent row; ck, cf read per child row:
+    # 12 and 8 B at int32, 24 and 16 B with int64 keys and frequencies
+    return np_ * (kbytes + 2 * fbytes) + nc * (kbytes + fbytes)
 
 
-def segsum_bytes(n: int) -> int:
-    # keys, values read and sums written (4 B each), valid written (1 B)
-    return 13 * n
+def segsum_bytes(n: int, kbytes: int = 4, vbytes: int = 4) -> int:
+    # keys, values read and sums written, valid written (1 B): 13 B a row
+    # at int32, 25 B with int64 keys and 64-bit values
+    return n * (kbytes + 2 * vbytes + 1)
+
+
+def call_bytes(name: str, args) -> int:
+    """The bytes bound's numerator of one kernel call, at its dtypes."""
+    if name == "segment_sum":
+        k, v = args
+        return segsum_bytes(k.shape[0], k.element_size(), v.element_size())
+    pk, pf, ck, _ = args
+    return join_bytes(pk.shape[0], ck.shape[0], pk.element_size(),
+                      pf.element_size())
 
 
 def bound_ms(nbytes: int) -> float:
@@ -249,22 +283,26 @@ def compare(torch, name: str, got, want, tol) -> float:
 
 
 def join_tolerance(torch, pf, cf):
-    """float32 FreqJoin: the plain version takes differences of a float32
-    prefix sum over the whole sorted child, so each result carries the
-    rounding of that prefix: bound 4·eps·Σ|cf|·|pf|.  Zero for ints."""
+    """Float FreqJoin: the plain version takes differences of a prefix sum
+    over the whole sorted child in the frequencies' dtype, so each result
+    carries the rounding of that prefix: bound 4·eps·Σ|cf|·|pf|, eps of
+    float32 or float64.  Zero for ints."""
     if not pf.dtype.is_floating_point:
         return 0.0
-    return 4 * EPS32 * float(cf.abs().double().sum()) * pf.abs().double()
+    eps = torch.finfo(pf.dtype).eps
+    return 4 * eps * float(cf.abs().double().sum()) * pf.abs().double()
 
 
 def segsum_tolerance(torch, plain_ss, keys, vals):
-    """float32 segment sum: both versions add a run in different orders, so
-    a run's total may differ by len·eps·Σ|v| over the run.  Zero for ints."""
+    """Float segment sum: both versions add a run in different orders, so
+    a run's total may differ by len·eps·Σ|v| over the run, eps of float32
+    or float64.  Zero for ints."""
     if not vals.dtype.is_floating_point:
         return 0.0
     abs_sum, _ = plain_ss(keys, vals.abs())
     length, _ = plain_ss(keys, torch.ones_like(vals))
-    return 2 * EPS32 * length.double() * abs_sum.double()
+    eps = torch.finfo(vals.dtype).eps
+    return 2 * eps * length.double() * abs_sum.double()
 
 
 def hold_join(torch, plain, errs, tag, got, pk, pf, ck, cf):
@@ -514,6 +552,51 @@ def synthetic_cases(torch, make_graph_db, dev):
     return out
 
 
+def kernel_calls(torch, calls, kern, plain, errs, key="call",
+                 extra=None) -> dict:
+    """Each recorded call of each kernel (``calls[name]``, a list of its
+    arguments) held against the plain version on the same inputs and timed:
+    one JSON line per call under ``key``, with ``extra`` merged in, beside
+    its bytes bound at the call's dtypes (K1 also beside ``torch.isin``, K3
+    beside ``torch.cumsum``).  Returns the sums over each kernel's calls."""
+    timing = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                     "bytes": 0, "library_ms": None} for name in calls}
+    timing["semi_join"]["library_ms"] = 0.0
+    for name, cl in calls.items():
+        check(len(cl) > 0, f"main path made no {name} call")
+        for i, args in enumerate(cl):
+            tag = f"{name} {key} {i}"
+            if name == "segment_sum":
+                check_segsum(torch, kern[name], plain[name], errs[name], tag,
+                             *args)
+                shape = [args[0].shape[0]]
+            else:
+                check_join(torch, kern[name], plain[name], errs[name], tag,
+                           *args)
+                shape = [args[0].shape[0], args[2].shape[0]]
+            nbytes = call_bytes(name, args)
+            k_ms = time_ms(torch, lambda: kern[name](*args))
+            kd_ms = time_ms(torch, lambda: kern[name](*args), queued=True)
+            p_ms = time_ms(torch, lambda: plain[name](*args))
+            timing[name]["ms"] += k_ms
+            timing[name]["device_ms"] += kd_ms
+            timing[name]["plain_ms"] += p_ms
+            timing[name]["bytes"] += nbytes
+            line = {key: name, "index": i, "shape": shape, "ms": k_ms,
+                    "device_ms": kd_ms, "plain_ms": p_ms,
+                    "bound_ms": bound_ms(nbytes), **(extra or {})}
+            if name == "semi_join":
+                line["library_ms"] = isin_ms(torch, i, *args)
+                timing[name]["library_ms"] += line["library_ms"]
+            if name == "segment_sum":
+                v = args[1]
+                line["cumsum_ms"] = time_ms(
+                    torch, lambda: torch.cumsum(v, 0, dtype=v.dtype),
+                    queued=True)
+            log(json.dumps(line))
+    return timing
+
+
 # ---------------------------------------------------------------------------
 # the numpy oracle of V.1
 # ---------------------------------------------------------------------------
@@ -589,8 +672,12 @@ def took_every_path(kernels, joins, sides, run: str) -> dict:
     return paths
 
 
-def answers_equal(got: dict, want: dict) -> bool:
+def answers_equal(got: dict, want: dict, dtypes: dict | None = None) -> bool:
+    """Every answer of ``want`` equals ``got``'s, a scalar, and where
+    ``dtypes`` names its dtype, is of that dtype."""
     for k, v in want.items():
+        if dtypes is not None and got[k].dtype != dtypes[k]:
+            return False
         g = got[k].cpu().numpy()
         if g.shape != () or g.item() != np.asarray(v).item():
             return False
@@ -726,14 +813,15 @@ def wrap32(n: int) -> int:
     return (n + 2**31) % 2**32 - 2**31
 
 
-def path_oracle(src, dst, k: int, guard: int):
+def path_oracle(src, dst, k: int, guard: int, wrap: bool = True):
     """Fig. 6's path-k row by numpy on one edge list, independent of the
     port.  The Ref plan roots at e0 and joins e1, ..., ek onto it in turn,
     so its j-th join holds the (j+1)-edge paths; the Opt plan joins e(k-1),
     ..., e0 onto the leaf's rows in turn and regroups each join to the
     parent's distinct (src, dst) pairs; Opt⁺ holds no more than one scanned
     relation.  Returns (peak per mode, None where the guard trips; the
-    tuples the guard refused, or None; COUNT(*) at int32)."""
+    tuples the guard refused, or None; COUNT(*) at int32, or unwrapped
+    with ``wrap=False``)."""
     n = int(max(src.max(), dst.max())) + 1
     outdeg = np.bincount(src, minlength=n).astype(np.int64)
     paths = np.bincount(dst, minlength=n).astype(np.int64)  # 1-edge paths
@@ -755,25 +843,33 @@ def path_oracle(src, dst, k: int, guard: int):
         child_src = kept // n
     peaks = {"ref": None if refused else ref_peak, "opt": opt_peak,
              "opt_plus": len(src)}
-    return peaks, refused, wrap32(total)
+    return peaks, refused, wrap32(total) if wrap else total
 
 
-def fig6_lines(torch, tc, data, kernels, plain, errs, dev) -> list[dict]:
+def fig6_lines(torch, tc, data, kernels, plain, errs, dev,
+               freq_dtype=None, same_as=None) -> list[dict]:
     """Fig. 6's rows at the JAX package's sizes under ``oom_guard``: each
     peak, guard trip and COUNT as ``path_oracle`` gives them for the path
     rows and as ``FIG6_STATS_ROW`` gives them for stats-full, and each
     kernel call against its plain version.  A trip must come before the
     refused expansion is allocated: the device memory the run allocated
-    stays below 12 bytes (its row index and frequency) for each refused
-    tuple."""
+    stays below the bytes of a row index and a frequency (12 or 16) for
+    each refused tuple.  ``freq_dtype`` torch.int64 runs the rows in 64 bits: each COUNT
+    is then ``path_oracle``'s unwrapped, in int64, and each peak and guard
+    trip must equal the row of ``same_as`` (the int32 lines) of its query
+    and mode."""
+    wide = freq_dtype is not None
+    freq_dtype = freq_dtype or torch.int32
     graph = data.make_graph_db(**FIG6_GRAPH, device=dev)
     stats_db = data.make_stats_db(**FIG6_STATS, device=dev)
     src, dst = (graph[0]["edge"].columns[c].cpu().numpy()
                 for c in ("src", "dst"))
     lines = [{"fig6_data": {"numpy": np.__version__}}]
     cases = [(f"path-{k}", graph, data.path_query(k),
-              (FIG6_GRAPH["n_edges"], *path_oracle(src, dst, k, FIG6_GUARD)))
+              (FIG6_GRAPH["n_edges"],
+               *path_oracle(src, dst, k, FIG6_GUARD, wrap=not wide)))
              for k in (2, 3, 4)]
+    earlier = {(r["fig6"], r["mode"]): r for r in same_as or () if "fig6" in r}
     base_max, peaks, count = FIG6_STATS_ROW
     cases.append(("stats-full", stats_db, data.stats_count_query(),
                   (base_max, peaks, None, count)))
@@ -781,7 +877,8 @@ def fig6_lines(torch, tc, data, kernels, plain, errs, dev) -> list[dict]:
         base_max, peaks, refused_want, count = want
         got_base = max(int(t.live_count()) for t in db.values())
         check(got_base == base_max, f"fig6 {name}: base max {got_base}")
-        ex = tc.Executor(db, schema, oom_guard=FIG6_GUARD)
+        ex = tc.Executor(db, schema, freq_dtype=freq_dtype,
+                         oom_guard=FIG6_GUARD)
         got, counts = {}, {}
         for mode in FIG6_MODES:
             plan = tc.plan_query(query, schema, mode=mode)
@@ -793,10 +890,11 @@ def fig6_lines(torch, tc, data, kernels, plain, errs, dev) -> list[dict]:
                 except tc.MaterialisationLimit as err:
                     return err, stats
 
-            tag = f"fig6 {name} {mode}"
+            tag = f"fig6 {name} {mode}" + (" x64" if wide else "")
             (out, stats), line = measured(torch, kernels, plain, errs, tag,
                                           run, dev)
-            row = {"fig6": name, "mode": mode, "base_max": base_max}
+            row = {"fig6": name, "mode": mode, "base_max": base_max,
+                   "freq_dtype": str(freq_dtype)[6:]}
             if peaks[mode] is None:
                 check(isinstance(out, tc.MaterialisationLimit),
                       f"{tag}: the guard did not trip")
@@ -804,20 +902,318 @@ def fig6_lines(torch, tc, data, kernels, plain, errs, dev) -> list[dict]:
                                         str(out)).group(1))
                 check(refused_want in (None, refused),
                       f"{tag}: refused {refused}, oracle {refused_want}")
-                check(line["peak_bytes"] < 12 * refused,
-                      f"{tag}: {line['peak_bytes']} bytes allocated before "
-                      f"the guard refused {refused} tuples")
+                check(line["peak_bytes"] < (8 + freq_dtype.itemsize)
+                      * refused, f"{tag}: {line['peak_bytes']} bytes "
+                      f"allocated before the guard refused {refused} tuples")
                 row.update(peak_tuples=None, guard_trip=refused,
                            steps_before_trip=stats.steps)
             else:
                 check(isinstance(out, dict), f"{tag}: {out}")
                 got[mode] = stats.peak_tuples
                 check(got[mode] == peaks[mode], f"{tag}: peak {got[mode]}")
+                check(out["count(*)"].dtype == freq_dtype,
+                      f"{tag}: COUNT dtype {out['count(*)'].dtype}")
                 counts[mode] = int(out["count(*)"])
                 row.update(peak_tuples=got[mode], count=counts[mode])
+            if earlier:
+                same = earlier[name, mode]
+                check(all(row.get(k) == same.get(k) for k in (
+                    "peak_tuples", "guard_trip", "steps_before_trip")),
+                      f"{tag}: peak or trip differs from the int32 run's")
             lines.append({**row, **line})
         check(got["opt_plus"] <= base_max, f"fig6 {name}: Opt⁺ above base")
         check(set(counts.values()) == {count}, f"fig6 {name}: {counts}")
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# 64-bit frequencies: the JAX package's x64 setting
+# ---------------------------------------------------------------------------
+# benchmarks/graph_counting.py's Table 2 run, float64 frequencies: its
+# graph, its queries and its guard (OOM_GUARD)
+TABLE2_GRAPH = {"n_nodes": 20_000, "n_edges": 200_000, "seed": 0}
+TABLE2_QUERIES = (("path-3", "path", 3), ("path-4", "path", 4),
+                  ("path-5", "path", 5), ("tree-1", "tree", 1),
+                  ("tree-2", "tree", 2), ("tree-3", "tree", 3))
+TABLE2_GUARD = 20_000_000
+# A float64 COUNT past 2^53 is rounded, and the card and the CPU add in
+# other orders: each edge's sums round by at most eps per add, at most
+# 2·10^5 adds (the edge relation's rows) on each of at most 6 edges and
+# the final sum, 1.4·10^6 · 1.1·10^-16 ≈ 1.6·10^-10 of the count.
+F64_COUNT_RTOL = 1e-9
+JOINS = (("semi_join", "any"), ("freq_join", "sum"))
+
+
+def x64_v1_lines(torch, tc, fj, kernels, kern, plain, errs, db, schema,
+                 plans, oracle, main_steps, tpch_v1_query, card, dev):
+    """V.1 at the main path's scale with int64 frequencies.  First each
+    kernel call of one pass is recorded, held against its plain version
+    and timed (``call_x64`` lines, bytes bound at the calls' dtypes).  Then
+    the counted run: every kernel's counts set to 0, each query's 0MA/Opt⁺
+    plan through ``execute`` and ``compile``, its answers equal to the
+    oracle in the reference's x64 dtypes (COUNT int64, MIN/MAX/MEDIAN the
+    value column's float32), its steps and peak equal to the int32 run's,
+    every hash-join path taken; the counts read just after.  Last, Ref and
+    Opt (± FK/PK) through ``execute``, each kernel call held.  Returns the
+    lines, the timing per kernel, the counted launches and the calls timed
+    per kernel."""
+    i64 = torch.int64
+    bal = db["supplier"].columns["s_acctbal"].dtype
+    dtypes = {q: {k: i64 if k == "count(*)" else bal for k in oracle[q]}
+              for q in QUERIES}
+    calls = {name: [] for name in kernels}
+
+    def keep(name, wrapper, args):
+        calls[name].append(args)
+        return wrapper(*args)
+
+    with routed(kernels, keep):
+        for q in QUERIES:
+            tc.Executor(db, schema, freq_dtype=i64).execute(plans[q])
+    torch.cuda.synchronize()
+    timing = kernel_calls(torch, calls, kern, plain, errs, "call_x64",
+                          {"freq_dtype": "int64", **card})
+    calls_timed = {name: len(cl) for name, cl in calls.items()}
+    calls.clear()
+
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    lines = []
+    for q in QUERIES:
+        before = {name: k.launches for name, (_, _, k) in kernels.items()}
+        ex = tc.Executor(db, schema, freq_dtype=i64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.execute(plans[q])
+        torch.cuda.synchronize()
+        exec_ms = (time.perf_counter() - t0) * 1e3
+        fn = ex.compile(plans[q])
+        run_ms = []
+        for _ in range(COMPILED_RUNS):
+            t0 = time.perf_counter()
+            out = fn(db)
+            torch.cuda.synchronize()
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+        tag = f"x64 {q} {plans[q].mode}"
+        check(answers_equal(res, oracle[q], dtypes[q]),
+              f"{tag} execute: {res} != {oracle[q]}")
+        check(answers_equal(out, oracle[q], dtypes[q]),
+              f"{tag} compile: {out} != {oracle[q]}")
+        check(res["__stats__"].steps == main_steps[q],
+              f"{tag}: steps {res['__stats__'].steps}")
+        lines.append({
+            "query_x64": q, "mode": plans[q].mode, "freq_dtype": "int64",
+            "answer": {k: np.asarray(v).item() for k, v in oracle[q].items()},
+            "dtypes": {k: str(v)[6:] for k, v in dtypes[q].items()},
+            "execute_ms": exec_ms, "compiled_ms": run_ms,
+            "peak_live_tuples": res["__stats__"].peak_tuples,
+            "launches": {name: k.launches - before[name]
+                         for name, (_, _, k) in kernels.items()}, **card})
+    launches = {name: k.launches for name, (_, _, k) in kernels.items()}
+    for name, n in launches.items():
+        check(n > 0, f"the 64-bit main path launched {name} no time")
+    paths = took_every_path(kernels, JOINS, fj.SIDES, "the 64-bit main path")
+    for line, q in zip(lines, QUERIES):
+        fn = tc.Executor(db, schema, freq_dtype=i64).compile(plans[q])
+        prof = profile_run(torch, fn, db)
+        line.update(device_ms=prof["device_ms"],
+                    profile={**prof, "top": prof["top"][:4]})
+    lines.append({"main_path_x64_launches": launches, "paths": paths,
+                  **card})
+
+    ex = tc.Executor(db, schema, freq_dtype=i64)
+    for q in QUERIES:
+        for mode, fkpk in BASELINE_MODES:
+            plan = tc.plan_query(tpch_v1_query(q), schema, mode=mode,
+                                 use_fkpk=fkpk)
+            tag = f"x64 baseline {q} {mode} use_fkpk={fkpk}"
+            res, line = measured(torch, kernels, plain, errs, tag,
+                                 lambda: ex.execute(plan), dev)
+            steps = res["__stats__"].steps
+            check(answers_equal(res, oracle[q], dtypes[q]),
+                  f"{tag}: {res} != {oracle[q]}")
+            check(steps == V1_BASELINE_STEPS[q, mode, fkpk],
+                  f"{tag}: steps {steps}")
+            lines.append({"baseline_x64": q, "mode": mode,
+                          "use_fkpk": fkpk, "freq_dtype": "int64",
+                          "peak_tuples": res["__stats__"].peak_tuples,
+                          "largest_join": largest_join(steps), **line,
+                          **card})
+    return lines, timing, launches, calls_timed
+
+
+def table2_lines(torch, tc, data, kernels, plain, errs, dev, card):
+    """Table 2 (``benchmarks/graph_counting.py``) in float64 at the
+    benchmark's own size: path-3/4/5 and tree-1/2/3, Opt⁺ through
+    ``compile``, Ref and Opt through ``execute`` under its guard.  The
+    card's numpy draws another zipf graph than the JAX package's machine,
+    so each run is held against the same Executor on CPU copies of the
+    same tables (the plain versions): COUNT equal below 2^53 and within
+    ``F64_COUNT_RTOL`` above, steps equal, a guard trip with the same
+    message after the same steps; each kernel call held."""
+    from repro_torch.tables.table import Table
+    gdb, schema = data.make_graph_db(**TABLE2_GRAPH, device=dev)
+    cdb = {r: Table({c: t.cpu() for c, t in tab.columns.items()},
+                    tab.freq.cpu()) for r, tab in gdb.items()}
+    f64 = torch.float64
+    lines = [{"table2_data": {"numpy": np.__version__, **TABLE2_GRAPH,
+                              "guard": TABLE2_GUARD}}]
+
+    def runner(db, plan):
+        ex = tc.Executor(db, schema, freq_dtype=f64, oom_guard=TABLE2_GUARD)
+        if plan.mode == "opt_plus":
+            fn = ex.jittable().compile(plan)
+            return lambda: (fn(db), None)
+
+        def run():
+            stats = tc.ExecStats()
+            try:
+                return ex.execute(plan, stats), stats
+            except tc.MaterialisationLimit as err:
+                return err, stats
+        return run
+
+    for name, kind, k in TABLE2_QUERIES:
+        query = data.path_query(k) if kind == "path" else data.tree_query(k)
+        counts = {}
+        for mode in ("opt_plus", "opt", "ref"):
+            plan = tc.plan_query(query, schema, mode=mode)
+            tag = f"table2 {name} {mode}"
+            want, wstats = runner(cdb, plan)()
+            (got, stats), line = measured(torch, kernels, plain, errs, tag,
+                                          runner(gdb, plan), dev)
+            row = {"table2": name, "mode": mode, "freq_dtype": "float64"}
+            if wstats is not None:
+                check(stats.steps == wstats.steps, f"{tag}: steps "
+                      f"{stats.steps} != the CPU's {wstats.steps}")
+            if isinstance(want, tc.MaterialisationLimit):
+                check(isinstance(got, tc.MaterialisationLimit) and
+                      str(got) == str(want), f"{tag}: {got} != {want}")
+                row.update(guard_trip=str(want), steps_before_trip=stats.steps)
+            else:
+                check(isinstance(got, dict), f"{tag}: {got}")
+                c, w = got["count(*)"], float(want["count(*)"])
+                check(c.dtype == f64, f"{tag}: COUNT dtype {c.dtype}")
+                c = float(c)
+                check(c == w if w < 2**53 else
+                      abs(c - w) <= F64_COUNT_RTOL * w,
+                      f"{tag}: COUNT {c} != the CPU's {w}")
+                counts[mode] = c
+                row.update(count=c, cpu_count=w, peak_tuples=None
+                           if stats is None else stats.peak_tuples)
+            lines.append({**row, **line, **card})
+        top = max(counts.values())
+        check(all(abs(c - top) <= F64_COUNT_RTOL * top
+                  for c in counts.values()),
+              f"table2 {name}: the modes' COUNTs differ: {counts}")
+    return lines
+
+
+def x64_synthetic_lines(torch, fj, ss, kernels, kern, plain, errs, dev,
+                        card) -> list[dict]:
+    """The 64-bit instances on synthetic cases, held against the plain
+    versions: every hash-join path × mode × key dtype (int32, int64) ×
+    frequency dtype (int64, float64), with key −1 (the empty marker, in a
+    side slot) in the parent, the child, both or neither, the key dtype's
+    extremes, for int64 keys keys equal in their low 32 bits (k + 2^32
+    beside k), and int64 frequencies over the whole range, whose sums wrap
+    past 2^63; parent keys k + 2^32 against child keys k, which must match
+    nothing; K3 over each case's sorted child keys; K3 at 8M rows with one
+    key and with every row its own run, int64 keys, int64 values over the
+    whole range and float64 integers in {-1, 0, 1} (every partial sum
+    exact), held bitwise and timed (device ms) beside the 25-byte bound;
+    and 8-byte views at an odd storage offset (the scalar path)."""
+    rng = np.random.default_rng(SEED + 4)
+    i64 = np.iinfo(np.int64)
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    side_hits, n_cases = {}, 0
+    shapes = (("shared", (5000, 1000)), ("child", (70_001, 50_000)),
+              ("parent", (50_000, 70_001)))
+    for side, (np_, nc) in shapes:
+        check(fj.join_path(np_, nc).side == side, f"{side}: path")
+        for where in ("neither", "parent", "child", "both"):
+            for kdt in (np.int32, np.int64):
+                info = np.iinfo(kdt)
+                pk = rng.integers(-50, 50, np_).astype(kdt)
+                ck = rng.integers(-50, 50, nc).astype(kdt)
+                pk[pk == -1] = 0
+                ck[ck == -1] = 0
+                if kdt == np.int64:
+                    pk[::3] += np.int64(1) << 32
+                    ck[::5] += np.int64(1) << 32
+                if where in ("parent", "both"):
+                    pk[::97] = -1
+                if where in ("child", "both"):
+                    ck[::89] = -1
+                pk[1:3] = [info.min, info.max]
+                ck[1:3] = [info.max, info.min]
+                for fdt in (np.int64, np.float64):
+                    if where == "neither" and fdt == np.int64:
+                        pf = rng.integers(i64.min, i64.max, np_)
+                        cf = rng.integers(i64.min, i64.max, nc)
+                    else:
+                        pf = rng.integers(0, 4, np_).astype(fdt)
+                        cf = rng.integers(-2, 4, nc).astype(fdt)
+                        cf[ck == -1] = 2
+                    t = [torch.tensor(a, device=dev) for a in (pk, pf, ck,
+                                                                cf)]
+                    tag = (f"x64 {side} key -1 in {where} "
+                           f"{np.dtype(kdt).name}/{np.dtype(fdt).name}")
+                    for name, _ in JOINS:
+                        got = check_join(torch, kern[name], plain[name],
+                                         errs[name], f"{name} {tag}", *t)
+                        n_cases += 1
+                        if where == "both":
+                            hits = int(((t[0] == -1) & (got != 0)).sum())
+                            side_hits[f"{name} {tag}"] = hits
+                            check(hits > 0, f"{name} {tag}: no parent row "
+                                  "with key -1 matched through the side slot")
+                    check_segsum(torch, ss.segment_sum_cuda,
+                                 ss.segment_sum_plain, errs["segment_sum"],
+                                 f"segment_sum {tag}",
+                                 torch.sort(t[2]).values, t[3])
+        pk = torch.tensor(rng.integers(0, 100, np_) + (1 << 32), device=dev)
+        ck = torch.tensor(rng.integers(0, 100, nc), device=dev)
+        ones = torch.ones(np_, dtype=torch.int64, device=dev)
+        for name, _ in JOINS:
+            got = check_join(torch, kern[name], plain[name], errs[name],
+                             f"{name} x64 {side} low-32-bit aliases", pk,
+                             ones, ck, torch.ones_like(ck))
+            check(not bool(got.any()), f"{name} {side}: a key k + 2^32 "
+                  "matched a key k")
+    paths = took_every_path(kernels, JOINS, fj.SIDES,
+                            "the 64-bit synthetic cases")
+    lines = [{"synthetic_x64": n_cases, "paths": paths,
+              "side_slot_hits": side_hits}]
+    n = 8_000_000
+    for tag, keys in (("one key", torch.full((n,), 7 << 32, dtype=torch.int64,
+                                            device=dev)),
+                      ("every row a run", torch.arange(
+                          n, dtype=torch.int64, device=dev) << 32)):
+        line = {"segsum_case_x64": tag, "shape": [n],
+                "bound_ms": bound_ms(segsum_bytes(n, 8, 8)), **card}
+        for dt, vals in (("int64", rng.integers(i64.min, i64.max, n)),
+                         ("float64", rng.integers(-1, 2, n)
+                          .astype(np.float64))):
+            v = torch.tensor(vals, device=dev)
+            check_segsum(torch, ss.segment_sum_cuda, ss.segment_sum_plain,
+                         errs["segment_sum"], f"segment_sum {tag} {dt}",
+                         keys, v, exact=True)
+            line[f"{dt}_device_ms"] = time_ms(
+                torch, lambda: ss.segment_sum_cuda(keys, v), queued=True)
+            line[f"{dt}_plain_ms"] = time_ms(
+                torch, lambda: ss.segment_sum_plain(keys, v))
+        lines.append(line)
+    for m in (ss.TILE - 1, ss.TILE + 1, 3 * ss.TILE + 5):
+        kb = torch.tensor(np.sort(rng.integers(0, m // 40 + 2, m + 1)) << 33,
+                          device=dev)
+        for dt in (np.int64, np.float64):
+            vb = torch.tensor(rng.integers(-9, 9, m + 1).astype(dt),
+                              device=dev)
+            check_segsum(torch, ss.segment_sum_cuda, ss.segment_sum_plain,
+                         errs["segment_sum"], f"segment_sum x64 offset 1 "
+                         f"length {m}", kb[1:], vb[1:])
     return lines
 
 
@@ -881,42 +1277,8 @@ def main() -> int:
     kern = {"semi_join": sj.semi_join_cuda, "freq_join": fj.freq_join_cuda,
             "segment_sum": ss.segment_sum_cuda}
     errs = {name: [] for name in kernels}
-    timing = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                     "bytes": 0, "library_ms": None} for name in kernels}
-    timing["semi_join"]["library_ms"] = 0.0
-    for name, cl in calls.items():
-        check(len(cl) > 0, f"main path made no {name} call")
-        for i, args in enumerate(cl):
-            if name == "segment_sum":
-                check_segsum(torch, kern[name], plain[name], errs[name],
-                             f"{name} call {i}", *args)
-                nbytes = segsum_bytes(args[0].shape[0])
-                shape = [args[0].shape[0]]
-            else:
-                check_join(torch, kern[name], plain[name], errs[name],
-                           f"{name} call {i}", *args)
-                nbytes = join_bytes(args[0].shape[0], args[2].shape[0])
-                shape = [args[0].shape[0], args[2].shape[0]]
-            k_ms = time_ms(torch, lambda: kern[name](*args))
-            kd_ms = time_ms(torch, lambda: kern[name](*args), queued=True)
-            p_ms = time_ms(torch, lambda: plain[name](*args))
-            timing[name]["ms"] += k_ms
-            timing[name]["device_ms"] += kd_ms
-            timing[name]["plain_ms"] += p_ms
-            timing[name]["bytes"] += nbytes
-            line = {"call": name, "index": i, "shape": shape, "ms": k_ms,
-                    "device_ms": kd_ms, "plain_ms": p_ms,
-                    "bound_ms": bound_ms(nbytes)}
-            if name == "semi_join":
-                line["library_ms"] = isin_ms(torch, i, *args)
-                timing[name]["library_ms"] += line["library_ms"]
-            if name == "segment_sum":
-                v = args[1]
-                line["cumsum_ms"] = time_ms(
-                    torch, lambda: torch.cumsum(v, 0, dtype=v.dtype),
-                    queued=True)
-            log(json.dumps(line))
-    joins = (("semi_join", "any"), ("freq_join", "sum"))
+    timing = kernel_calls(torch, calls, kern, plain, errs)
+    joins = JOINS
     for _, _, k in kernels.values():
         k.reset_counts()
     side_hits = {}
@@ -964,7 +1326,7 @@ def main() -> int:
                         for r, tab in db.items()})
     for _, _, k in kernels.values():
         k.reset_counts()
-    query_lines = []
+    query_lines, main_steps = [], {}
     for q in QUERIES:
         ex = Executor(db, schema)
         torch.cuda.synchronize()
@@ -982,6 +1344,7 @@ def main() -> int:
         want = oracle[q]
         check(answers_equal(res, want), f"{q} execute: {res} != {want}")
         check(answers_equal(out, want), f"{q} compile: {out} != {want}")
+        main_steps[q] = res["__stats__"].steps
         query_lines.append({
             "query": q, "mode": plans[q].mode,
             "answer": {k: np.asarray(v).item() for k, v in want.items()},
@@ -1012,10 +1375,33 @@ def main() -> int:
     for line in baseline_lines(torch, tc, kernels, plain, errs, db, schema,
                                plans, oracle, tpch_v1_query, dev):
         log(json.dumps(line))
-    for line in fig6_lines(torch, tc, data, kernels, plain, errs, dev):
+    fig6_32 = fig6_lines(torch, tc, data, kernels, plain, errs, dev)
+    for line in fig6_32:
         log(json.dumps(line))
     log("the baseline and fig6 phases' kernel calls equal their plain "
         "versions")
+
+    # -- 64-bit frequencies, counted on their own ----------------------------
+    card = {"card": smi}
+    errs64 = {name: [] for name in kernels}
+    t0 = time.perf_counter()
+    v1_64, timing64, launches64, calls64 = x64_v1_lines(
+        torch, tc, fj, kernels, kern, plain, errs64, db, schema, plans,
+        oracle, main_steps, tpch_v1_query, card, dev)
+    for line in v1_64:
+        log(json.dumps(line))
+    for line in fig6_lines(torch, tc, data, kernels, plain, errs64, dev,
+                           freq_dtype=torch.int64, same_as=fig6_32):
+        log(json.dumps({**line, **card}))
+    for line in table2_lines(torch, tc, data, kernels, plain, errs64, dev,
+                             card):
+        log(json.dumps(line))
+    for line in x64_synthetic_lines(torch, fj, ss, kernels, kern, plain,
+                                    errs64, dev, card):
+        log(json.dumps(line))
+    log(f"x64: every 64-bit kernel call equals its plain version (int64 "
+        f"bitwise, float64 within the stated bounds) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name in kernels:
@@ -1030,6 +1416,21 @@ def main() -> int:
                      "bound_by": "bytes",
                      "library_ms": timing[name]["library_ms"],
                      "calls_timed": calls_timed[name]})
+    rows64 = []
+    for name in kernels:
+        source, replaces = KERNEL_META[name]
+        rows64.append({"name": name, "route": "cuda", "source": source,
+                       "replaces": replaces, "freq_dtype": "int64",
+                       "launches": launches64[name],
+                       "max_abs_err": max(errs64[name]),
+                       "ms": timing64[name]["ms"],
+                       "device_ms": timing64[name]["device_ms"],
+                       "plain_ms": timing64[name]["plain_ms"],
+                       "bound_ms": bound_ms(timing64[name]["bytes"]),
+                       "bound_by": "bytes",
+                       "library_ms": timing64[name]["library_ms"],
+                       "calls_timed": calls64[name]})
+    log(json.dumps({"kernels_x64": rows64, **card}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

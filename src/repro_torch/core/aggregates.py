@@ -13,9 +13,14 @@ are rewritten to operate on (value, frequency) pairs:
 live-row indicators.  GROUP BY is evaluated with one stable sort of the root
 relation + segmented reductions — never by materialising groups.
 
-Integer accumulation stays in int32, as in the JAX package (which runs with
-64-bit types off); PyTorch would promote int32 sums to int64, so every sum
-names its dtype.  Float accumulation is float32.
+Accumulators follow the width the caller passes (``wide``; the Executor's
+is that of its ``freq_dtype``, and ``None`` follows the frequencies'),
+as the JAX package's follow ``jax_enable_x64``: integer sums, COUNT and
+COUNT(DISTINCT) accumulate in ``int_dtype(wide)`` (int32 wraps as the
+reference's does); AVG and the median weights in float64 when wide, else
+float32; float SUM in the float's own dtype; AVG(DISTINCT) in float32
+either way.  PyTorch would promote int32 sums to int64, so every sum names
+its dtype.
 """
 
 from __future__ import annotations
@@ -24,11 +29,16 @@ import torch
 
 from repro_torch.core.query import Agg
 from repro_torch.kernels import ops
-from repro_torch.tables.table import pack_keys
+from repro_torch.tables.table import (
+    float_dtype,
+    int_dtype,
+    is_wide,
+    pack_keys,
+)
 
 
-def _acc_dtype(dt: torch.dtype) -> torch.dtype:
-    return dt if dt.is_floating_point else torch.int32
+def _acc_dtype(dt: torch.dtype, wide: bool) -> torch.dtype:
+    return dt if dt.is_floating_point else int_dtype(wide)
 
 
 def _big(dt: torch.dtype):
@@ -58,18 +68,23 @@ def _distinct_mask(values, live):
 
 
 def scalar_aggregate(ag: Agg, cols: dict[str, torch.Tensor],
-                     freq: torch.Tensor, dedup: bool) -> torch.Tensor:
+                     freq: torch.Tensor, dedup: bool,
+                     wide: bool | None = None) -> torch.Tensor:
+    """One aggregate over the root's (value, frequency) pairs, accumulated
+    at ``wide``'s width (``None``: the width of ``freq``)."""
+    if wide is None:
+        wide = is_wide(freq.dtype)
     live = freq > 0
     w = live.to(freq.dtype) if dedup else freq
     if ag.func == "count" and ag.var is None:
-        return torch.sum(w, dtype=_acc_dtype(w.dtype))
+        return torch.sum(w, dtype=_acc_dtype(w.dtype, wide))
     a = cols[ag.var] if ag.var is not None else None
     if ag.distinct:
         vs, mask = _distinct_mask(a, live)
         if ag.func == "count":
-            return torch.sum(mask, dtype=torch.int32)
+            return torch.sum(mask, dtype=int_dtype(wide))
         if ag.func == "sum":
-            acc = _acc_dtype(a.dtype)
+            acc = _acc_dtype(a.dtype, wide)
             return torch.sum(torch.where(mask, vs, torch.zeros_like(vs)),
                              dtype=acc)
         if ag.func == "avg":
@@ -79,20 +94,22 @@ def scalar_aggregate(ag: Agg, cols: dict[str, torch.Tensor],
             return s / torch.clamp(n, min=1)
         # min/max distinct == min/max
     if ag.func == "count":
-        return torch.sum(w, dtype=_acc_dtype(w.dtype))  # nulls unsupported
+        # nulls unsupported
+        return torch.sum(w, dtype=_acc_dtype(w.dtype, wide))
     if ag.func == "sum":
-        acc = _acc_dtype(torch.promote_types(a.dtype, w.dtype))
+        acc = _acc_dtype(torch.promote_types(a.dtype, w.dtype), wide)
         return torch.sum(a.to(acc) * w.to(acc), dtype=acc)
     if ag.func == "avg":
-        s = torch.sum(a.to(torch.float32) * w, dtype=torch.float32)
-        n = torch.sum(w, dtype=_acc_dtype(w.dtype)).to(s.dtype)
+        f = float_dtype(wide)
+        s = torch.sum(a.to(f) * w, dtype=f)
+        n = torch.sum(w, dtype=_acc_dtype(w.dtype, wide)).to(f)
         return s / torch.clamp(n, min=1)
     if ag.func == "min":
         return torch.min(torch.where(live, a, _fill(a, _big(a.dtype))))
     if ag.func == "max":
         return torch.max(torch.where(live, a, _fill(a, _small(a.dtype))))
     if ag.func == "median":
-        return ops.weighted_percentile(a, w, 0.5)
+        return ops.weighted_percentile(a, w, 0.5, wide=wide)
     raise NotImplementedError(ag.func)
 
 
@@ -110,17 +127,21 @@ def _seg(v: torch.Tensor, run_id: torch.Tensor, reduce: str) -> torch.Tensor:
 
 def grouped_aggregate(group_by: tuple[str, ...], aggregates: tuple[Agg, ...],
                       cols: dict[str, torch.Tensor], freq: torch.Tensor,
-                      domains: dict[str, int | None], dedup: bool):
-    """GROUP BY via one sort + segmented reductions.
+                      domains: dict[str, int | None], dedup: bool,
+                      wide: bool | None = None):
+    """GROUP BY via one sort + segmented reductions, keys packed and sums
+    accumulated at ``wide``'s width (``None``: the width of ``freq``).
 
     Returns (out_cols, out_valid): fixed capacity == input capacity; rows
     with out_valid=False are dead.  Group rows sit at the last row of each
     sorted run (segment-sum emission convention).
     """
+    if wide is None:
+        wide = is_wide(freq.dtype)
     live = freq > 0
     w = live.to(freq.dtype) if dedup else freq
     key = pack_keys([cols[g] for g in group_by],
-                    [domains.get(g) for g in group_by])
+                    [domains.get(g) for g in group_by], int_dtype(wide))
     # dead rows sort last and never mark a group as live
     key = torch.where(live, key, _fill(key, _big(key.dtype)))
     ks, order = torch.sort(key, stable=True)
@@ -140,14 +161,14 @@ def grouped_aggregate(group_by: tuple[str, ...], aggregates: tuple[Agg, ...],
         if ag.distinct:
             raise NotImplementedError("DISTINCT inside GROUP BY")
         if ag.func == "count":
-            out = _seg(w_s.to(_acc_dtype(w_s.dtype)), run_id, "sum")
+            out = _seg(w_s.to(_acc_dtype(w_s.dtype, wide)), run_id, "sum")
         elif ag.func == "sum":
-            acc = _acc_dtype(torch.promote_types(a.dtype, w_s.dtype))
+            acc = _acc_dtype(torch.promote_types(a.dtype, w_s.dtype), wide)
             out = _seg(a.to(acc) * w_s.to(acc), run_id, "sum")
         elif ag.func == "avg":
-            s = _seg(a.to(torch.float32) * w_s.to(torch.float32), run_id,
-                     "sum")
-            c = _seg(w_s.to(torch.float32), run_id, "sum")
+            f = float_dtype(wide)
+            s = _seg(a.to(f) * w_s.to(f), run_id, "sum")
+            c = _seg(w_s.to(f), run_id, "sum")
             out = s / torch.clamp(c, min=1)
         elif ag.func == "min":
             v = torch.where(live_s, a, _fill(a, _big(a.dtype)))
@@ -156,18 +177,19 @@ def grouped_aggregate(group_by: tuple[str, ...], aggregates: tuple[Agg, ...],
             v = torch.where(live_s, a, _fill(a, _small(a.dtype)))
             out = _seg(v, run_id, "amax")
         elif ag.func == "median":
-            out = _grouped_weighted_median(ks, a, w_s, live_s)
+            out = _grouped_weighted_median(ks, a, w_s, live_s,
+                                           float_dtype(wide))
         else:
             raise NotImplementedError(f"{ag.func} with GROUP BY")
         out_cols[ag.name] = out
     return out_cols, out_valid
 
 
-def _grouped_weighted_median(sorted_keys, values, weights, live):
+def _grouped_weighted_median(sorted_keys, values, weights, live, acc):
     """Weighted median per group: one lexicographic sort by (group, value),
-    then a segment-relative weighted-cumsum threshold — no group ever
-    materialises (paper §4.2's PERCENTILE(0.5, A, c) generalised to
-    GROUP BY)."""
+    then a segment-relative weighted-cumsum threshold in float dtype
+    ``acc`` — no group ever materialises (paper §4.2's PERCENTILE(0.5, A,
+    c) generalised to GROUP BY)."""
     big = _big(values.dtype)
     v = torch.where(live, values, _fill(values, big))
     # lexsort((v, keys)): stable sort by value, then stable sort by key
@@ -176,7 +198,7 @@ def _grouped_weighted_median(sorted_keys, values, weights, live):
     ks = sorted_keys[order]
     vs = v[order]
     ws = torch.where(live[order], weights[order],
-                     torch.zeros_like(weights)).to(torch.float32)
+                     torch.zeros_like(weights)).to(acc)
     is_first = _first_of_run(ks)
     run_id = (torch.cumsum(is_first, 0, dtype=torch.int32) - 1).long()
     cw = torch.cumsum(ws, 0)

@@ -46,7 +46,13 @@ from repro_torch.core.plan import (
     SemiJoinOp,
 )
 from repro_torch.kernels import ops as kops
-from repro_torch.tables.table import Schema, Table, pack_keys
+from repro_torch.tables.table import (
+    Schema,
+    Table,
+    int_dtype,
+    is_wide,
+    pack_keys,
+)
 
 
 class MaterialisationLimit(RuntimeError):
@@ -83,9 +89,14 @@ class Executor:
     materialising join may produce (``execute`` only).  ``tuning`` is
     reserved for the kernel tuner of a later slice and must be None.
 
-    Frequencies are int32 or float32: the aggregates and K1–K3 accumulate
-    in 32 bits, so 64-bit frequencies are refused rather than narrowed
-    (fault F1) until the x64 slice gives them 64-bit accumulation."""
+    The width of ``freq_dtype`` is the width of the whole run.  int32 and
+    float32 frequencies are the JAX package with 64-bit types off: keys
+    pack in int32 and integer aggregates wrap in int32.  int64 and float64
+    frequencies (the wide setting, ``self.wide``) are the JAX package under
+    ``jax.enable_x64(True)``: keys pack in int64 (an edge with no join
+    variables keeps its int32 zero key, as there), integer aggregates
+    accumulate in int64 and AVG and the median weights in float64, and
+    K1–K3 run their 64-bit instances."""
 
     def __init__(self, db: dict[str, Table], schema: Schema,
                  freq_dtype: torch.dtype = torch.int32,
@@ -94,16 +105,10 @@ class Executor:
         if tuning is not None:
             raise NotImplementedError(
                 "kernel tuning is not ported yet; pass tuning=None")
-        if freq_dtype in (torch.int64, torch.float64):
-            raise ValueError(
-                f"freq_dtype {freq_dtype} is refused (fault F1): the "
-                "aggregates and kernels accumulate in 32 bits and would "
-                "narrow 64-bit frequencies silently. 64-bit frequencies "
-                "arrive with the x64 slice; use torch.int32 or "
-                "torch.float32.")
         self.db = db
         self.schema = schema
         self.freq_dtype = freq_dtype
+        self.wide = is_wide(freq_dtype)
         self.dense_domain = dense_domain
         self.oom_guard = oom_guard
 
@@ -133,13 +138,15 @@ class Executor:
 
     def _key(self, plan: PhysicalPlan, alias: str, st: _State,
              on_vars: tuple[str, ...]):
-        """Packed join key + (optional) dense key-domain size."""
+        """Packed join key (``int_dtype(self.wide)``; int32 zeros for no
+        join variables) + (optional) dense key-domain size."""
         if not on_vars:
             return torch.zeros(st.freq.shape, dtype=torch.int32,
                                device=st.freq.device), 1
         doms = self._domains(plan, alias)
         dlist = [doms.get(v) for v in on_vars]
-        key = pack_keys([st.cols[v] for v in on_vars], dlist)
+        key = pack_keys([st.cols[v] for v in on_vars], dlist,
+                        int_dtype(self.wide))
         domain = None
         if self.dense_domain and all(d is not None for d in dlist):
             domain = 1
@@ -256,10 +263,11 @@ class Executor:
         for col in cols.values():
             boundary[1:] |= col[1:] != col[:-1]
         starts = torch.nonzero(boundary).squeeze(1)
-        # each run's sum by the sorted group-by (K3 on the card) over run
-        # ids: one fixed order in every dtype, so float32 repeats bit for
-        # bit; int32 wraps as np.add.reduceat does.  Ids past 2^31 wrap,
-        # and adjacent runs still differ, which is all K3 reads.
+        # each run's sum by the sorted group-by (K3 on the card) over int32
+        # run ids: one fixed order in every dtype, so float32 and float64
+        # repeat bit for bit; int32 and int64 wrap as np.add.reduceat does.
+        # Ids past 2^31 wrap, and adjacent runs still differ, which is all
+        # K3 reads.
         run = torch.cumsum(boundary, 0, dtype=torch.int32)
         sums, ends = kops.segment_sum_sorted(run, out_freq[perm].contiguous())
         stats.record(f"regroup({op.parent})", starts.shape[0])
@@ -272,12 +280,13 @@ class Executor:
         if not op.group_by:
             for ag in op.aggregates:
                 out[ag.name] = scalar_aggregate(ag, st.cols, st.freq,
-                                                op.dedup)
+                                                op.dedup, self.wide)
             return out
         doms = self._domains(plan, op.root) \
             if op.root in plan.tree.atoms else {}
         cols, valid = grouped_aggregate(op.group_by, op.aggregates,
-                                        st.cols, st.freq, doms, op.dedup)
+                                        st.cols, st.freq, doms, op.dedup,
+                                        self.wide)
         out["groups"] = cols
         out["valid"] = valid
         return out

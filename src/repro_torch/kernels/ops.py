@@ -25,6 +25,7 @@ from repro_torch.kernels import freq_join as _fj
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import semi_join as _sj
 from repro_torch.kernels.autotune import KernelConfig
+from repro_torch.tables.table import float_dtype, is_wide
 
 
 def freq_join(parent_keys, parent_freq, child_keys, child_freq, *,
@@ -77,16 +78,20 @@ def _max_of(dtype: torch.dtype):
             else torch.iinfo(dtype).max)
 
 
-def weighted_percentile(values, weights, q):
+def weighted_percentile(values, weights, q, wide: bool | None = None):
     """PERCENTILE(q, A, freq) — lower-interpolation weighted percentile.
 
     Rows with weight 0 (dead tuples) are ignored: their values are moved to
     the dtype's maximum before the sort so they never land below the target
-    mass.  Weights accumulate in float32, as in the JAX package."""
+    mass.  Weights accumulate in float64 when ``wide``, else in float32, as
+    the JAX package's do with 64-bit types on or off; ``wide=None`` follows
+    the width of ``weights``."""
+    if wide is None:
+        wide = is_wide(weights.dtype)
     v = torch.where(weights > 0, values,
                     torch.full_like(values, _max_of(values.dtype)))
     vs, order = torch.sort(v, stable=True)
-    cw = torch.cumsum(weights[order].to(torch.float32), 0)
+    cw = torch.cumsum(weights[order].to(float_dtype(wide)), 0)
     target = q * cw[-1:]
     idx = torch.searchsorted(cw, target, side="left").clamp(
         0, values.shape[0] - 1)

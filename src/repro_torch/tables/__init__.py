@@ -6,6 +6,9 @@ from repro_torch.tables.table import (
     Table,
     bucket_capacity,
     db_from_numpy,
+    float_dtype,
+    int_dtype,
+    is_wide,
     pack_keys,
 )
 
@@ -17,5 +20,8 @@ __all__ = [
     "Table",
     "bucket_capacity",
     "db_from_numpy",
+    "float_dtype",
+    "int_dtype",
+    "is_wide",
     "pack_keys",
 ]

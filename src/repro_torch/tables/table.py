@@ -23,9 +23,30 @@ import torch
 
 DEFAULT_DEVICE = "cuda"
 
-# int32 wrap-around of the 32-bit golden-ratio constant 0x9E3779B9 used by
-# the hash-combine fallback of ``pack_keys``
+# int32 and int64 wrap-arounds of the golden-ratio constants 0x9E3779B9 and
+# 0x9E3779B97F4A7C15 used by the hash-combine fallback of ``pack_keys``
 _PHI32 = 0x9E3779B9 - (1 << 32)
+_PHI64 = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def is_wide(freq_dtype: torch.dtype) -> bool:
+    """A 64-bit frequency dtype (int64, float64) selects the wide setting,
+    the counterpart of the JAX package under ``jax.enable_x64(True)``."""
+    return freq_dtype.itemsize == 8
+
+
+def int_dtype(wide: bool) -> torch.dtype:
+    """The integer dtype of packed keys, live counts and integer sums:
+    int64 in the wide setting, else int32, as the JAX package's default
+    int with 64-bit types on or off."""
+    return torch.int64 if wide else torch.int32
+
+
+def float_dtype(wide: bool) -> torch.dtype:
+    """The float dtype of AVG sums and median weights: float64 in the wide
+    setting, else float32, as the JAX package's with 64-bit types on or
+    off."""
+    return torch.float64 if wide else torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +159,13 @@ class Table:
     def column_names(self) -> tuple[str, ...]:
         return tuple(sorted(self.columns))
 
-    def live_count(self) -> torch.Tensor:
+    def live_count(self, wide: bool | None = None) -> torch.Tensor:
         """Number of live tuples (rows with freq > 0) — the paper's
-        'materialised tuples' metric for this relation."""
-        return torch.sum(self.freq > 0, dtype=torch.int32)
+        'materialised tuples' metric for this relation — in
+        ``int_dtype(wide)``; ``wide=None`` follows the frequencies' width."""
+        if wide is None:
+            wide = is_wide(self.freq.dtype)
+        return torch.sum(self.freq > 0, dtype=int_dtype(wide))
 
     def content_token(self) -> str:
         """Content hash of the table's data version: one sha256 over every
@@ -229,7 +253,9 @@ def pack_keys(
     ``key = ((c0 * d1 + c1) * d2 + c2) ...``.  Otherwise a Fibonacci mixing
     hash combine is used (documented collision risk — exact engines should
     declare domains; the generators always do).  Arithmetic wraps in the
-    key dtype; the 32-bit mixing constant is 0x9E3779B9 taken as int32.
+    key dtype, which the caller picks (``int_dtype``: int64 in the wide
+    setting); the mixing constant is 0x9E3779B9 taken as int32, or
+    0x9E3779B97F4A7C15 taken as int64.
     """
     if len(cols) == 1:
         return cols[0].to(dtype)
@@ -238,7 +264,7 @@ def pack_keys(
         for c, d in zip(cols[1:], domains[1:]):
             key = key * d + c.to(dtype)
         return key
-    phi = _PHI32 if dtype == torch.int32 else 0x9E3779B97F4A7C15 - (1 << 64)
+    phi = _PHI32 if dtype == torch.int32 else _PHI64
     key = cols[0].to(dtype)
     for c in cols[1:]:
         key = key ^ (c.to(dtype) + phi + (key << 6) + (key >> 2))

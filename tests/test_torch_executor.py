@@ -163,13 +163,26 @@ def test_tuning_is_not_ported(tpch):
         tcore.Executor(tdb, tschema, tuning=object())
 
 
-@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
-def test_64bit_frequencies_are_refused(tpch, dtype):
-    """Fault F1: 64-bit frequencies would be narrowed to 32-bit sums, so the
-    Executor refuses them until the x64 slice."""
-    _, _, tdb, tschema = tpch
-    with pytest.raises(ValueError, match="F1.*x64 slice"):
-        tcore.Executor(tdb, tschema, freq_dtype=dtype)
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("agg", V1_AGGS)
+def test_64bit_frequencies_run_v1(tpch, dtype, agg):
+    """The Executor takes 64-bit frequencies (fault F1 closed) and answers
+    V.1 as the JAX package does under ``jax.enable_x64(True)``, in its
+    64-bit dtypes: COUNT in int64 or float64, not narrowed to 32 bits."""
+    jdb, jschema, tdb, tschema = tpch
+    tplan = tcore.plan_query(trel.tpch_v1_query(agg), tschema)
+    with jax.enable_x64(True):
+        jplan = jcore.plan_query(jrel.tpch_v1_query(agg), jschema)
+        want = jcore.Executor(jdb, jschema,
+                              freq_dtype=getattr(jnp, dtype)).execute(jplan)
+        want = {k: v if k == "__stats__" else np.asarray(v)
+                for k, v in want.items()}
+    ex = tcore.Executor(tdb, tschema, freq_dtype=getattr(torch, dtype))
+    assert ex.wide
+    got = ex.execute(tplan)
+    _assert_answers_equal(got, want)
+    if agg == "count":
+        assert got["count(*)"].dtype == getattr(torch, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["int32", "float32"])

@@ -6,9 +6,12 @@ Every test skips without a CUDA device; on one, run them with
 
 This file imports no JAX, so it runs where only PyTorch is installed.  Each
 kernel is held against its plain PyTorch version on the same card tensors
-(integer-valued inputs, so float32 results are exact too), and the slice's
-queries on the GPU against the same queries on the CPU, the materialising
-Ref/Opt joins included.
+(integer-valued inputs, so float32 and float64 results are exact too), in
+every instance: int32 keys with int32/float32 frequencies (the narrow
+layouts) and int32 or int64 keys with int64/float64 frequencies (the wide
+ones, the JAX package's x64 setting).  The slice's queries on the GPU are
+held against the same queries on the CPU, the materialising Ref/Opt joins
+and 64-bit frequencies included.
 """
 
 import re
@@ -329,7 +332,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tfj.freq_join_cuda(k[::2], f[::2], k, f)
     with pytest.raises(TypeError):
-        tss.segment_sum_cuda(k, f.double())
+        tfj.freq_join_cuda(k.long(), f, k.long(), f)
+    with pytest.raises(TypeError):
+        tss.segment_sum_cuda(k, f.to(torch.int16))
+    with pytest.raises(TypeError):
+        tss.segment_sum_cuda(k.to(torch.int16), f)
 
 
 def _join_inputs(db, schema, query, mode, freq_dtype=torch.int32):
@@ -471,3 +478,261 @@ def test_guard_fires_before_the_expansion_is_allocated(cuda):
                           str(err.value)).group(1))
     assert total > 1_000_000
     assert torch.cuda.max_memory_allocated() - base < 8 * total
+
+
+# ---------------------------------------------------------------------------
+# the 64-bit instances: int64/float64 frequencies, int32 or int64 keys
+# ---------------------------------------------------------------------------
+I64 = np.iinfo(np.int64)
+WIDE_KEY_FREQ = [(np.int32, np.int64), (np.int32, np.float64),
+                 (np.int64, np.int64), (np.int64, np.float64)]
+WIDE_IDS = [f"{np.dtype(k).name}-{np.dtype(f).name}"
+            for k, f in WIDE_KEY_FREQ]
+
+
+def _wide_edge_keys(rng, np_, nc, kdt, where):
+    """As ``_edge_keys``, with the key dtype's extremes, and for int64 keys
+    a third of the parent keys moved up by 2^32 and a fifth of the child
+    keys by 3·2^32, so that keys equal in their low 32 bits meet."""
+    info = np.iinfo(kdt)
+    pk = rng.integers(-50, 50, np_).astype(kdt)
+    ck = rng.integers(-50, 50, nc).astype(kdt)
+    pk[pk == -1] = 0
+    ck[ck == -1] = 0
+    if kdt == np.int64:
+        pk[::3] += np.int64(1) << 32
+        ck[::5] += np.int64(3) << 32
+    if where in ("parent", "both"):
+        pk[::97] = -1
+    if where in ("child", "both"):
+        ck[::89] = -1
+    pk[1:3] = [info.min, info.max]
+    ck[1:3] = [info.max, info.min]
+    return pk, ck
+
+
+@pytest.mark.parametrize("side", list(PATH_SHAPES))
+@pytest.mark.parametrize("where", ["neither", "parent", "child", "both"])
+@pytest.mark.parametrize("mode", ["sum", "any"])
+@pytest.mark.parametrize("kdt,fdt", WIDE_KEY_FREQ, ids=WIDE_IDS)
+def test_wide_join_paths_with_edge_keys_match_plain(cuda, side, where, mode,
+                                                    kdt, fdt):
+    np_, nc = PATH_SHAPES[side]
+    rng = np.random.default_rng([np_, nc, len(where), kdt().itemsize])
+    pk, ck = _wide_edge_keys(rng, np_, nc, kdt, where)
+    pf = rng.integers(0, 4, np_).astype(fdt)
+    cf = rng.integers(-2, 4, nc).astype(fdt)
+    cf[ck == -1] = 2
+    got, want = _join_on_path(cuda, side, mode, pk, pf, ck, cf)
+    assert got.dtype == want.dtype == torch.from_numpy(pf).dtype
+    assert torch.equal(got, want)   # integer-valued: exact in float64 too
+    if where == "both":
+        assert bool((got[torch.tensor(pk, device=cuda) == -1] != 0).any())
+
+
+@pytest.mark.parametrize("side", list(PATH_SHAPES))
+@pytest.mark.parametrize("mode", ["sum", "any"])
+@pytest.mark.parametrize("fdt", [np.int64, np.float64])
+def test_keys_equal_in_low_32_bits_stay_apart(cuda, side, mode, fdt):
+    """Parent keys k + 2^32 never match child keys k: a key hashed and
+    compared in 32 bits would join them.  Half the parent keys are k
+    itself and do match."""
+    np_, nc = PATH_SHAPES[side]
+    rng = np.random.default_rng([np_, nc, 32])
+    ck = rng.integers(0, 100, nc).astype(np.int64)
+    pk = rng.integers(0, 100, np_).astype(np.int64)
+    pk[::2] += np.int64(1) << 32
+    ones_p, ones_c = np.ones(np_, fdt), np.ones(nc, fdt)
+    got, want = _join_on_path(cuda, side, mode, pk, ones_p, ck, ones_c)
+    assert torch.equal(got, want)
+    high = torch.tensor(pk >= 2**32, device=cuda)
+    assert bool((got[high] == 0).all()) and bool((got[~high] != 0).any())
+
+
+@pytest.mark.parametrize("side", list(PATH_SHAPES))
+def test_int64_wrap_on_every_path(cuda, side):
+    """Frequencies over the whole int64 range: K2's sums and products wrap
+    past 2^63 in uint64, as the plain version's int64 arithmetic does."""
+    np_, nc = PATH_SHAPES[side]
+    rng = np.random.default_rng([np_, 64])
+    got, want = _join_on_path(
+        cuda, side, "sum", rng.integers(0, 64, np_).astype(np.int64),
+        rng.integers(I64.min, I64.max, np_), rng.integers(0, 64, nc)
+        .astype(np.int64), rng.integers(I64.min, I64.max, nc))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["sum", "any"])
+@pytest.mark.parametrize("side", ["child", "parent"])
+def test_narrow_table_is_refused_for_64bit_frequencies(cuda, mode, side):
+    """A table sized for the 8-byte slots of 32-bit frequencies is refused
+    for a call with int64 frequencies (16-byte slots); the wide table of
+    ``prepare_call`` is taken."""
+    rng = np.random.default_rng(16)
+    pk, pf, ck, cf = (torch.tensor(a, device=cuda) for a in (
+        rng.integers(0, 9, 5000), rng.integers(0, 4, 5000),
+        rng.integers(0, 9, 7001), rng.integers(0, 4, 7001)))
+    path = tfj.JoinPath(side, tfj.table_slots(5000 if side == "parent"
+                                              else 7001))
+    narrow = torch.empty(tfj.table_words(path, mode), dtype=torch.int32,
+                         device=cuda)
+    out = torch.empty_like(pf)
+    with pytest.raises(KernelLaunchError):
+        tfj.launch_phases(tfj.K2, path, mode, pk, pf, ck, cf, narrow, out,
+                          tfj.ALL_PHASES)
+    _, table, _ = tfj.prepare_call(pf, ck.shape[0], mode, path)
+    assert table.numel() == tfj.table_words(path, mode, wide=True)
+    tfj.launch_phases(tfj.K2, path, mode, pk, pf, ck, cf, table, out,
+                      tfj.ALL_PHASES)
+    assert torch.equal(out, tfj.freq_join_plain(pk, pf, ck, cf, mode=mode))
+
+
+# K3's instances with a 64-bit key or value (the narrow ones are above)
+WIDE_SEGSUM = [(k, v) for k in (np.int32, np.int64)
+               for v in (np.int32, np.float32, np.int64, np.float64)
+               if 8 in (np.dtype(k).itemsize, np.dtype(v).itemsize)]
+
+
+@pytest.mark.parametrize("n", [1, 17, 1024, 1025, 300_001, 0, TILE - 1,
+                               TILE, TILE + 1, 3 * TILE + 5, 1 << 23])
+@pytest.mark.parametrize("kdt,vdt", WIDE_SEGSUM,
+                         ids=[f"{np.dtype(k).name}-{np.dtype(v).name}"
+                              for k, v in WIDE_SEGSUM])
+def test_wide_segment_sum_matches_plain(cuda, n, kdt, vdt):
+    """Every instance with a 64-bit key or value; int64 keys are multiples
+    of 2^32, so runs differ only above bit 31."""
+    rng = np.random.default_rng([n, kdt().itemsize, vdt().itemsize])
+    keys = np.sort(rng.integers(-9, max(2, n // 8), n)).astype(kdt)
+    if kdt == np.int64:
+        keys <<= 32
+    k = torch.tensor(keys, device=cuda)
+    v = torch.tensor(rng.integers(-3, 5, n).astype(vdt), device=cuda)
+    assert _segsum_equal(k, v)
+
+
+@pytest.mark.parametrize("keys", ["one run", "every row a run"])
+@pytest.mark.parametrize("kdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("vdt", [np.int64, np.float64])
+def test_wide_segment_sum_one_run_and_every_row_a_run(cuda, keys, kdt, vdt):
+    n = 1 << 20
+    k = (torch.full((n,), -4, dtype=kdt, device=cuda) if keys == "one run"
+         else torch.arange(n, dtype=kdt, device=cuda))
+    rng = np.random.default_rng(17)
+    v = torch.tensor(rng.integers(-3, 5, n).astype(vdt), device=cuda)
+    assert _segsum_equal(k, v)
+
+
+@pytest.mark.parametrize("run", [1, 80, 5 * TILE])
+def test_segment_sum_int64_wraps(cuda, run):
+    """int64 values over the whole int64 range add in uint64 and wrap, as
+    the plain version's int64 scatter-add does."""
+    n = 4 * TILE * 5 + 3
+    rng = np.random.default_rng(run + 1)
+    k = torch.tensor(np.arange(n, dtype=np.int64) // run, device=cuda)
+    v = torch.tensor(rng.integers(I64.min, I64.max, n, endpoint=True,
+                                  dtype=np.int64), device=cuda)
+    assert _segsum_equal(k, v)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("which", ["keys", "values", "both"])
+@pytest.mark.parametrize("n", [TILE - 1, TILE + 1, 3 * TILE + 5])
+def test_wide_segment_sum_misaligned_views(cuda, offset, which, n):
+    """8-byte elements at an odd storage offset lie 8 bytes off a 16-byte
+    boundary: the scalar path."""
+    rng = np.random.default_rng([offset, n, 8])
+    kb = torch.tensor(np.sort(rng.integers(0, n // 50 + 2, n + 3)) << 33,
+                      device=cuda)
+    vb = torch.tensor(rng.integers(-9, 9, n + 3).astype(np.float64),
+                      device=cuda)
+    ko = offset if which in ("keys", "both") else 0
+    vo = offset if which in ("values", "both") else 0
+    assert _segsum_equal(kb[ko:ko + n], vb[vo:vo + n])
+
+
+@pytest.mark.parametrize("runs", ["one run", "mixed"])
+def test_segment_sum_float64_is_bitwise_repeatable(cuda, runs):
+    n = 1 << 21
+    rng = np.random.default_rng(19)
+    keys = (np.zeros(n, np.int64) if runs == "one run"
+            else np.sort(rng.integers(0, 64, n)) << 32)
+    k = torch.tensor(keys, device=cuda)
+    v = torch.tensor(rng.random(n) * 2 - 1, device=cuda)
+    first = tss.segment_sum_cuda(k, v)
+    for _ in range(3):
+        again = tss.segment_sum_cuda(k, v)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_segment_sum_narrow_scratch_is_refused_for_64bit_values(cuda):
+    """A scratch sized for 32-bit values (8-byte states) is refused for
+    64-bit values, whose tiles need a status and two 8-byte values."""
+    n = 3 * TILE + 5
+    k = torch.zeros(n, dtype=torch.int64, device=cuda)
+    sums, valid, scratch = tss.prepare_call(k)
+    assert scratch.numel() == tss.scratch_words(n, wide=True)
+    narrow = torch.empty(tss.scratch_words(n), dtype=torch.int32,
+                         device=cuda)
+    for short in (narrow, scratch[:-1]):
+        with pytest.raises(KernelLaunchError):
+            tss.launch_call(k, k, sums, valid, short)
+
+
+@pytest.mark.parametrize("agg", ["minmax", "count", "median"])
+@pytest.mark.parametrize("fdt", [torch.int64, torch.float64])
+@pytest.mark.parametrize("mode", ["auto", "opt_plus", "ref", "opt"])
+def test_v1_in_64_bits_on_gpu_matches_cpu(cuda, agg, fdt, mode):
+    gdb, schema = trel.make_tpch_db(scale=2000, seed=1, device=cuda)
+    cdb, _ = trel.make_tpch_db(scale=2000, seed=1, device="cpu")
+    plan = tcore.plan_query(trel.tpch_v1_query(agg), schema, mode=mode)
+    want = tcore.Executor(cdb, schema, freq_dtype=fdt).execute(plan)
+    ex = tcore.Executor(gdb, schema, freq_dtype=fdt)
+    runs = [ex.execute(plan)]
+    if mode in ("auto", "opt_plus"):
+        runs.append(ex.compile(plan)(gdb))
+    for got in runs:
+        for k, v in want.items():
+            if k != "__stats__":
+                assert got[k].dtype == v.dtype
+                assert got[k].cpu().item() == v.item()
+    assert runs[0]["__stats__"].steps == want["__stats__"].steps
+
+
+@pytest.mark.parametrize("fdt", [torch.int64, torch.float64])
+def test_wide_slice_launches_every_kernel(cuda, fdt):
+    db, schema = trel.make_tpch_db(scale=200, seed=2, device=cuda)
+    kernels = (tsj.K1, tfj.K2, tss.K3)
+    for k in kernels:
+        k.launches = 0
+    ex = tcore.Executor(db, schema, freq_dtype=fdt)
+    for agg in ("minmax", "median"):
+        ex.execute(tcore.plan_query(trel.tpch_v1_query(agg), schema))
+    assert [k.launches for k in kernels] == [4, 4, 4]
+
+
+@pytest.mark.parametrize("query", ["path_3", "tree_1"])
+@pytest.mark.parametrize("mode", ["ref", "opt", "opt_plus"])
+def test_float64_graph_counts_on_gpu_match_cpu(cuda, query, mode):
+    """The graph counting queries of the JAX package's Table 2 benchmark,
+    float64 frequencies, under its guard of 20M tuples: COUNT(*) equal
+    (tree-1's, 2.8e10, past 2^31 and exact in float64), steps equal, and
+    Ref's tree-1 trips the guard on the card as on the CPU."""
+    gdb, schema = trel.make_graph_db(500, 4000, seed=8, device=cuda)
+    cdb, _ = trel.make_graph_db(500, 4000, seed=8, device="cpu")
+    q = trel.path_query(3) if query == "path_3" else trel.tree_query(1)
+    plan = tcore.plan_query(q, schema, mode=mode)
+    f64, guard = torch.float64, 20_000_000
+    runs = []
+    for db in (gdb, cdb):
+        try:
+            runs.append(tcore.Executor(db, schema, freq_dtype=f64,
+                                       oom_guard=guard).execute(plan))
+        except tcore.MaterialisationLimit as err:
+            runs.append(str(err))
+    got, want = runs
+    if isinstance(want, str):
+        assert got == want and (query, mode) == ("tree_1", "ref")
+        return
+    assert got["count(*)"].dtype == f64
+    assert got["count(*)"].cpu().item() == want["count(*)"].item()
+    assert got["__stats__"].steps == want["__stats__"].steps
