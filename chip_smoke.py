@@ -69,12 +69,34 @@ row a run; int64 and float64).  Every kernel call of the phase is held
 against its plain version: int64 bitwise, float64 within the stated
 bounds.
 
+The ``serve`` phase drives the serving tier (``repro_torch.service``) at
+the same scale, its kernel counts set to 0 just before it and read just
+after: one ``QueryService`` over the card's tables answers V.1 as SQL text
+(minmax, COUNT(*), MEDIAN), each cold and then as a renamed-alias warm copy
+that must hit the plan and executable caches, with the stage times of its
+``TraceSpan`` tree (``serve`` lines; the kernels were built in the first
+phase, so the cold ``compile`` span times the service, not nvcc); the
+tier's host cost, a warm ``submit`` beside the cached closure run on the
+same padded tables and ``Executor.compile(plan)(db)``, medians of 20, and
+one ``torch.profiler`` run of a warm ``submit`` (``serve_overhead``); the
+quickstart's dashboard plus V.1 minmax through ``submit_many``, cost-gated
+and ungated, fused answers equal to solo ones (``serve_batch``); 8 threads
+calling ``submit_async`` (``serve_async``: fewer batches than requests);
+a second service on the same ``cache_dir`` (``serve_warmstart``:
+``plan_builds == 0``); and 100k rows appended to partsupp inside its
+bucket through ``update_table`` (``serve_growth``: no recompile, answers
+equal to the oracle on the grown data).  Every answer is held against the
+numpy oracle (or the solo answer), every request must be ``ok``, and every
+kernel call of the phase is held against its plain version after the
+request that made it, outside the timed regions (``kernels_serve``).
+
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
 JSON line per query with its times, one per query with
 its device time by kernel from ``torch.profiler``, one per ``baseline`` and
-``fig6`` case, one per ``x64`` call, query and case (each with the card's
-name and power limit), one JSON line ``{"kernels_x64": [...]}`` with the
+``fig6`` case, one per ``x64`` call, query and case and one per ``serve``
+case (each with the card's name and power limit), one JSON line
+``{"kernels_x64": [...]}`` with the
 64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
 library time on the int32 main path, and as its last line
@@ -1218,6 +1240,353 @@ def x64_synthetic_lines(torch, fj, ss, kernels, kern, plain, errs, dev,
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the serving tier
+# ---------------------------------------------------------------------------
+SERVE_FROM = """FROM region r, nation n, supplier s, partsupp ps, part p
+    WHERE r.r_regionkey = n.n_regionkey AND n.n_nationkey = s.s_nationkey
+      AND s.s_suppkey = ps.ps_suppkey AND ps.ps_partkey = p.p_partkey
+      AND r.r_name IN (2, 3) AND p.p_price > 1200.0"""
+SERVE_FROM_RENAMED = """FROM part pa, supplier su, region re, partsupp pp,
+      nation na
+    WHERE pa.p_price > 1200.0 AND na.n_nationkey = su.s_nationkey
+      AND re.r_regionkey = na.n_regionkey AND pp.ps_partkey = pa.p_partkey
+      AND su.s_suppkey = pp.ps_suppkey AND re.r_name IN (3, 2)"""
+# V.1 as SQL text (the quickstart's), cold and as a renamed-alias copy
+SERVE_SQL = {
+    "minmax": (f"SELECT MIN(s.s_acctbal), MAX(s.s_acctbal) {SERVE_FROM}",
+               f"SELECT MAX(su.s_acctbal), MIN(su.s_acctbal) "
+               f"{SERVE_FROM_RENAMED}"),
+    "count": (f"SELECT COUNT(*) {SERVE_FROM}",
+              f"SELECT COUNT(*) {SERVE_FROM_RENAMED}"),
+    "median": (f"SELECT MEDIAN(s.s_acctbal) {SERVE_FROM}",
+               f"SELECT MEDIAN(su.s_acctbal) {SERVE_FROM_RENAMED}"),
+}
+SERVE_DIMS = """FROM supplier s, nation n, region r
+    WHERE s.s_nationkey = n.n_nationkey
+      AND n.n_regionkey = r.r_regionkey AND r.r_name IN (2, 3)"""
+# the quickstart's dashboard on supplier ⋈ nation ⋈ region, plus V.1 minmax
+SERVE_DASHBOARD = [
+    f"SELECT MIN(s.s_acctbal), MAX(s.s_acctbal) {SERVE_DIMS}",
+    f"SELECT SUM(s.s_acctbal) {SERVE_DIMS}",
+    f"SELECT COUNT(*) AS cnt, AVG(s.s_acctbal) AS avg {SERVE_DIMS} "
+    "GROUP BY s.s_nationkey",
+    SERVE_SQL["minmax"][0],
+]
+SERVE_STAGES = ("parse", "fingerprint", "plan", "pad", "compile", "run")
+SERVE_ASYNC_CALLERS = 8
+SERVE_GROWTH_ROWS = 100_000   # appended to partsupp, inside its bucket
+
+
+def serve_equal(values: dict, want: dict) -> bool:
+    """A request's answers against the oracle's, matched by aggregate
+    (the request names its columns after its own aliases)."""
+    by_func = {k.split("(")[0]: v for k, v in want.items()}
+    if len(values) != len(want):
+        return False
+    for k, v in values.items():
+        g = v.cpu().numpy()
+        if g.shape != () or g.item() != np.asarray(by_func[
+                k.split("(")[0]]).item():
+            return False
+    return True
+
+
+def answers_diff(torch, got: dict, want: dict, bounds=None) -> str | None:
+    """Where two requests' answers differ, or None: bitwise (grouped
+    answers included), but for the columns ``bounds`` names, which may
+    differ by the given per-row bound."""
+    if set(got) != set(want):
+        return f"columns {sorted(got)} != {sorted(want)}"
+    for k, g in got.items():
+        w = want[k]
+        if isinstance(g, dict):
+            diff = answers_diff(torch, g, w, bounds)
+            if diff is not None:
+                return diff
+        elif bounds is not None and k in bounds:
+            err = (g.double() - w.double()).abs()
+            if bool((err > bounds[k]).any()):
+                return f"{k}: |diff| {float(err.max())} above its bound"
+        elif not torch.equal(g, w):
+            bad = (g != w).nonzero()[:3].flatten().tolist()
+            return (f"{k}: differs at rows {bad}: {g[bad].tolist()} != "
+                    f"{w[bad].tolist()}")
+    return None
+
+
+def grouped_avg_bound(torch, h, res) -> dict:
+    """The dashboard's AVG(s_acctbal) GROUP BY nation sums each group with
+    ``index_add_``, whose adds on the card land in another order on every
+    run.  Two orders of a group's n float32 terms differ by at most
+    2(n-1)·eps·Σ|x| (Higham, Accuracy and Stability, §4.2), and the
+    division by the group's count rounds once more (eps·|avg|).  n and Σ|x|
+    per nation come from the host's supplier columns (padded rows add
+    exact zeros); every row of a group carries its group's AVG.  Returns
+    ``answers_diff``'s bounds for that column."""
+    groups = res["groups"]
+    sup = h["supplier"]
+    n = np.bincount(sup["s_nationkey"], minlength=64)
+    s = np.bincount(sup["s_nationkey"],
+                    weights=np.abs(sup["s_acctbal"].astype(np.float64)),
+                    minlength=64)
+    nation = groups["n.n_nationkey"].cpu().numpy()
+    avg = groups["avg"].double().cpu().numpy()
+    eps = float(np.finfo(np.float32).eps)
+    bound = (2 * np.maximum(n[nation] - 1, 0) * eps * s[nation]
+             / np.maximum(n[nation], 1) + eps * np.abs(avg))
+    return {"avg": torch.tensor(bound, device=groups["avg"].device)}
+
+
+def served(svc, sql, tag: str):
+    """One request through ``QueryService.submit_many``; fails unless it
+    is ``ok``."""
+    res = svc.submit_many([sql])[0]
+    check(res.ok, f"serve {tag}: request failed: {res.error!r}")
+    return res
+
+
+def stage_ms(res) -> dict:
+    """Each stage's time from the request's ``TraceSpan`` tree, ms."""
+    return {s.name: s.duration_s * 1e3 for s in res.stats.trace.walk()
+            if s.name in SERVE_STAGES}
+
+
+def serve_lines(torch, tc, tsvc, kernels, plain, errs, db, schema, h,
+                oracle, dev, card):
+    """The serving tier on the card, its kernel counts set to 0 just before
+    it and read just after: V.1 as SQL text cold and warm, the tier's host
+    cost over ``Executor.compile``, a fused batch, async callers, in-bucket
+    growth and a warm start from ``cache_dir``.  Every kernel call is held
+    against its plain version on the same inputs after the request that
+    made it (outside every timed region).  Yields one line per case."""
+    import tempfile
+    import threading
+
+    from repro_torch.tables import Table
+
+    pending = []
+
+    def keep(name, wrapper, args):
+        out = wrapper(*args)
+        pending.append((name, args, out))
+        return out
+
+    held = {name: 0 for name in kernels}
+
+    def drain(tag):
+        torch.cuda.synchronize()
+        calls = list(pending)
+        pending.clear()
+        for name, n in hold_calls(torch, plain, errs, tag, calls,
+                                  dev).items():
+            held[name] += n
+
+    inf = float("inf")
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    t_phase = time.perf_counter()
+    with routed(kernels, keep), \
+            tempfile.TemporaryDirectory(prefix="serve-cache-",
+                                        dir=Path(__file__).resolve().parent
+                                        ) as cache_dir:
+        t0 = time.perf_counter()
+        svc = tsvc.QueryService(db, schema, cache_dir=cache_dir,
+                                async_max_wait_ms=100.0)
+        yield {"serve": "setup", "service_s": time.perf_counter() - t0,
+               **card}
+        # -- cold, then a renamed-alias warm copy ------------------------
+        for q, (cold_sql, warm_sql) in SERVE_SQL.items():
+            for tag, sql in (("cold", cold_sql), ("warm", warm_sql)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = served(svc, sql, f"{tag} {q}")
+                ms = (time.perf_counter() - t0) * 1e3
+                drain(f"serve {tag} {q}")
+                check(serve_equal(res.values, oracle[q]),
+                      f"serve {tag} {q}: {res.values} != {oracle[q]}")
+                if tag == "warm":
+                    check(res.stats.plan_cache_hit
+                          and res.stats.exec_cache_hit,
+                          f"serve warm {q}: not answered from the caches")
+                yield {"serve": tag, "query": q,
+                       "mode": res.stats.mode,
+                       "plan_hit": res.stats.plan_cache_hit,
+                       "exec_hit": res.stats.exec_cache_hit,
+                       "bucket": dict(res.stats.bucket),
+                       "submit_ms": ms, "stages_ms": stage_ms(res),
+                       "outside_stages_ms": ms - sum(stage_ms(res).values()),
+                       **card}
+        # -- the tier's host cost over the compiled plan ------------------
+        # beside a service with no cache_dir, which writes no serve-time
+        # feedback to disk after each batch
+        mem_svc = tsvc.QueryService(db, schema)
+        for q, (cold_sql, warm_sql) in SERVE_SQL.items():
+            fp = served(svc, warm_sql, f"overhead {q}").stats.fingerprint
+            served(mem_svc, warm_sql, f"overhead {q} memory-only")
+            drain(f"serve overhead {q}")
+            plan = svc.cache.plans.peek(fp)
+            fn = tc.Executor(db, schema).compile(plan)
+            # the plan answers under canonical names; the request's own
+            # names come back through its canonical form
+            canon = tsvc.canonicalize(tc.parse_sql(warm_sql, schema))
+            _, padded = svc._snapshot(plan.scanned_rels())
+            times = {"submit_ms": [], "submit_memory_only_ms": [],
+                     "compiled_ms": [], "compiled_padded_ms": []}
+            for _ in range(TIMING_REPS):
+                for key, run in (
+                        ("submit_ms", lambda: served(svc, warm_sql, q)),
+                        ("submit_memory_only_ms",
+                         lambda: served(mem_svc, warm_sql, q)),
+                        ("compiled_ms", lambda: fn(db)),
+                        ("compiled_padded_ms", lambda: fn(padded))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    times[key].append((time.perf_counter() - t0) * 1e3)
+                    drain(f"serve overhead {q} {key}")
+                    vals = out.values if key.startswith("submit") \
+                        else canon.rename_results(out)
+                    check(serve_equal(vals, oracle[q]),
+                          f"serve overhead {q} {key}: wrong answer")
+            med = {k: statistics.median(v) for k, v in times.items()}
+            prof = profile_run(torch, lambda _: served(svc, warm_sql, q),
+                               None)
+            drain(f"serve profile {q}")
+            yield {"serve_overhead": q, **med,
+                   "overhead_ms": med["submit_ms"]
+                   - med["compiled_padded_ms"],
+                   "reps": TIMING_REPS, "profile": prof, **card}
+        # -- a batch: the dashboard plus V.1 minmax -----------------------
+        solo = {}
+        for sql in SERVE_DASHBOARD:
+            solo[sql] = served(svc, sql, "batch solo").values
+            drain("serve batch solo")
+        check(serve_equal(solo[SERVE_DASHBOARD[-1]], oracle["minmax"]),
+              "serve batch: V.1 minmax != oracle")
+        for tag, disparity in (("cost-gated", None), ("ungated", inf)):
+            b_svc = svc if disparity is None else tsvc.QueryService(
+                db, schema, cache_dir=cache_dir, fusion_disparity=disparity)
+            before = b_svc.metrics()
+            for run in ("cold", "warm"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = b_svc.submit_many(SERVE_DASHBOARD)
+                ms = (time.perf_counter() - t0) * 1e3
+                drain(f"serve batch {tag} {run}")
+                for r, sql in zip(res, SERVE_DASHBOARD):
+                    check(r.ok, f"serve batch {tag}: {r.error!r}")
+                    bounds = grouped_avg_bound(torch, h, solo[sql]) \
+                        if "GROUP BY" in sql else None
+                    diff = answers_diff(torch, r.values, solo[sql], bounds)
+                    check(diff is None,
+                          f"serve batch {tag}: fused != solo: {diff}")
+                m = b_svc.metrics()
+                yield {
+                    "serve_batch": tag, "run": run, "ms": ms,
+                    "members": [{"query": i, "fused": r.stats.fused,
+                                 "group_size": r.stats.fused_group_size,
+                                 "exec_source": r.stats.exec_source}
+                                for i, r in enumerate(res)],
+                    **{k: m[k] - before[k] for k in (
+                        "fused_batches", "fused_queries", "fused_compiles",
+                        "partial_fusions", "subplan_saved",
+                        "fusion_cost_rejects", "compiles")}, **card}
+                before = m
+        # -- independent callers through the async batcher ----------------
+        before = svc.metrics()
+        async_q = [list(SERVE_SQL)[i % len(SERVE_SQL)]
+                   for i in range(SERVE_ASYNC_CALLERS)]
+        work = [SERVE_SQL[q][i % 2] for i, q in enumerate(async_q)]
+        barrier = threading.Barrier(SERVE_ASYNC_CALLERS)
+        futs = [None] * SERVE_ASYNC_CALLERS
+
+        def caller(i):
+            barrier.wait()
+            futs[i] = svc.submit_async(work[i])
+
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(SERVE_ASYNC_CALLERS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        check(not any(t.is_alive() for t in threads), "serve async: hung")
+        results = [f.result(120) for f in futs]
+        ms = (time.perf_counter() - t0) * 1e3
+        drain("serve async")
+        for r, q in zip(results, async_q):
+            check(r.ok and serve_equal(r.values, oracle[q]),
+                  f"serve async {q}: {r.error!r} {r.values}")
+        m = svc.metrics()
+        reqs = m["async_requests"] - before["async_requests"]
+        batches = m["async_batches"] - before["async_batches"]
+        check(reqs == SERVE_ASYNC_CALLERS and batches < reqs,
+              f"serve async: {batches} batches for {reqs} requests")
+        svc.close()
+        yield {"serve_async": SERVE_ASYNC_CALLERS,
+               "async_requests": reqs, "async_batches": batches,
+               "ms": ms, **card}
+        # -- a second service on the same cache_dir -----------------------
+        t0 = time.perf_counter()
+        warm_svc = tsvc.QueryService(db, schema, cache_dir=cache_dir)
+        setup_s = time.perf_counter() - t0
+        for q, (cold_sql, _) in SERVE_SQL.items():
+            res = served(warm_svc, cold_sql, f"warmstart {q}")
+            drain(f"serve warmstart {q}")
+            check(serve_equal(res.values, oracle[q]),
+                  f"serve warmstart {q}: wrong answer")
+        m = warm_svc.metrics()
+        check(m["plan_builds"] == 0 and m["persist_hits"] >= 3,
+              f"serve warmstart: plan_builds {m['plan_builds']}, "
+              f"persist_hits {m['persist_hits']}")
+        yield {"serve_warmstart": True, "service_s": setup_s,
+               **{k: m[k] for k in ("plan_builds", "persist_hits",
+                                    "stat_refreshes", "compiles")},
+               **card}
+        # -- growth inside partsupp's bucket ------------------------------
+        ps = h["partsupp"]
+        n_ps = len(ps["ps_partkey"])
+        rng = np.random.default_rng(SEED + 1)
+        extra = {c: v[rng.integers(0, n_ps, SERVE_GROWTH_ROWS)]
+                 for c, v in ps.items()}
+        # the appended rows join other parts than the rows they copy
+        extra["ps_partkey"] = rng.permutation(extra["ps_partkey"])
+        grown = {c: np.concatenate([ps[c], extra[c]]) for c in ps}
+        grown_oracle = v1_oracle({**h, "partsupp": grown})
+        before = svc.metrics()
+        t0 = time.perf_counter()
+        svc.update_table("partsupp", Table.from_numpy(grown, device=dev))
+        update_s = time.perf_counter() - t0
+        for q, (_, warm_sql) in SERVE_SQL.items():
+            res = served(svc, warm_sql, f"growth {q}")
+            drain(f"serve growth {q}")
+            check(serve_equal(res.values, grown_oracle[q]),
+                  f"serve growth {q}: {res.values} != {grown_oracle[q]}")
+        m = svc.metrics()
+        recompiles = m["compiles"] - before["compiles"]
+        check(recompiles == 0, f"serve growth: {recompiles} recompiles")
+        yield {"serve_growth": SERVE_GROWTH_ROWS,
+               "partsupp_rows": n_ps + SERVE_GROWTH_ROWS,
+               "update_s": update_s, "recompiles": recompiles,
+               "bucket_invalidations": m["bucket_invalidations"]
+               - before["bucket_invalidations"],
+               "answers": {q: {k: np.asarray(v).item()
+                               for k, v in grown_oracle[q].items()}
+                           for q in SERVE_SQL}, **card}
+    launches = {name: k.launches for name, (_, _, k) in kernels.items()}
+    for name, n in launches.items():
+        check(n > 0, f"the serve phase launched {name} no time")
+        check(held[name] >= n, f"serve: {name} launched {n} times, "
+              f"{held[name]} calls held")
+    yield {"kernels_serve": [
+        {"name": name, "launches": launches[name], "held": held[name],
+         "max_abs_err": max(errs[name])} for name in kernels],
+        "phase_s": time.perf_counter() - t_phase, **card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1226,6 +1595,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import core as tc
     from repro_torch import data
+    from repro_torch import service as tsvc
     from repro_torch.core import Executor, plan_query
     from repro_torch.data import make_graph_db, make_tpch_db, tpch_v1_query
     from repro_torch.kernels import _build
@@ -1322,8 +1692,9 @@ def main() -> int:
         log(json.dumps(line))
 
     # -- the main path, counted ------------------------------------------
-    oracle = v1_oracle({r: {c: t.cpu().numpy() for c, t in tab.columns.items()}
-                        for r, tab in db.items()})
+    host = {r: {c: t.cpu().numpy() for c, t in tab.columns.items()}
+            for r, tab in db.items()}
+    oracle = v1_oracle(host)
     for _, _, k in kernels.values():
         k.reset_counts()
     query_lines, main_steps = [], {}
@@ -1402,6 +1773,14 @@ def main() -> int:
     log(f"x64: every 64-bit kernel call equals its plain version (int64 "
         f"bitwise, float64 within the stated bounds) in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the serving tier, counted on its own ----------------------------
+    errs_serve = {name: [] for name in kernels}
+    for line in serve_lines(torch, tc, tsvc, kernels, plain, errs_serve, db,
+                            schema, host, oracle, dev, card):
+        log(json.dumps(line))
+    log("serve: every request ok, every kernel call of the phase equal to "
+        "its plain version")
 
     rows = []
     for name in kernels:

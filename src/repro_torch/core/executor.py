@@ -30,8 +30,9 @@ and Opt's regroup sums its runs with K3.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -89,6 +90,14 @@ class Executor:
     materialising join may produce (``execute`` only).  ``tuning`` is
     reserved for the kernel tuner of a later slice and must be None.
 
+    Observability: ``span_hook(name)`` returns a context manager entered
+    around each executor phase (``executor.execute``, and each call of a
+    compiled plan: ``executor.run`` / ``executor.run_multi``), for
+    standalone Executor users; the serving tier times its own spans above
+    this layer.  ``profile_annotations=True`` also opens a
+    ``torch.profiler.record_function`` range of the same name, so the
+    phases show up named in a ``torch.profiler`` trace.
+
     The width of ``freq_dtype`` is the width of the whole run.  int32 and
     float32 frequencies are the JAX package with 64-bit types off: keys
     pack in int32 and integer aggregates wrap in int32.  int64 and float64
@@ -101,7 +110,9 @@ class Executor:
     def __init__(self, db: dict[str, Table], schema: Schema,
                  freq_dtype: torch.dtype = torch.int32,
                  dense_domain: bool = False, tuning=None,
-                 oom_guard: int | None = None):
+                 oom_guard: int | None = None,
+                 span_hook: Callable[[str], Any] | None = None,
+                 profile_annotations: bool = False):
         if tuning is not None:
             raise NotImplementedError(
                 "kernel tuning is not ported yet; pass tuning=None")
@@ -111,12 +122,27 @@ class Executor:
         self.wide = is_wide(freq_dtype)
         self.dense_domain = dense_domain
         self.oom_guard = oom_guard
+        self.span_hook = span_hook
+        self.profile_annotations = profile_annotations
 
     def jittable(self) -> "Executor":
         """Copy with eager-only options stripped — the configuration
         ``compile()`` accepts."""
         return Executor(self.db, self.schema, self.freq_dtype,
-                        dense_domain=self.dense_domain)
+                        dense_domain=self.dense_domain,
+                        span_hook=self.span_hook,
+                        profile_annotations=self.profile_annotations)
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        """Enter a profiler range (``profile_annotations``) and the caller's
+        span hook around one executor phase."""
+        with contextlib.ExitStack() as stack:
+            if self.profile_annotations:
+                stack.enter_context(torch.profiler.record_function(name))
+            if self.span_hook is not None:
+                stack.enter_context(self.span_hook(name))
+            yield
 
     # ------------------------------------------------------------------
     def _domains(self, plan: PhysicalPlan, alias: str) -> dict[str, int | None]:
@@ -177,6 +203,12 @@ class Executor:
 
         Intermediate states are dropped after their last consumer, so peak
         device memory tracks the largest live intermediate."""
+        if self.span_hook is not None or self.profile_annotations:
+            with self._span("executor.execute"):
+                return self._execute_inner(plan, stats)
+        return self._execute_inner(plan, stats)
+
+    def _execute_inner(self, plan: PhysicalPlan, stats: ExecStats | None):
         stats = stats if stats is not None else ExecStats()
         consumers: dict[int, int] = {}
         for node in plan.nodes:
@@ -358,7 +390,7 @@ class Executor:
             # (self-joins scanning one relation twice, say)
             return self._trace_plan(db, plan, memo={})
 
-        return run
+        return self._wrap(run, "executor.run")
 
     def compile_multi(self, plans: list[PhysicalPlan]):
         """Several static plans as one ``db → [aggregates]``: the members
@@ -372,4 +404,30 @@ class Executor:
             memo: dict = {}
             return [self._trace_plan(db, plan, memo) for plan in plans]
 
-        return run
+        return self._wrap(run, "executor.run_multi")
+
+    def _wrap(self, run, name: str):
+        """With hooks active, run the compiled closure under a span;
+        otherwise return it untouched so the serving hot path pays
+        nothing."""
+        if self.span_hook is None and not self.profile_annotations:
+            return run
+
+        def wrapped(db: dict[str, Table]):
+            with self._span(name):
+                return run(db)
+
+        return wrapped
+
+
+def shared_subplan_savings(plans: list[PhysicalPlan]) -> int:
+    """How many non-trivial subplan evaluations ``compile_multi`` saves by
+    fusing `plans`, versus compiling each alone: the multiset of the
+    members' shareable subplan keys minus its distinct support."""
+    sets = [plan.subplan_keys() for plan in plans]
+    union: set = set()
+    total = 0
+    for s in sets:
+        total += len(s)
+        union |= s
+    return total - len(union)

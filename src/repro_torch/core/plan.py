@@ -37,7 +37,7 @@ import hashlib
 from typing import Callable
 
 from repro_torch.core.hypergraph import JoinTree
-from repro_torch.core.query import Agg
+from repro_torch.core.query import Agg, Atom, selection_from_spec
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +192,7 @@ class Decision:
     for every table whose statistics the gate consulted: a consumer (the
     serving tier's plan cache) declares a persisted decision *stale* —
     and replans — exactly when one of those tokens no longer matches the
-    live catalog."""
+    live catalog.  Purely JSON-able so the trace survives the plan store."""
 
     pass_name: str
     target: str               # alias / edge / "" for whole-plan decisions
@@ -200,6 +200,19 @@ class Decision:
     reason: str
     stats: tuple = ()         # sorted (name, value) pairs the gate read
     depends: tuple = ()       # sorted (relation, token) pairs
+
+    def to_payload(self) -> dict:
+        return {"pass": self.pass_name, "target": self.target,
+                "applied": self.applied, "reason": self.reason,
+                "stats": [list(kv) for kv in self.stats],
+                "depends": [list(kv) for kv in self.depends]}
+
+    @classmethod
+    def from_payload(cls, p: dict) -> "Decision":
+        return cls(pass_name=p["pass"], target=p["target"],
+                   applied=bool(p["applied"]), reason=p["reason"],
+                   stats=tuple(tuple(kv) for kv in p["stats"]),
+                   depends=tuple(tuple(kv) for kv in p["depends"]))
 
     def describe(self) -> str:
         verdict = "applied" if self.applied else "skipped"
@@ -216,10 +229,11 @@ class PhysicalPlan:
     variables to schema columns and key domains.
 
     ``decisions`` is the planner's machine-readable decision trace (one
-    :class:`Decision` per gated transform considered).  It takes no part
-    in node keys or ``graph_key``: a decision only matters to plan identity
+    :class:`Decision` per gated transform considered).  It is deliberately
+    EXCLUDED from ``cache_key``: a decision only matters to plan identity
     when it changed the emitted graph, and then the op DAG itself already
-    differs."""
+    differs — two structurally identical plans are interchangeable no
+    matter what the planner pondered on the way."""
 
     mode: str
     root: PlanNode
@@ -241,6 +255,31 @@ class PhysicalPlan:
         """Linear op-payload view (a valid topological replay order for
         alias-state interpreters; see module docstring)."""
         return tuple(n.op for n in self.nodes)
+
+    def cache_key(self) -> tuple:
+        """Structural identity for plan caching.  Op payload tuples hash by
+        field values; ``ScanOp.selection`` callables hash by object
+        identity, which is exactly right — two plans sharing a selection
+        object are interchangeable, two plans with distinct closures are
+        only unified upstream by the query fingerprint (which compares
+        declarative selection specs, not closures)."""
+        return (self.mode, self.ops, self.tree.cache_key(),
+                tuple(sorted((a, tuple(sorted(m.items())))
+                             for a, m in self.var_cols.items())))
+
+    def __eq__(self, other):
+        return (isinstance(other, PhysicalPlan)
+                and self.cache_key() == other.cache_key())
+
+    def __hash__(self):
+        return hash(self.cache_key())
+
+    def scanned_rels(self) -> tuple[str, ...]:
+        """Relations this plan reads, sorted — the serving tier passes only
+        these to the compiled executable so unrelated tables can't force a
+        retrace."""
+        return tuple(sorted({n.op.rel for n in self.nodes
+                             if isinstance(n.op, ScanOp)}))
 
     def graph_key(self) -> str | None:
         """Content address of the ENTIRE plan DAG (aggregates included) —
@@ -344,3 +383,196 @@ def make_final_agg_node(op: FinalAggOp, root_state: PlanNode,
     except LookupError:
         struct = None
     return PlanNode(op, (root_state,), struct)
+
+
+# ---------------------------------------------------------------------------
+# Plan segmentation (cross-fingerprint fusion support)
+# ---------------------------------------------------------------------------
+#
+# A zero-materialisation plan is `prefix ; suffix`: the prefix (scans +
+# semi-join/FreqJoin sweep) computes the root relation's frequency vector,
+# the suffix (FinalAggOp) folds it into answers.  ``prefix_key`` is the
+# WHOLE-prefix identity (the older fusion condition, still reported so the
+# serving tier can distinguish whole-prefix fusion from the strictly more
+# general subplan-overlap fusion that ``subplan_keys`` drives).
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSegments:
+    """A plan split at the aggregate boundary.
+
+    ``prefix_key`` is the structural identity of the root frequency vector
+    the prefix computes: two plans with equal keys (and equal shape
+    buckets) share their *entire* prefix.  ``None`` marks plans with no
+    shareable prefix (materialising ops, whose dataflow is dynamic and
+    never compiled anyway).
+    """
+
+    prefix_ops: tuple[PlanOp, ...]
+    suffix_ops: tuple[PlanOp, ...]
+    prefix_key: str | None
+
+
+def op_result_keys(plan: "PhysicalPlan") -> list[tuple | None]:
+    """Per-node structural keys for the frequency vector each op produces,
+    aligned with ``plan.ops`` (``None`` for ops that produce none / are
+    never shared).  Two ops with equal keys — possibly from different
+    plans — compute identical vectors over the same database, which is what
+    lets ``Executor.compile_multi`` deduplicate shared work across member
+    plans."""
+    return [n.key() if isinstance(n.op, (ScanOp, SemiJoinOp, FreqJoinOp))
+            else None for n in plan.nodes]
+
+
+def segment_plan(plan: "PhysicalPlan") -> PlanSegments:
+    """Split `plan` into (shareable prefix, per-query suffix)."""
+    prefix = tuple(op for op in plan.ops if not isinstance(op, FinalAggOp))
+    suffix = tuple(op for op in plan.ops if isinstance(op, FinalAggOp))
+    prefix_key: str | None = None
+    if not any(isinstance(op, MaterializeJoinOp) for op in plan.ops):
+        root_key = plan.root.inputs[0].key()
+        if root_key is not None:
+            prefix_key = _digest(root_key)
+    return PlanSegments(prefix, suffix, prefix_key)
+
+
+# ---------------------------------------------------------------------------
+# Stable plan serialisation (cross-process plan-cache persistence)
+# ---------------------------------------------------------------------------
+#
+# A payload is plain JSON-able data: the DAG as a topologically ordered node
+# list with integer input edges, plus the query context (join tree, alias →
+# var → column maps).  Deserialisation re-runs the SAME node builders the
+# planner uses (``make_scan_node`` & co.), so every structural descriptor —
+# and therefore ``key()``, ``graph_key()`` and ``subplan_keys()`` — is
+# recomputed rather than trusted from disk: a reloaded plan is
+# content-identical to one freshly planned, which is what lets a warm
+# process fuse it against live plans.
+#
+# The one thing a payload cannot carry is an opaque selection callable;
+# plans whose scans attach a selection without a declarative ``spec`` raise
+# ``PlanNotSerialisable`` (their fingerprints are process-salted singletons
+# anyway, so persisting them would be meaningless).  Spec-carrying
+# selections are rebuilt from the spec via ``selection_from_spec`` — the
+# same builder the SQL front-end uses — so reloaded scans select
+# bitwise-identically.
+
+
+class PlanNotSerialisable(ValueError):
+    """The plan carries state that cannot survive a process boundary
+    (an opaque selection callable without a declarative spec)."""
+
+
+def _spec_to_jsonable(spec: tuple | None):
+    if spec is None:
+        return None
+    return [[op, col, list(val) if op == "in" else val]
+            for op, col, val in spec]
+
+
+def _spec_from_jsonable(spec) -> tuple | None:
+    if spec is None:
+        return None
+    return tuple((op, col, tuple(val) if op == "in" else val)
+                 for op, col, val in spec)
+
+
+def plan_to_payload(plan: "PhysicalPlan") -> dict:
+    """Serialise a plan into a JSON-able payload (see section comment).
+
+    Raises ``PlanNotSerialisable`` for plans with opaque selections."""
+    nodes = plan.nodes
+    index = {id(n): i for i, n in enumerate(nodes)}
+    entries = []
+    for n in nodes:
+        op = n.op
+        e: dict = {"inputs": [index[id(i)] for i in n.inputs]}
+        if isinstance(op, ScanOp):
+            if op.selection is not None and op.spec is None:
+                raise PlanNotSerialisable(
+                    f"scan of {op.rel!r} (alias {op.alias!r}) attaches an "
+                    "opaque selection callable with no declarative spec; "
+                    "it cannot be rebuilt in another process")
+            e.update(kind="scan", alias=op.alias, rel=op.rel,
+                     spec=_spec_to_jsonable(op.spec))
+        elif isinstance(op, SemiJoinOp):
+            e.update(kind="semi", parent=op.parent, child=op.child,
+                     on_vars=list(op.on_vars))
+        elif isinstance(op, FreqJoinOp):
+            e.update(kind="freq", parent=op.parent, child=op.child,
+                     on_vars=list(op.on_vars), pregroup=op.pregroup)
+        elif isinstance(op, MaterializeJoinOp):
+            e.update(kind="mat", parent=op.parent, child=op.child,
+                     on_vars=list(op.on_vars), regroup=op.regroup)
+        elif isinstance(op, FinalAggOp):
+            e.update(kind="agg", root=op.root, group_by=list(op.group_by),
+                     dedup=op.dedup,
+                     aggregates=[{"func": a.func, "var": a.var,
+                                  "distinct": a.distinct, "name": a.name}
+                                 for a in op.aggregates])
+        else:  # pragma: no cover
+            raise PlanNotSerialisable(f"unknown op {op!r}")
+        entries.append(e)
+    tree = plan.tree
+    return {
+        "mode": plan.mode,
+        "root": index[id(plan.root)],
+        "nodes": entries,
+        "tree": {
+            "root": tree.root,
+            "parent": dict(tree.parent),
+            "atoms": {alias: {"rel": a.rel, "vars": list(a.vars)}
+                      for alias, a in tree.atoms.items()},
+        },
+        "var_cols": {alias: dict(m) for alias, m in plan.var_cols.items()},
+        "decisions": [d.to_payload() for d in plan.decisions],
+    }
+
+
+def plan_from_payload(payload: dict) -> "PhysicalPlan":
+    """Rebuild a ``PhysicalPlan`` from ``plan_to_payload`` output.
+
+    Node structural descriptors (hence content keys) are recomputed by the
+    planner's own builders, never read from the payload."""
+    tdoc = payload["tree"]
+    atoms = {alias: Atom(a["rel"], alias, tuple(a["vars"]))
+             for alias, a in tdoc["atoms"].items()}
+    tree = JoinTree(tdoc["root"],
+                    {alias: p for alias, p in tdoc["parent"].items()},
+                    atoms)
+    var_cols = {alias: dict(m) for alias, m in payload["var_cols"].items()}
+
+    nodes: list[PlanNode] = []
+    for e in payload["nodes"]:
+        ins = tuple(nodes[i] for i in e["inputs"])
+        kind = e["kind"]
+        if kind == "scan":
+            spec = _spec_from_jsonable(e["spec"])
+            sel = selection_from_spec(spec) if spec is not None else None
+            op = ScanOp(e["alias"], e["rel"], sel, spec)
+            nodes.append(make_scan_node(op, atoms[e["alias"]]))
+        elif kind == "semi":
+            op = SemiJoinOp(e["parent"], e["child"], tuple(e["on_vars"]))
+            nodes.append(make_join_node(op, ins[0], ins[1], var_cols))
+        elif kind == "freq":
+            op = FreqJoinOp(e["parent"], e["child"], tuple(e["on_vars"]),
+                            e["pregroup"])
+            nodes.append(make_join_node(op, ins[0], ins[1], var_cols))
+        elif kind == "mat":
+            op = MaterializeJoinOp(e["parent"], e["child"],
+                                   tuple(e["on_vars"]), e["regroup"])
+            nodes.append(make_materialize_node(op, ins[0], ins[1]))
+        elif kind == "agg":
+            op = FinalAggOp(
+                e["root"], tuple(e["group_by"]),
+                tuple(Agg(a["func"], a["var"], distinct=a["distinct"],
+                          name=a["name"]) for a in e["aggregates"]),
+                e["dedup"])
+            nodes.append(make_final_agg_node(op, ins[0],
+                                             atoms.get(e["root"])))
+        else:
+            raise ValueError(f"unknown node kind {kind!r}")
+    decisions = tuple(Decision.from_payload(d)
+                      for d in payload.get("decisions", ()))
+    return PhysicalPlan(payload["mode"], nodes[payload["root"]], tree,
+                        var_cols, decisions=decisions)

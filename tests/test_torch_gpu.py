@@ -736,3 +736,98 @@ def test_float64_graph_counts_on_gpu_match_cpu(cuda, query, mode):
     assert got["count(*)"].dtype == f64
     assert got["count(*)"].cpu().item() == want["count(*)"].item()
     assert got["__stats__"].steps == want["__stats__"].steps
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+SERVE_FIVE = """FROM region r, nation n, supplier s, partsupp ps, part p
+    WHERE r.r_regionkey = n.n_regionkey AND n.n_nationkey = s.s_nationkey
+      AND s.s_suppkey = ps.ps_suppkey AND ps.ps_partkey = p.p_partkey
+      AND r.r_name IN (2, 3) AND p.p_price > 1200.0"""
+SERVE_V1 = [f"SELECT MIN(s.s_acctbal), MAX(s.s_acctbal) {SERVE_FIVE}",
+            f"SELECT COUNT(*) {SERVE_FIVE}",
+            f"SELECT MEDIAN(s.s_acctbal) {SERVE_FIVE}"]
+
+
+def _serve_pair(cuda, **kw):
+    from repro_torch.service import QueryService
+    gdb, schema = trel.make_tpch_db(scale=2000, seed=3, device=cuda)
+    cdb, _ = trel.make_tpch_db(scale=2000, seed=3, device="cpu")
+    return (QueryService(gdb, schema, **kw), QueryService(cdb, schema, **kw))
+
+
+def _values_equal(got, want):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), v), k
+
+
+def test_service_on_gpu_matches_cpu(cuda):
+    """V.1's three queries, solo and fused, on CUDA tables answer as the
+    same service on CPU copies, and run through every kernel."""
+    gsvc, csvc = _serve_pair(cuda, fusion_disparity=float("inf"))
+    kernels = (tsj.K1, tfj.K2, tss.K3)
+    for k in kernels:
+        k.reset_counts()
+    for sql in SERVE_V1 + SERVE_V1:
+        _values_equal(gsvc.submit(sql).values, csvc.submit(sql).values)
+    assert all(k.launches > 0 for k in kernels)
+    fused = gsvc.submit_many(SERVE_V1[::-1])
+    assert all(r.stats.fused for r in fused)
+    for r, sql in zip(fused, SERVE_V1[::-1]):
+        _values_equal(r.values, csvc.submit(sql).values)
+    m = gsvc.metrics()
+    assert m["exec_hits"] >= 3 and m["request_errors"] == 0
+
+
+def test_async_submit_runs_on_the_tables_device(cuda):
+    gsvc, csvc = _serve_pair(cuda, async_max_wait_ms=200)
+    try:
+        import threading
+        futs = [None] * len(SERVE_V1)
+
+        def caller(i):
+            futs[i] = gsvc.submit_async(SERVE_V1[i])
+
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(len(SERVE_V1))]
+        tsj.K1.reset_counts()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        for f, sql in zip(futs, SERVE_V1):
+            _values_equal(f.result(120).values, csvc.submit(sql).values)
+        assert tsj.K1.launches > 0
+        m = gsvc.metrics()
+        assert m["async_requests"] == 3 and m["async_batches"] <= 3
+    finally:
+        gsvc.close()
+
+
+def test_failing_request_on_gpu_leaves_batch_mates_intact(cuda):
+    """A serve failure attaches to its own request: no rerun on the CPU,
+    no plain version, and its batch-mates' answers stay intact."""
+    gsvc, csvc = _serve_pair(cuda)
+    ex = gsvc._executor
+    compile_, compile_multi = ex.compile, ex.compile_multi
+
+    def failing(plan):
+        if plan.mode == "opt_plus":
+            raise RuntimeError("refused on purpose")
+        return compile_(plan)
+
+    def failing_multi(plans):
+        if any(p.mode == "opt_plus" for p in plans):
+            raise RuntimeError("refused on purpose")
+        return compile_multi(plans)
+
+    ex.compile, ex.compile_multi = failing, failing_multi
+    res = gsvc.submit_many(SERVE_V1)
+    assert [r.ok for r in res] == [True, True, False]
+    assert str(res[2].error) == "refused on purpose" and not res[2].values
+    for r, sql in zip(res[:2], SERVE_V1[:2]):
+        _values_equal(r.values, csvc.submit(sql).values)
+    assert gsvc.metrics()["request_errors"] == 1
