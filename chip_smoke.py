@@ -90,12 +90,32 @@ numpy oracle (or the solo answer), every request must be ``ok``, and every
 kernel call of the phase is held against its plain version after the
 request that made it, outside the timed regions (``kernels_serve``).
 
+The ``tune`` phase drives the kernel tuner (``QueryService.autotune()``,
+``repro_torch.kernels.autotune``) once at each width, its kernel counts set
+to 0 just before it and read just after: a ``QueryService`` over the same
+tables (buckets 8, 32, 131072, 2097152 and 8388608 rows) with a
+``cache_dir`` inside the checkout (deleted after) tunes K1–K3 over every
+bucket pair, backend ``cuda`` (int32 frequencies), then ``cuda_wide``
+(int64, the 64-bit instances).  Every candidate is gated bitwise against the
+default config inside the search, and no gate may reject (``tune`` line:
+the summary, the search's seconds and each (kernel, bucket)'s winner; one
+``tune_search`` line per search with each candidate's best wall µs).  V.1
+then runs through the tuned service, each kernel call recorded, held
+against its plain version and checked to have run its tuned config; each
+(kernel, bucket) those calls hit is timed default against winner on the
+search's own scenarios, the winner's answers bitwise equal to the
+default's and the plain version's (``tune_win``); the recorded calls are
+timed under their tuned configs and under the default (``kernels_tuned``,
+device ms); and a second service on the same ``cache_dir`` must search
+nothing, drop no executable and load every entry from the store
+(``tune_warmstart``), with the same answers.
+
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
 JSON line per query with its times, one per query with
 its device time by kernel from ``torch.profiler``, one per ``baseline`` and
 ``fig6`` case, one per ``x64`` call, query and case and one per ``serve``
-case (each with the card's name and power limit), one JSON line
+and ``tune`` case (each with the card's name and power limit), one JSON line
 ``{"kernels_x64": [...]}`` with the
 64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
@@ -709,12 +729,13 @@ def answers_equal(got: dict, want: dict, dtypes: dict | None = None) -> bool:
 @contextlib.contextmanager
 def routed(kernels, hook):
     """While the block runs, each kernel's wrapper, looked up on its module
-    at call time, goes through ``hook(name, wrapper, args)``."""
+    at call time, goes through ``hook(name, wrapper, args, **kw)``, ``kw``
+    the call's keywords (its ``config``)."""
     originals = {name: getattr(mod, attr)
                  for name, (mod, attr, _) in kernels.items()}
     for name, (mod, attr, _) in kernels.items():
-        setattr(mod, attr, lambda *args, name=name: hook(
-            name, originals[name], args))
+        setattr(mod, attr, lambda *args, name=name, **kw: hook(
+            name, originals[name], args, **kw))
     try:
         yield
     finally:
@@ -757,8 +778,8 @@ def measured(torch, kernels, plain, errs, tag, fn, dev,
     launches, the calls held, ``peak_bytes`` and the median ``ms``."""
     seen = []
 
-    def keep(name, wrapper, args):
-        out = wrapper(*args)
+    def keep(name, wrapper, args, **kw):
+        out = wrapper(*args, **kw)
         seen.append((name, copied(args, "cpu"), copied(out, "cpu")))
         return out
 
@@ -985,9 +1006,9 @@ def x64_v1_lines(torch, tc, fj, kernels, kern, plain, errs, db, schema,
               for q in QUERIES}
     calls = {name: [] for name in kernels}
 
-    def keep(name, wrapper, args):
+    def keep(name, wrapper, args, **kw):
         calls[name].append(args)
-        return wrapper(*args)
+        return wrapper(*args, **kw)
 
     with routed(kernels, keep):
         for q in QUERIES:
@@ -1367,8 +1388,8 @@ def serve_lines(torch, tc, tsvc, kernels, plain, errs, db, schema, h,
 
     pending = []
 
-    def keep(name, wrapper, args):
-        out = wrapper(*args)
+    def keep(name, wrapper, args, **kw):
+        out = wrapper(*args, **kw)
         pending.append((name, args, out))
         return out
 
@@ -1587,6 +1608,182 @@ def serve_lines(torch, tc, tsvc, kernels, plain, errs, db, schema, h,
         "phase_s": time.perf_counter() - t_phase, **card}
 
 
+# ---------------------------------------------------------------------------
+# the kernel tuner
+# ---------------------------------------------------------------------------
+TUNE_KERNELS = ("freq_join", "semi_join", "segment_sum")
+
+
+def tune_lines(torch, tsvc, at, kernels, plain, errs, db, schema, oracle,
+               card, freq_dtype, dev):
+    """The kernel tuner on the card at one width (``freq_dtype`` int32:
+    backend ``cuda``; int64: ``cuda_wide``), its kernel counts set to 0
+    just before it and read just after.  One ``QueryService`` over V.1's
+    tables with a ``cache_dir`` inside the checkout (deleted after): V.1
+    untuned, then ``autotune()`` of K1–K3 over every bucket pair (no gate
+    reject), the tuned V.1 run with every kernel call recorded and held
+    against its plain version, each (kernel, bucket) those calls hit timed
+    default against winner on the search's own scenarios (answers bitwise
+    equal to the default's and the plain version's), the recorded calls
+    timed under their tuned configs and under the default, and a second
+    service on the same ``cache_dir`` (no search, no invalidation, the
+    store's hits, the same answers).  Yields one line per case."""
+    import tempfile
+
+    wide = freq_dtype == torch.int64
+    backend = "cuda_wide" if wide else "cuda"
+
+    def check_answers(res, q, tag):
+        check(serve_equal(res.values, oracle[q]),
+              f"{tag} {q}: {res.values} != {oracle[q]}")
+        if wide and q == "count":
+            check(all(v.dtype == torch.int64 for v in res.values.values()),
+                  f"{tag} count: not int64")
+
+    seen = []
+
+    def keep(name, wrapper, args, **kw):
+        out = wrapper(*args, **kw)
+        seen.append((name, args, kw.get("config"), out))
+        return out
+
+    trajectory: dict = {}
+
+    def row(name, us, derived):
+        _, kernel, _, shape, tag = name.split("/")
+        trajectory.setdefault((kernel, shape), {})[tag] = us
+
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tune-cache-",
+                                     dir=Path(__file__).resolve().parent
+                                     ) as cache_dir:
+        svc = tsvc.QueryService(db, schema, cache_dir=cache_dir,
+                                freq_dtype=freq_dtype)
+        check(svc.tuner.backend == backend, f"tuner on {svc.tuner.backend}")
+        for q, (sql, _) in SERVE_SQL.items():
+            check_answers(served(svc, sql, f"tune untuned {q}"), q,
+                          "tune untuned")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = svc.autotune(TUNE_KERNELS, row=row)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        check(summary["gate_rejects"] == 0,
+              f"tune {backend}: {summary['gate_rejects']} gate rejects")
+        check(summary["searches"] == summary["installed"] > 0
+              and summary["invalidated_executables"] >= len(SERVE_SQL),
+              f"tune {backend}: {summary}")
+        winners = {f"{k} {'x'.join(map(str, shape))}":
+                   at.KernelTuner.cfg_tag(k, cfg)
+                   for (k, shape, _), cfg in sorted(
+                       svc.tuner.table.entries())}
+        yield {"tune": backend, "summary": summary, "tune_s": tune_s,
+               "winners": winners, "counters": svc.tuner.metrics(),
+               "store": svc.tune_store.metrics(), **card}
+        for (kernel, shape), us in sorted(trajectory.items()):
+            yield {"tune_search": backend, "kernel": kernel, "bucket": shape,
+                   "candidate_us": us,
+                   "winner": winners[f"{kernel} {shape}"]}
+        # the tuned V.1 run: the closures compiled after the install look
+        # their configs up; one warm pass of each is recorded
+        for q, (sql, _) in SERVE_SQL.items():
+            check_answers(served(svc, sql, f"tune compile {q}"), q,
+                          "tune tuned")
+        with routed(kernels, keep):
+            for q, (_, sql) in SERVE_SQL.items():
+                res = served(svc, sql, f"tune tuned {q}")
+                check(res.stats.exec_cache_hit, f"tune tuned {q}: no hit")
+                check_answers(res, q, "tune tuned")
+        torch.cuda.synchronize()
+        held = hold_calls(torch, plain, errs, f"tune {backend}",
+                          [(n, a, o) for n, a, _, o in seen], dev)
+        for name, args, cfg, _ in seen:
+            shape = tuple(t.shape[0] for t in args[::2])
+            check(cfg is not None
+                  and cfg == svc.tuner.table.lookup(name, shape, backend),
+                  f"tune {backend}: {name} {shape} ran {cfg}, not its "
+                  "tuned config")
+        # default against winner on each search's own scenarios (a join
+        # bucket's inputs drawn once for both joins)
+        hits = sorted({(at.bucket_shape(*(t.shape[0] for t in args[::2])),
+                        name) for name, args, _, _ in seen})
+        with svc.tuner.shared_draws():
+            for bshape, name in hits:
+                yield tune_win_line(torch, at, plain, errs, svc.tuner, name,
+                                    bshape, card)
+        # the recorded calls under their tuned configs and the default
+        line = {}
+        for name, (mod, attr, _) in kernels.items():
+            mine = [(a, c) for n, a, c, _ in seen if n == name]
+            wrapper = getattr(mod, attr)
+            line[name] = {
+                "calls": len(mine), "held": held.get(name, 0),
+                "device_ms": sum(time_ms(
+                    torch, lambda: wrapper(*a, config=c), queued=True)
+                    for a, c in mine),
+                "default_device_ms": sum(time_ms(
+                    torch, lambda: wrapper(*a), queued=True)
+                    for a, _ in mine)}
+        # a second service on the same cache_dir
+        t0 = time.perf_counter()
+        warm = tsvc.QueryService(db, schema, cache_dir=cache_dir,
+                                 freq_dtype=freq_dtype)
+        setup_s = time.perf_counter() - t0
+        again = warm.autotune(TUNE_KERNELS)
+        m = warm.metrics()
+        check(again["searches"] == 0 and again["invalidated_executables"] == 0
+              and m["tune_store_hits"] > 0
+              and again["entries"] == summary["entries"],
+              f"tune warm restart {backend}: {again}, store hits "
+              f"{m['tune_store_hits']}")
+        check(dict(warm.tuner.table.entries())
+              == dict(svc.tuner.table.entries()),
+              f"tune warm restart {backend}: other configs")
+        for q, (sql, _) in SERVE_SQL.items():
+            check_answers(served(warm, sql, f"tune warm {q}"), q,
+                          "tune warm")
+        yield {"tune_warmstart": backend, "service_s": setup_s,
+               "summary": again,
+               **{k: m[k] for k in ("tune_searches", "tune_store_hits",
+                                    "tune_persist_hits", "tune_entries")},
+               **card}
+    launches = {name: k.launches for name, (_, _, k) in kernels.items()}
+    for name, n in launches.items():
+        check(n > 0, f"the tune phase launched {name} no time")
+        check(line[name]["held"] > 0, f"tune: no {name} call held")
+    yield {"kernels_tuned": [
+        {"name": name, "launches": launches[name], **line[name],
+         "max_abs_err": max(errs[name])} for name in kernels],
+        "backend": backend, "phase_s": time.perf_counter() - t_phase,
+        **card}
+
+
+def tune_win_line(torch, at, plain, errs, tuner, name, bshape, card):
+    """Default against the winner of (``name``, ``bshape``) on the
+    search's own scenarios: the winner's answers bitwise equal to the
+    default's and held against the plain version, each config's device ms
+    summed over the scenarios."""
+    win = tuner.table.lookup(name, bshape, tuner.backend)
+    scen = tuner.scenarios(name, bshape)
+    ms = {"default": 0.0, "winner": 0.0}
+    for label, fn in scen:
+        base, got = fn(at.DEFAULT_CONFIG), fn(win)
+        torch.cuda.synchronize()
+        tag = f"tune_win {name} {bshape} {label}"
+        check(at._bitwise_equal(got, base), f"{tag}: winner != default")
+        hold = hold_segsum if name == "segment_sum" else hold_join
+        hold(torch, plain[name], errs[name], tag, got, *fn.__defaults__[0])
+        for key, cfg in (("default", at.DEFAULT_CONFIG), ("winner", win)):
+            ms[key] += time_ms(torch, lambda: fn(cfg), queued=True)
+    return {"tune_win": tuner.backend, "kernel": name,
+            "bucket": "x".join(map(str, bshape)),
+            "winner": at.KernelTuner.cfg_tag(name, win),
+            "scenarios": len(scen), "default_device_ms": ms["default"],
+            "winner_device_ms": ms["winner"], **card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1615,6 +1812,18 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"setup: built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    # each source's nvcc seconds (all started together) and ptxas's report
+    # of its kernel instances: none may spill registers
+    build = {}
+    for source, lib in sorted(libs.items()):
+        rows = _build.ptxas_report(lib.with_suffix(".log"))
+        spills = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+        check(rows and not spills, f"{source}: {len(rows)} instances, "
+              f"spilling {spills}")
+        build[source] = {"seconds": _build.BUILD_SECONDS.get(source),
+                         "instances": len(rows),
+                         "max_registers": max(r["registers"] for r in rows)}
+    log(json.dumps({"build": build}))
 
     t0 = time.perf_counter()
     db, schema = make_tpch_db(scale=SCALE, seed=SEED, device=dev)
@@ -1631,9 +1840,9 @@ def main() -> int:
                "segment_sum": (ss, "segment_sum_cuda", ss.K3)}
     calls = {name: [] for name in kernels}
 
-    def keep(name, wrapper, args):
+    def keep(name, wrapper, args, **kw):
         calls[name].append(args)
-        return wrapper(*args)
+        return wrapper(*args, **kw)
 
     with routed(kernels, keep):
         for q in QUERIES:
@@ -1781,6 +1990,16 @@ def main() -> int:
         log(json.dumps(line))
     log("serve: every request ok, every kernel call of the phase equal to "
         "its plain version")
+
+    # -- the kernel tuner at both widths, each counted on its own ----------
+    from repro_torch.kernels import autotune as at
+    for freq_dtype in (torch.int32, torch.int64):
+        errs_tune = {name: [] for name in kernels}
+        for line in tune_lines(torch, tsvc, at, kernels, plain, errs_tune,
+                               db, schema, oracle, card, freq_dtype, dev):
+            log(json.dumps(line))
+    log("tune: no gate reject, every tuned answer equal to the oracle and "
+        "every kernel call of the phase equal to its plain version")
 
     rows = []
     for name in kernels:

@@ -25,7 +25,10 @@ The sweep runs one kernel per join-tree edge: the semi-join (K1) in 0MA
 plans, the FreqJoin (K2) in Opt⁺ plans, after a sorted group-by-SUM (K3)
 that pre-groups the child when its key domain is unknown or the dense path
 is off.  Opt plans with FK/PK degradation run K1 on their FK→PK edges,
-and Opt's regroup sums its runs with K3.
+and Opt's regroup sums its runs with K3.  With a ``TuneTable``
+(``tuning``), each sweep kernel runs under the config tuned for its call's
+shape bucket and the executor's backend tag (``"plain"``, ``"cuda"`` or
+``"cuda_wide"``); Opt's regroup is not tuned, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from repro_torch.core.plan import (
     SemiJoinOp,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.autotune import backend_tag
 from repro_torch.tables.table import (
     Schema,
     Table,
@@ -87,8 +91,10 @@ class Executor:
     ``dense_domain`` (beyond the paper) passes known key domains to the
     FreqJoin, which skips the child pre-grouping and, on the CPU, takes the
     dense scatter-add path.  ``oom_guard`` bounds the tuples one
-    materialising join may produce (``execute`` only).  ``tuning`` is
-    reserved for the kernel tuner of a later slice and must be None.
+    materialising join may produce (``execute`` only).  ``tuning`` (a
+    ``repro_torch.kernels.autotune.TuneTable``, or None for the untuned
+    defaults) supplies each sweep kernel's config, looked up by the
+    executor's ``backend`` tag and the call's shape bucket.
 
     Observability: ``span_hook(name)`` returns a context manager entered
     around each executor phase (``executor.execute``, and each call of a
@@ -113,14 +119,16 @@ class Executor:
                  oom_guard: int | None = None,
                  span_hook: Callable[[str], Any] | None = None,
                  profile_annotations: bool = False):
-        if tuning is not None:
-            raise NotImplementedError(
-                "kernel tuning is not ported yet; pass tuning=None")
         self.db = db
         self.schema = schema
         self.freq_dtype = freq_dtype
         self.wide = is_wide(freq_dtype)
         self.dense_domain = dense_domain
+        # tuned kernel configs, looked up under this tag: what runs (the
+        # plain versions on the CPU, the kernels on the card) at this width
+        self.tuning = tuning
+        device = next(iter(db.values())).device if db else "cpu"
+        self.backend = backend_tag(device, self.wide)
         self.oom_guard = oom_guard
         self.span_hook = span_hook
         self.profile_annotations = profile_annotations
@@ -129,7 +137,7 @@ class Executor:
         """Copy with eager-only options stripped — the configuration
         ``compile()`` accepts."""
         return Executor(self.db, self.schema, self.freq_dtype,
-                        dense_domain=self.dense_domain,
+                        dense_domain=self.dense_domain, tuning=self.tuning,
                         span_hook=self.span_hook,
                         profile_annotations=self.profile_annotations)
 
@@ -180,21 +188,58 @@ class Executor:
                 domain *= d
         return key.contiguous(), domain
 
-    def _semi_join(self, plan: PhysicalPlan, op: SemiJoinOp,
-                   p: _State, c: _State) -> _State:
-        pk, _pd = self._key(plan, op.parent, p, op.on_vars)
-        ck, cdom = self._key(plan, op.child, c, op.on_vars)
-        freq = kops.semi_join(pk, p.freq, ck, c.freq, domain=cdom)
-        return _State(p.cols, freq)
+    def _tune_cfg(self, kernel: str, *sizes: int):
+        """Tuned config for one kernel call (None → untuned defaults), by
+        the call's lengths, which on the serving path are already padded
+        to their shape bucket — so the lookup hits exactly the bucket
+        ``autotune()`` measured."""
+        if self.tuning is None:
+            return None
+        return self.tuning.lookup(kernel, sizes, self.backend)
 
-    def _freq_join(self, plan: PhysicalPlan, op: FreqJoinOp,
-                   p: _State, c: _State) -> _State:
+    def _node_configs(self, op, n_parent: int, n_child: int) -> tuple:
+        """(join config, pre-grouping config) of a semi-join or FreqJoin
+        over keys of these lengths."""
+        if isinstance(op, SemiJoinOp):
+            return self._tune_cfg("semi_join", n_parent, n_child), None
+        return (self._tune_cfg("freq_join", n_parent, n_child),
+                self._tune_cfg("segment_sum", n_child))
+
+    def _plan_configs(self, db: dict[str, Table],
+                      plan: PhysicalPlan) -> dict[int, tuple]:
+        """``{id(node): _node_configs}`` for the plan's semi-join and
+        FreqJoin nodes over ``db``'s tables (empty when untuned).  A node's
+        keys are as long as its alias's table, so the lookups need no
+        kernel input: a compiled closure makes them once, as the JAX
+        package looks them up when it traces."""
+        if self.tuning is None:
+            return {}
+        atoms = plan.tree.atoms
+        return {id(node): self._node_configs(
+                    node.op, db[atoms[node.op.parent].rel].capacity,
+                    db[atoms[node.op.child].rel].capacity)
+                for node in plan.nodes
+                if isinstance(node.op, (SemiJoinOp, FreqJoinOp))}
+
+    def _join(self, plan: PhysicalPlan, node: PlanNode, p: _State,
+              c: _State, cfgs: dict[int, tuple] | None = None) -> _State:
+        """A semi-join or FreqJoin node under its configs in ``cfgs``, or,
+        without them (``execute``, where a materialised input may be of
+        any length), under those of its call's own lengths."""
+        op = node.op
         pk, _pd = self._key(plan, op.parent, p, op.on_vars)
         ck, cdom = self._key(plan, op.child, c, op.on_vars)
+        cfg, seg_cfg = cfgs.get(id(node), (None, None)) \
+            if cfgs is not None \
+            else self._node_configs(op, pk.shape[0], ck.shape[0])
+        if isinstance(op, SemiJoinOp):
+            freq = kops.semi_join(pk, p.freq, ck, c.freq, domain=cdom,
+                                  config=cfg)
+            return _State(p.cols, freq)
         cf = c.freq
         if op.pregroup and cdom is None:
-            ck, cf, _valid = kops.group_by_sum(ck, cf)
-        freq = kops.freq_join(pk, p.freq, ck, cf, domain=cdom)
+            ck, cf, _valid = kops.group_by_sum(ck, cf, config=seg_cfg)
+        freq = kops.freq_join(pk, p.freq, ck, cf, domain=cdom, config=cfg)
         return _State(p.cols, freq)
 
     # ------------------------------------------------------------------
@@ -223,11 +268,11 @@ class Executor:
                 st = self._scan(self.db, plan, op)
                 stats.record(f"scan({op.alias})", _live(st.freq))
             elif isinstance(op, SemiJoinOp):
-                st = self._semi_join(plan, op, ins[0], ins[1])
+                st = self._join(plan, node, ins[0], ins[1])
                 stats.record(f"semijoin({op.parent}⋉{op.child})",
                              _live(st.freq))
             elif isinstance(op, FreqJoinOp):
-                st = self._freq_join(plan, op, ins[0], ins[1])
+                st = self._join(plan, node, ins[0], ins[1])
                 stats.record(f"freqjoin({op.parent}⋉ᶠ{op.child})",
                              _live(st.freq))
             elif isinstance(op, MaterializeJoinOp):
@@ -339,8 +384,9 @@ class Executor:
                 "without oom_guard to compile.")
 
     def _trace_plan(self, db: dict[str, Table], plan: PhysicalPlan,
-                    memo: dict) -> Any:
-        """One plan's DAG evaluation without per-step stats.
+                    memo: dict, cfgs: dict[int, tuple]) -> Any:
+        """One plan's DAG evaluation without per-step stats, each join
+        under its configs in ``cfgs`` (``_plan_configs``).
 
         ``memo`` maps node content keys (``PlanNode.key``) to the frequency
         vectors already computed in this call: a key hit reuses the vector
@@ -366,10 +412,8 @@ class Executor:
                 if key is not None and key in memo:
                     st = _State(p.cols, memo[key])
                 else:
-                    c = ev(node.inputs[1])
-                    st = self._semi_join(plan, op, p, c) \
-                        if isinstance(op, SemiJoinOp) \
-                        else self._freq_join(plan, op, p, c)
+                    st = self._join(plan, node, p, ev(node.inputs[1]),
+                                    cfgs)
                     if key is not None:
                         memo[key] = st.freq
             elif isinstance(op, FinalAggOp):
@@ -382,13 +426,23 @@ class Executor:
         return ev(plan.root)
 
     def compile(self, plan: PhysicalPlan):
-        """The static plan classes (oma / opt_plus) as ``db → aggregates``."""
+        """The static plan classes (oma / opt_plus) as ``db → aggregates``.
+
+        The kernels' tuned configs are looked up once, at the closure's
+        first call, for that call's table shapes (the JAX package looks
+        them up when jit traces the first call of a shape); later calls
+        keep them.  The serving tier compiles one closure per shape bucket
+        and drops them all when ``autotune()`` installs a config."""
         self._check_jittable([plan])
+        cfgs = None
 
         def run(db: dict[str, Table]):
+            nonlocal cfgs
+            if cfgs is None:
+                cfgs = self._plan_configs(db, plan)
             # a fresh memo still dedups repeated sub-DAGs *within* the plan
             # (self-joins scanning one relation twice, say)
-            return self._trace_plan(db, plan, memo={})
+            return self._trace_plan(db, plan, memo={}, cfgs=cfgs)
 
         return self._wrap(run, "executor.run")
 
@@ -399,10 +453,15 @@ class Executor:
         if not plans:
             raise ValueError("compile_multi needs at least one plan")
         self._check_jittable(plans)
+        cfgs = None
 
         def run(db: dict[str, Table]):
+            nonlocal cfgs
+            if cfgs is None:
+                cfgs = [self._plan_configs(db, plan) for plan in plans]
             memo: dict = {}
-            return [self._trace_plan(db, plan, memo) for plan in plans]
+            return [self._trace_plan(db, plan, memo, c)
+                    for plan, c in zip(plans, cfgs)]
 
         return self._wrap(run, "executor.run_multi")
 

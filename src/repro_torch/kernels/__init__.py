@@ -7,6 +7,8 @@
                         the plain PyTorch version of each kernel
   ops.py              — public ops (import them from here): the input's
                         device picks kernel or plain
+  autotune.py         — KernelConfig (the kernels' Hopper knobs), the
+                        measured per-bucket search and its TuneTable
   ref.py              — O(N·M) oracles (ground truth for tests)
   _build.py           — nvcc build on first use, ctypes loading
 """

@@ -5,7 +5,16 @@ interface (no PyTorch headers, so nvcc takes seconds), under
 ``kernels/.build/``, which git ignores.  The file name carries a hash of the
 source and the nvcc flags, so an edited source builds anew and an unchanged
 one is loaded as it is.  ``build_all`` starts one nvcc per source, all at
-once; ``CudaKernel`` loads its library on its first launch.
+once, and records each one's wall seconds (``BUILD_SECONDS``); nvcc's output,
+with ptxas's register and spill report of every kernel instance
+(``-Xptxas -v``), is kept beside the library and read by ``ptxas_report``.
+``CudaKernel`` loads its library on its first launch.
+
+    python -m repro_torch.kernels._build [CSRC_DIR]
+
+builds every source of ``CSRC_DIR`` (default: this package's ``csrc/``) one
+at a time into a fresh temporary directory and prints one JSON line per
+source: its build seconds and each instance's registers and spill bytes.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; a non-zero return raises here.
@@ -15,10 +24,15 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -26,10 +40,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# source → wall seconds of its nvcc in the last build_all that compiled it
+BUILD_SECONDS: dict[str, float] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -52,42 +69,102 @@ def _nvcc() -> str:
                            "where the CUDA toolkit is installed")
 
 
-def _lib_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
+def _lib_path(source: str, csrc: Path = CSRC,
+              build_dir: Path = BUILD_DIR) -> Path:
+    src = (csrc / source).read_bytes()
     digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    return build_dir / f"{Path(source).stem}-{digest}.so"
 
 
-def _start(source: str) -> tuple[Path, subprocess.Popen | None, Path]:
-    out = _lib_path(source)
-    if out.exists():
-        return out, None, out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return out, proc, tmp
+class _Build:
+    """One nvcc run, its output to a log file (never a pipe: ptxas's report
+    can outgrow one), timed by a thread that waits on it."""
+
+    def __init__(self, source: str, csrc: Path, out: Path):
+        self.source, self.out = source, out
+        self.tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        self.log = self.tmp.with_suffix(".log")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(self.tmp),
+               str(csrc / source)]
+        t0 = time.perf_counter()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(cmd, stdout=f,
+                                         stderr=subprocess.STDOUT)
+        self.seconds = 0.0
+
+        def wait():
+            self.proc.wait()
+            self.seconds = time.perf_counter() - t0
+
+        self.waiter = threading.Thread(target=wait, daemon=True)
+        self.waiter.start()
+
+    def finish(self) -> float:
+        self.waiter.join()
+        if self.proc.returncode != 0:
+            self.tmp.unlink(missing_ok=True)
+            raise KernelBuildError(f"nvcc failed on {self.source}:\n"
+                                   f"{self.log.read_text()}")
+        # atomic: a concurrent builder sees all or none
+        os.replace(self.log, self.out.with_suffix(".log"))
+        os.replace(self.tmp, self.out)
+        return self.seconds
 
 
-def _finish(source: str, out: Path, proc: subprocess.Popen | None,
-            tmp: Path) -> Path:
-    if proc is not None:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(f"nvcc failed on {source}:\n{log}")
-        os.replace(tmp, out)   # atomic: a concurrent builder sees all or none
-    return out
-
-
-def build_all(sources: tuple[str, ...] | None = None) -> dict[str, Path]:
+def build_all(sources: tuple[str, ...] | None = None, *, csrc: Path = CSRC,
+              build_dir: Path = BUILD_DIR) -> dict[str, Path]:
     """Compile every source (default: all of ``csrc/*.cu``) that has no
-    library yet, one nvcc each, all started together; returns the paths."""
+    library yet, one nvcc each, all started together; returns the paths
+    and records each compiled source's seconds in ``BUILD_SECONDS``."""
     if sources is None:
-        sources = tuple(sorted(p.name for p in CSRC.glob("*.cu")))
-    started = [(s, *_start(s)) for s in sources]
-    return {s: _finish(s, out, proc, tmp) for s, out, proc, tmp in started}
+        sources = tuple(sorted(p.name for p in csrc.glob("*.cu")))
+    build_dir.mkdir(parents=True, exist_ok=True)
+    outs = {s: _lib_path(s, csrc, build_dir) for s in sources}
+    builds = [_Build(s, csrc, out) for s, out in outs.items()
+              if not out.exists()]
+    for b in builds:
+        BUILD_SECONDS[b.source] = b.finish()
+    return outs
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _demangle(names: list[str]) -> list[str]:
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def ptxas_report(log: Path) -> list[dict]:
+    """Each kernel instance in an nvcc log written with ``-Xptxas -v``: its
+    (demangled) name, registers, stack frame and spill bytes."""
+    rows, cur = [], None
+    for line in log.read_text().splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = {"function": m.group(1), "registers": None,
+                   "stack": 0, "spill_stores": 0, "spill_loads": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for row, name in zip(rows, _demangle([r["function"] for r in rows])):
+        row["function"] = name
+    return rows
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -143,3 +220,25 @@ class CudaKernel:
         self.launches += 1
         if path is not None:
             self.paths[path] += 1
+
+
+def main(argv: list[str]) -> int:
+    csrc = Path(argv[0]).resolve() if argv else CSRC
+    sources = sorted(p.name for p in csrc.glob("*.cu"))
+    with tempfile.TemporaryDirectory(prefix="kernel-build-") as d:
+        for source in sources:
+            BUILD_SECONDS.pop(source, None)
+            out = build_all((source,), csrc=csrc, build_dir=Path(d))[source]
+            rows = ptxas_report(out.with_suffix(".log"))
+            print(json.dumps({
+                "build": source, "csrc": str(csrc),
+                "seconds": BUILD_SECONDS[source], "instances": len(rows),
+                "spilling": [r for r in rows
+                             if r["spill_stores"] or r["spill_loads"]],
+                "registers": {r["function"]: r["registers"] for r in rows}}),
+                flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

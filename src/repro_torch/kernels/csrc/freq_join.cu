@@ -13,12 +13,14 @@
 // fast L2 atomics, so this is a hash join: O(Np + Nc) work.
 //
 // The table is an open-addressing hash table with linear probing over the
-// keys of the build side, 2^ceil(log2(2*N)) slots for a build side of N
-// rows (load factor <= 1/2, so every probe ends).  The host picks the path
-// from the two lengths:
+// keys of the build side, 2^ceil(log2(f*N)) slots for a build side of N
+// rows, f >= 2 the host's slot factor (load factor <= 1/f, so every probe
+// ends; f = 2 by default).  The host picks the path from the two lengths
+// and its KernelConfig (kernels/autotune.py), which also sets the threads
+// per block:
 //
 //   child side  (a child longer than the host's shared-path limit,
-//       SHARED_MAX_ROWS in freq_join.py, and no longer than the parent):
+//       KernelConfig.shared_max_rows, and no longer than the parent):
 //       contributing child rows (cf != 0 for sum, cf > 0 for any) claim
 //       slots and, in sum mode, atomicAdd their frequency; parent rows
 //       then probe their key.  Launches: fill, build, probe.
@@ -81,9 +83,13 @@ namespace {
 using u64 = unsigned long long;
 
 constexpr uint32_t kAbsent = 0xFFFFFFFFu;  // lookup result: key not there
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 32;
-constexpr long long kSharedMaxBlocks = 132 * 8;
+// Threads per block, a template parameter T of every kernel: 128, 256 (the
+// default) or 512, picked by the host's `threads` argument.  The grid's
+// caps hold the threads in flight constant: 132 * 32 blocks of 256 threads
+// for a grid-strided pass, 132 * 8 of 256 for the shared path, whose every
+// block builds the whole child table.
+constexpr long long kMaxThreads = 132ll * 32 * 256;
+constexpr long long kSharedMaxThreads = 132ll * 8 * 256;
 constexpr long long kSharedBytes = 48 * 1024;  // a block's, without opt-in
 
 enum Side { kChild = 0, kParent = 1, kShared = 2 };
@@ -270,13 +276,14 @@ __device__ __forceinline__ F parent_out(const Word<F>* t, uint32_t mask,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
        i < (n); i += (long long)gridDim.x * blockDim.x)
 
-__global__ void __launch_bounds__(kThreads)
+template <int T>
+__global__ void __launch_bounds__(T)
 fill(uint4* __restrict__ t, long long n16, uint4 pattern) {
   GRID_STRIDE(i, n16) t[i] = pattern;
 }
 
-template <typename K, typename F, bool kAny>
-__global__ void __launch_bounds__(kThreads)
+template <int T, typename K, typename F, bool kAny>
+__global__ void __launch_bounds__(T)
 build_child(const K* __restrict__ ck, const F* __restrict__ cf, long long nc,
             Word<F>* __restrict__ t, uint32_t mask) {
   GRID_STRIDE(j, nc)
@@ -284,8 +291,8 @@ build_child(const K* __restrict__ ck, const F* __restrict__ cf, long long nc,
 }
 
 // Child side's probe and parent side's gather: one parent row each.
-template <typename K, typename F, bool kAny, bool kPair>
-__global__ void __launch_bounds__(kThreads)
+template <int T, typename K, typename F, bool kAny, bool kPair>
+__global__ void __launch_bounds__(T)
 probe_parent(const K* __restrict__ pk, const F* __restrict__ pf, long long np,
              const Word<F>* __restrict__ t, uint32_t mask,
              F* __restrict__ out) {
@@ -294,8 +301,8 @@ probe_parent(const K* __restrict__ pk, const F* __restrict__ pf, long long np,
                                           pf[i]);
 }
 
-template <typename K, typename W>
-__global__ void __launch_bounds__(kThreads)
+template <int T, typename K, typename W>
+__global__ void __launch_bounds__(T)
 build_parent(const K* __restrict__ pk, long long np, W* __restrict__ t,
              uint32_t mask) {
   GRID_STRIDE(i, np) {
@@ -304,8 +311,8 @@ build_parent(const K* __restrict__ pk, long long np, W* __restrict__ t,
   }
 }
 
-template <typename K, typename F, bool kAny>
-__global__ void __launch_bounds__(kThreads)
+template <int T, typename K, typename F, bool kAny>
+__global__ void __launch_bounds__(T)
 probe_child(const K* __restrict__ ck, const F* __restrict__ cf, long long nc,
             Word<F>* __restrict__ t, uint32_t mask) {
   using A = typename Acc<F>::T;
@@ -325,8 +332,8 @@ probe_child(const K* __restrict__ ck, const F* __restrict__ cf, long long nc,
 // One launch: each block builds the whole child (its table fits
 // kSharedBytes) in its shared memory, then probes a grid-strided stripe of
 // parent rows.
-template <typename K, typename F, bool kAny>
-__global__ void __launch_bounds__(kThreads)
+template <int T, typename K, typename F, bool kAny>
+__global__ void __launch_bounds__(T)
 shared_join(const K* __restrict__ pk, const F* __restrict__ pf, long long np,
             const K* __restrict__ ck, const F* __restrict__ cf, long long nc,
             uint32_t mask, F* __restrict__ out) {
@@ -345,8 +352,10 @@ shared_join(const K* __restrict__ pk, const F* __restrict__ pf, long long np,
       out[i] = parent_out<F, kAny, kPair>(st, mask, as_key<W>(pk[i]), pf[i]);
 }
 
-int blocks_for(long long n, long long cap = kMaxBlocks) {
-  long long b = (n + kThreads - 1) / kThreads;
+template <int T>
+int blocks_for(long long n, long long max_threads = kMaxThreads) {
+  const long long cap = max_threads / T;
+  long long b = (n + T - 1) / T;
   return (int)(b < 1 ? 1 : (b > cap ? cap : b));
 }
 
@@ -358,7 +367,7 @@ long long table_words(long long slots, bool pair, bool wide) {
   return (w + 3) & ~3ll;
 }
 
-template <typename K, typename F, bool kAny>
+template <int T, typename K, typename F, bool kAny>
 int run(const K* pk, const F* pf, long long np, const K* ck, const F* cf,
         long long nc, void* table, long long slots, F* out, int side,
         int phases, cudaStream_t s) {
@@ -369,8 +378,9 @@ int run(const K* pk, const F* pf, long long np, const K* ck, const F* cf,
   if (side == kShared) {
     const size_t smem = 4 * (size_t)table_words(slots, !kAny, kWide);
     if (np > 0)
-      shared_join<K, F, kAny><<<blocks_for(np, kSharedMaxBlocks), kThreads,
-                                smem, s>>>(pk, pf, np, ck, cf, nc, mask, out);
+      shared_join<T, K, F, kAny><<<blocks_for<T>(np, kSharedMaxThreads), T,
+                                   smem, s>>>(pk, pf, np, ck, cf, nc, mask,
+                                              out);
     return (int)cudaGetLastError();
   }
   const bool pair = !kAny || side == kParent;
@@ -381,29 +391,29 @@ int run(const K* pk, const F* pf, long long np, const K* ck, const F* cf,
     const uint4 pattern = !pair ? make_uint4(e, e, e, e)
                           : kWide ? make_uint4(e, e, 0u, 0u)
                                   : make_uint4(e, 0u, e, 0u);
-    fill<<<blocks_for(n16), kThreads, 0, s>>>((uint4*)table, n16, pattern);
+    fill<T><<<blocks_for<T>(n16), T, 0, s>>>((uint4*)table, n16, pattern);
   }
   if (side == kChild) {
     if ((phases & kBuild) && nc > 0)
-      build_child<K, F, kAny><<<blocks_for(nc), kThreads, 0, s>>>(ck, cf, nc,
-                                                                   t, mask);
+      build_child<T, K, F, kAny><<<blocks_for<T>(nc), T, 0, s>>>(ck, cf, nc,
+                                                                  t, mask);
     if ((phases & kProbe) && np > 0)
-      probe_parent<K, F, kAny, !kAny><<<blocks_for(np), kThreads, 0, s>>>(
+      probe_parent<T, K, F, kAny, !kAny><<<blocks_for<T>(np), T, 0, s>>>(
           pk, pf, np, t, mask, out);
   } else {
     if ((phases & kBuild) && np > 0)
-      build_parent<K, W><<<blocks_for(np), kThreads, 0, s>>>(pk, np, t, mask);
+      build_parent<T, K, W><<<blocks_for<T>(np), T, 0, s>>>(pk, np, t, mask);
     if ((phases & kProbe) && nc > 0)
-      probe_child<K, F, kAny><<<blocks_for(nc), kThreads, 0, s>>>(ck, cf, nc,
-                                                                   t, mask);
+      probe_child<T, K, F, kAny><<<blocks_for<T>(nc), T, 0, s>>>(ck, cf, nc,
+                                                                  t, mask);
     if ((phases & kGather) && np > 0)
-      probe_parent<K, F, kAny, true><<<blocks_for(np), kThreads, 0, s>>>(
+      probe_parent<T, K, F, kAny, true><<<blocks_for<T>(np), T, 0, s>>>(
           pk, pf, np, t, mask, out);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename K, typename F>
+template <int T, typename K, typename F>
 int run_mode(int mode, const void* pk, const void* pf, long long np,
              const void* ck, const void* cf, long long nc, void* table,
              long long slots, void* out, int side, int phases,
@@ -412,8 +422,28 @@ int run_mode(int mode, const void* pk, const void* pf, long long np,
   const F *fp = (const F*)pf, *fc = (const F*)cf;
   F* o = (F*)out;
   return mode == 1
-      ? run<K, F, true>(kp, fp, np, kc, fc, nc, table, slots, o, side, phases, s)
-      : run<K, F, false>(kp, fp, np, kc, fc, nc, table, slots, o, side, phases, s);
+      ? run<T, K, F, true>(kp, fp, np, kc, fc, nc, table, slots, o, side,
+                           phases, s)
+      : run<T, K, F, false>(kp, fp, np, kc, fc, nc, table, slots, o, side,
+                            phases, s);
+}
+
+template <typename K, typename F>
+int run_threads(int threads, int mode, const void* pk, const void* pf,
+                long long np, const void* ck, const void* cf, long long nc,
+                void* table, long long slots, void* out, int side, int phases,
+                cudaStream_t s) {
+  switch (threads) {
+    case 128:
+      return run_mode<128, K, F>(mode, pk, pf, np, ck, cf, nc, table, slots,
+                                 out, side, phases, s);
+    case 512:
+      return run_mode<512, K, F>(mode, pk, pf, np, ck, cf, nc, table, slots,
+                                 out, side, phases, s);
+    default:
+      return run_mode<256, K, F>(mode, pk, pf, np, ck, cf, nc, table, slots,
+                                 out, side, phases, s);
+  }
 }
 
 }  // namespace
@@ -431,27 +461,30 @@ int run_mode(int mode, const void* pk, const void* pf, long long np,
 // dtype pair it does not take, is refused with cudaErrorInvalidValue.
 // phases: a mask of 1 fill, 2 build, 4 probe, 8 gather (parent side), so
 // that a caller can time the phases one by one; 15 runs the join.
-// Returns cudaGetLastError().
+// threads: threads per block of every launch, 128, 256 or 512 (others are
+// refused).  Returns cudaGetLastError().
 extern "C" int repro_hash_join(const void* pk, const void* pf, long long np,
                                const void* ck, const void* cf, long long nc,
                                void* table, long long table_len,
                                long long slots, void* out, int mode,
                                int kdtype, int fdtype, int side, int phases,
-                               void* stream) {
+                               int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long build_rows = side == kParent ? np : nc;
   if (slots < 2 || (slots & (slots - 1)) != 0 || slots > (1ll << 31) ||
       slots < 2 * build_rows || side < kChild || side > kShared ||
       mode < 0 || mode > 1 || fdtype < 0 || fdtype > 3 || kdtype < 0 ||
-      kdtype > 1 || (kdtype == 1 && fdtype < 2))
+      kdtype > 1 || (kdtype == 1 && fdtype < 2) ||
+      (threads != 128 && threads != 256 && threads != 512))
     return (int)cudaErrorInvalidValue;
   const bool wide = fdtype >= 2;
   if (side == kShared
           ? 4 * table_words(slots, mode == 0, wide) > kSharedBytes
           : table_len < table_words(slots, mode == 0 || side == kParent, wide))
     return (int)cudaErrorInvalidValue;
-#define REPRO_RUN(K, F) \
-  run_mode<K, F>(mode, pk, pf, np, ck, cf, nc, table, slots, out, side, phases, s)
+#define REPRO_RUN(K, F)                                                    \
+  run_threads<K, F>(threads, mode, pk, pf, np, ck, cf, nc, table, slots, out, \
+                    side, phases, s)
   if (kdtype == 0) {
     switch (fdtype) {
       case 0: return REPRO_RUN(int32_t, int32_t);

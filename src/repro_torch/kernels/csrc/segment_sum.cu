@@ -75,7 +75,8 @@
 // values (PERF.md, section 6): 256 threads of 8 rows at 6 blocks per SM,
 // against 4 or 16 rows, 128 or 512 threads, and no or 8 blocks per SM.
 // Instances with a 64-bit key or value hold twice the registers for their
-// rows and ask for 3 blocks per SM; they are not tuned.  Tried and
+// rows and ask for 3 blocks per SM.  That default and three other instances
+// (below) are what the kernel tuner measures per shape bucket.  Tried and
 // dropped: a hand-over box per tile in which the carry and the row that
 // needs it meet, written by whichever comes second, so that no warp waits
 // on a predecessor.  It was slower on every case timed: the hand-over's
@@ -93,16 +94,21 @@ namespace {
 using u64 = unsigned long long;
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;  // rows per thread: 4, 8 or 16
-constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
-// blocks the compiler must fit on one SM: 6 caps a thread at 40 registers;
-// 3 (85 registers) for the instances with a 64-bit key or value
-constexpr int kMinBlocks = 6;
-constexpr int kMinBlocksWide = 3;
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kItems == 4 || kItems == 8 || kItems == 16,
-              "a thread's valid bytes are one 4-, 8- or 16-byte store");
+
+// The instances: rows per thread kItems (4, 8 or 16; a tile is kThreads *
+// kItems rows) and the blocks the compiler must fit on one SM, kMinBlocks
+// for 32-bit keys and values (6 caps a thread at 40 registers) and half as
+// many, at least 1, for the instances with a 64-bit key or value, which hold
+// twice the registers for their rows (3: 85 registers).  The default is
+// (8, 6); the C entry takes the others the kernel tuner may pick
+// (KernelConfig.seg_items, .seg_min_blocks in kernels/autotune.py).
+template <int kMinBlocks, typename K, typename T>
+constexpr int min_blocks() {
+  return sizeof(K) + sizeof(T) == 8 ? kMinBlocks
+                                    : (kMinBlocks / 2 > 0 ? kMinBlocks / 2 : 1);
+}
 
 // a tile's status; 0 = nothing published yet
 constexpr uint32_t kAggregate = 1, kPrefix = 2;
@@ -312,12 +318,14 @@ __device__ A look_back(Tiles<A>& tiles, int tile, int lane) {
   return carry;
 }
 
-template <typename K, typename T>
-__global__ void __launch_bounds__(
-    kThreads, sizeof(K) + sizeof(T) == 8 ? kMinBlocks : kMinBlocksWide)
+template <int kItems, int kMinBlocks, typename K, typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<kMinBlocks, K, T>())
 segment_scan(const K* __restrict__ keys, const T* __restrict__ vals,
              long long n, int aligned, T* __restrict__ sums,
              uint8_t* __restrict__ valid, uint32_t* __restrict__ scratch) {
+  static_assert(kItems == 4 || kItems == 8 || kItems == 16,
+                "a thread's valid bytes are one 4-, 8- or 16-byte store");
+  constexpr int kTile = kThreads * kItems;
   using A = typename Acc<T>::T;
   __shared__ int s_tile;
   __shared__ A wsum[kWarps];
@@ -447,9 +455,10 @@ segment_scan(const K* __restrict__ keys, const T* __restrict__ vals,
   if (fix >= 0) sums[row0 + fix] = (T)(carry + fix_val);
 }
 
-template <typename K, typename T>
+template <int kItems, int kMinBlocks, typename K, typename T>
 int run(const void* keys, const void* vals, long long n, void* sums,
         void* valid, uint32_t* scratch, cudaStream_t stream) {
+  constexpr int kTile = kThreads * kItems;
   const long long nt = (n + kTile - 1) / kTile;
   const int aligned =
       ((uintptr_t)keys | (uintptr_t)vals | (uintptr_t)sums) % 16 == 0 &&
@@ -459,50 +468,71 @@ int run(const void* keys, const void* vals, long long n, void* sums,
         scratch, 0, 4 * cleared_words(nt, sizeof(T) == 8), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  segment_scan<K, T><<<(unsigned)nt, kThreads, 0, stream>>>(
+  segment_scan<kItems, kMinBlocks, K, T><<<(unsigned)nt, kThreads, 0, stream>>>(
       (const K*)keys, (const T*)vals, n, aligned, (T*)sums, (uint8_t*)valid,
       nt > 1 ? scratch : nullptr);
   return (int)cudaGetLastError();
 }
 
-template <typename K>
+template <int I, int M, typename K>
 int run_values(int vdtype, const void* keys, const void* vals, long long n,
                void* sums, void* valid, uint32_t* scratch,
                cudaStream_t stream) {
   switch (vdtype) {
-    case 0: return run<K, int32_t>(keys, vals, n, sums, valid, scratch, stream);
-    case 1: return run<K, float>(keys, vals, n, sums, valid, scratch, stream);
-    case 2: return run<K, long long>(keys, vals, n, sums, valid, scratch, stream);
-    default: return run<K, double>(keys, vals, n, sums, valid, scratch, stream);
+    case 0: return run<I, M, K, int32_t>(keys, vals, n, sums, valid, scratch, stream);
+    case 1: return run<I, M, K, float>(keys, vals, n, sums, valid, scratch, stream);
+    case 2: return run<I, M, K, long long>(keys, vals, n, sums, valid, scratch, stream);
+    default: return run<I, M, K, double>(keys, vals, n, sums, valid, scratch, stream);
   }
+}
+
+template <int I, int M>
+int run_keys(int kdtype, int vdtype, const void* keys, const void* vals,
+             long long n, void* sums, void* valid, uint32_t* scratch,
+             cudaStream_t stream) {
+  return kdtype == 0
+      ? run_values<I, M, int32_t>(vdtype, keys, vals, n, sums, valid, scratch,
+                                  stream)
+      : run_values<I, M, long long>(vdtype, keys, vals, n, sums, valid,
+                                    scratch, stream);
 }
 
 }  // namespace
 
 // keys: sorted, kdtype 0 = int32, 1 = int64.  vals and sums: vdtype 0 =
-// int32, 1 = float32, 2 = int64, 3 = float64.  valid: bool[n].  tile: the
-// caller's rows per tile, which must be kTile.  scratch: scratch_len uint32
-// words, at least scratch_words(ceil(n/tile), 64-bit values) when n > tile
-// (the C entry clears what it needs), unused (may be null) when n <= tile.
+// int32, 1 = float32, 2 = int64, 3 = float64.  valid: bool[n].  tile and
+// min_blocks pick the instance: the caller's rows per tile, 256 * kItems,
+// and kMinBlocks; the pairs (kItems, kMinBlocks) taken are (8, 6), the
+// default, (4, 6), (16, 3) and (8, 4).  scratch: scratch_len uint32 words,
+// at least scratch_words(ceil(n/tile), 64-bit values) when n > tile (the C
+// entry clears what it needs), unused (may be null) when n <= tile.
 // Launches nothing for n <= 0.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a tile, scratch, kdtype or vdtype it does not
-// take.
+// cudaErrorInvalidValue for an instance, scratch, kdtype or vdtype it does
+// not take.
 extern "C" int repro_segment_sum(const void* keys, const void* vals,
                                  long long n, void* sums, void* valid,
                                  void* scratch, long long scratch_len,
-                                 int tile, int kdtype, int vdtype,
-                                 void* stream) {
-  if (tile != kTile || vdtype < 0 || vdtype > 3 || kdtype < 0 || kdtype > 1)
+                                 int tile, int min_blocks, int kdtype,
+                                 int vdtype, void* stream) {
+  const int items = tile / kThreads;
+  const bool known = tile % kThreads == 0 &&
+                     ((items == 8 && (min_blocks == 6 || min_blocks == 4)) ||
+                      (items == 4 && min_blocks == 6) ||
+                      (items == 16 && min_blocks == 3));
+  if (!known || vdtype < 0 || vdtype > 3 || kdtype < 0 || kdtype > 1)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  const long long nt = (n + kTile - 1) / kTile;
+  const long long nt = (n + tile - 1) / tile;
   if (nt > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   if (nt > 1 && (scratch == nullptr ||
                  scratch_len < scratch_words(nt, vdtype >= 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   uint32_t* w = (uint32_t*)scratch;
-  return kdtype == 0
-      ? run_values<int32_t>(vdtype, keys, vals, n, sums, valid, w, s)
-      : run_values<long long>(vdtype, keys, vals, n, sums, valid, w, s);
+  switch (items * 100 + min_blocks) {
+    case 406: return run_keys<4, 6>(kdtype, vdtype, keys, vals, n, sums, valid, w, s);
+    case 804: return run_keys<8, 4>(kdtype, vdtype, keys, vals, n, sums, valid, w, s);
+    case 1603: return run_keys<16, 3>(kdtype, vdtype, keys, vals, n, sums, valid, w, s);
+    default: return run_keys<8, 6>(kdtype, vdtype, keys, vals, n, sums, valid, w, s);
+  }
 }

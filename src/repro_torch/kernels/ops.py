@@ -10,8 +10,10 @@ raises.
     freq_join(mode="any")  → K1, semi_join.py (also ``semi_join``)
     segment_sum_sorted     → K3, segment_sum.py
 
-``domain`` and ``config`` steer the plain FreqJoin's dense-domain crossover
-only; the hash-join kernels need no key domain.  The sorts in
+``config`` (a ``KernelConfig``; None is ``DEFAULT_CONFIG``) reaches every
+device: on the CPU its dense-domain crossover steers the plain FreqJoin,
+on the card its Hopper knobs set the kernels' launches.  ``domain`` steers
+the plain FreqJoin only; the hash-join kernels need no key domain.  The sorts in
 ``group_by_sum`` and ``weighted_percentile`` are PyTorch's own on every
 device, as the JAX package leaves them to XLA; they are stable, as
 ``jnp.argsort`` is.
@@ -43,9 +45,9 @@ def freq_join(parent_keys, parent_freq, child_keys, child_freq, *,
                                    config=config)
     if mode == "any":
         return _sj.semi_join_cuda(parent_keys, parent_freq, child_keys,
-                                  child_freq)
+                                  child_freq, config=config)
     return _fj.freq_join_cuda(parent_keys, parent_freq, child_keys,
-                              child_freq)
+                              child_freq, config=config)
 
 
 def semi_join(parent_keys, parent_freq, child_keys, child_freq, *,
@@ -56,20 +58,22 @@ def semi_join(parent_keys, parent_freq, child_keys, child_freq, *,
                      mode="any", domain=domain, config=config)
 
 
-def segment_sum_sorted(sorted_keys, values):
+def segment_sum_sorted(sorted_keys, values,
+                       config: KernelConfig | None = None):
     """GROUP BY key, SUM(value) over key-sorted input.
 
     Returns (sums, valid): run total at the LAST row of each run."""
     if sorted_keys.device.type == "cpu":
         return _ss.segment_sum_plain(sorted_keys, values)
-    return _ss.segment_sum_cuda(sorted_keys, values)
+    return _ss.segment_sum_cuda(sorted_keys, values, config=config)
 
 
-def group_by_sum(keys, values):
+def group_by_sum(keys, values, config: KernelConfig | None = None):
     """Unsorted group-by: sort once (stably), then segment-sum.  Returns
     (sorted_keys, sums, valid) so downstream FreqJoins can reuse the sort."""
     ks, order = torch.sort(keys, stable=True)
-    sums, valid = segment_sum_sorted(ks, values[order].contiguous())
+    sums, valid = segment_sum_sorted(ks, values[order].contiguous(),
+                                     config=config)
     return ks, sums, valid
 
 

@@ -13,60 +13,78 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels.autotune import DEFAULT_CONFIG, KernelConfig
 from repro_torch.tables.table import is_wide
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 K3 = CudaKernel("segment_sum", "segment_sum.cu", "repro_segment_sum",
-                (_P, _P, _N, _P, _P, _P, _N, _I, _I, _I))
+                (_P, _P, _N, _P, _P, _P, _N, _I, _I, _I, _I))
 
-TILE = 2048  # rows per block of the scan: kTile in csrc/segment_sum.cu
+THREADS = 256  # kThreads in csrc/segment_sum.cu
+# the (seg_items, seg_min_blocks) instances the C entry takes, the default
+# first: the kernel tuner's K3 candidates
+INSTANCES = ((8, 6), (4, 6), (16, 3), (8, 4))
+
+
+def tile_rows(config: KernelConfig | None = None) -> int:
+    """Rows per block of the scan under ``config``: 256 × seg_items."""
+    return THREADS * (config or DEFAULT_CONFIG).seg_items
+
+
+TILE = tile_rows()  # the default instance's rows per block: 2048
 _KDTYPES = {torch.int32: 0, torch.int64: 1}
 _VDTYPES = {torch.int32: 0, torch.float32: 1, torch.int64: 2,
             torch.float64: 3}
 
 
-def scratch_words(n: int, wide: bool = False) -> int:
-    """int32 words of the scratch a call of ``n`` rows needs: none for one
-    tile, else the tile counter and a spare word, then per tile either one
+def scratch_words(n: int, wide: bool = False, tile: int = TILE) -> int:
+    """int32 words of the scratch a call of ``n`` rows in tiles of ``tile``
+    rows needs: none for one tile, else the tile counter and a spare word, then per tile either one
     8-byte state and one 4-byte aggregate, or, for ``wide`` (64-bit)
     values, a 4-byte status (padded to a whole 8 bytes after the last) and
     two 8-byte values, the prefix and the aggregate."""
-    if n <= TILE:
+    if n <= tile:
         return 0
-    nt = -(-n // TILE)
+    nt = -(-n // tile)
     if not wide:
         return 2 + 3 * nt
     return (2 + nt + 1) // 2 * 2 + 4 * nt
 
 
-def prepare_call(values):
-    """``(sums, valid, scratch)`` of one call over ``values``, all
-    ``torch.empty`` on its device: ``scratch`` holds ``scratch_words``
-    int32 words in the layout of ``values``' width (None for a call of at
-    most one tile), which the C entry clears itself."""
+def prepare_call(values, config: KernelConfig | None = None):
+    """``(sums, valid, scratch)`` of one call over ``values`` under
+    ``config``, all ``torch.empty`` on its device: ``scratch`` holds
+    ``scratch_words`` int32 words in the layout of ``values``' width and
+    the config's tile (None for a call of at most one tile), which the C
+    entry clears itself."""
     n = values.shape[0]
-    words = scratch_words(n, is_wide(values.dtype))
+    words = scratch_words(n, is_wide(values.dtype), tile_rows(config))
     scratch = (torch.empty(words, dtype=torch.int32, device=values.device)
                if words else None)
     return (torch.empty_like(values),
             torch.empty(n, dtype=torch.bool, device=values.device), scratch)
 
 
-def launch_call(sorted_keys, values, sums, valid, scratch) -> None:
-    """Launch K3 on the current stream with the outputs and scratch of
-    ``prepare_call`` (the C entry refuses a scratch shorter than its layout
-    needs); counts one launch."""
+def launch_call(sorted_keys, values, sums, valid, scratch,
+                config: KernelConfig | None = None) -> None:
+    """Launch ``config``'s instance of K3 on the current stream with the
+    outputs and scratch of ``prepare_call`` under the same config (the C
+    entry refuses a scratch shorter than its layout needs, and an instance
+    it does not have); counts one launch."""
+    config = config or DEFAULT_CONFIG
     K3.launch(sorted_keys.device, sorted_keys.data_ptr(), values.data_ptr(),
               sorted_keys.shape[0], sums.data_ptr(), valid.data_ptr(),
               None if scratch is None else scratch.data_ptr(),
-              0 if scratch is None else scratch.numel(), TILE,
-              _KDTYPES[sorted_keys.dtype], _VDTYPES[values.dtype])
+              0 if scratch is None else scratch.numel(), tile_rows(config),
+              config.seg_min_blocks, _KDTYPES[sorted_keys.dtype],
+              _VDTYPES[values.dtype])
 
 
-def segment_sum_cuda(sorted_keys, values):
-    """K3 on the card: int32 or int64 sorted keys, int32, float32, int64 or
-    float64 values, both 1-D and contiguous."""
+def segment_sum_cuda(sorted_keys, values, config: KernelConfig | None = None):
+    """K3 on the card under ``config``'s instance (rows per thread, blocks
+    per SM): int32 or int64 sorted keys, int32, float32, int64 or float64
+    values, both 1-D and contiguous."""
     dev = sorted_keys.device
     if dev.type != "cuda" or values.device != dev:
         raise ValueError("segment_sum: keys and values must lie on one CUDA "
@@ -80,9 +98,9 @@ def segment_sum_cuda(sorted_keys, values):
             or not sorted_keys.is_contiguous() or not values.is_contiguous():
         raise ValueError("segment_sum: keys and values must be 1-D, "
                          "contiguous and of one length")
-    sums, valid, scratch = prepare_call(values)
+    sums, valid, scratch = prepare_call(values, config)
     if sorted_keys.shape[0]:
-        launch_call(sorted_keys, values, sums, valid, scratch)
+        launch_call(sorted_keys, values, sums, valid, scratch, config)
     return sums, valid
 
 

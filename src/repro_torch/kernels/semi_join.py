@@ -21,10 +21,11 @@ K1 = CudaKernel("semi_join", "freq_join.cu", "repro_hash_join",
                 HASH_JOIN_ARGTYPES)
 
 
-def semi_join_cuda(parent_keys, parent_freq, child_keys, child_freq):
-    """K1 on the card."""
+def semi_join_cuda(parent_keys, parent_freq, child_keys, child_freq,
+                   config: KernelConfig | None = None):
+    """K1 on the card, under ``config``'s Hopper knobs."""
     return hash_join(K1, parent_keys, parent_freq, child_keys, child_freq,
-                     "any")
+                     "any", config)
 
 
 def semi_join_plain(parent_keys, parent_freq, child_keys, child_freq, *,

@@ -8,9 +8,10 @@ once, serve many.  This package owns everything between "SQL arrives" and
 persistent cross-process plan store (``plan_store``), the concurrent
 micro-batching engine (``engine``), the async cross-caller batch former
 (``scheduler``), the persistent statistics store behind cost-calibrated
-planning (``stats_store``), and the tracing + metrics registry every
-request reports into (``observability``).  The kernel tuner's store and
-the JAX compilation cache have no counterpart here yet.
+planning (``stats_store``), the persistent store of the kernel tuner's
+winners (``tune_store``), and the tracing + metrics registry every request
+reports into (``observability``).  The JAX compilation cache has no
+counterpart here.
 """
 
 from repro_torch.service.engine import (
@@ -41,6 +42,7 @@ from repro_torch.service.plan_store import (
 )
 from repro_torch.service.scheduler import AsyncScheduler, TenantPolicy
 from repro_torch.service.stats_store import StatsStore
+from repro_torch.service.tune_store import TuneStore
 
 __all__ = [
     "AdmissionError",
@@ -63,6 +65,7 @@ __all__ = [
     "StatsStore",
     "TenantAdmissionError",
     "TenantPolicy",
+    "TuneStore",
     "schema_fingerprint",
     "store_fingerprint",
 ]

@@ -23,9 +23,13 @@ equal counters.  What differs:
     (fingerprint, shape bucket) under the JAX package's keys; its first
     call runs inside the ``compile`` span, so the ``run`` span times a
     warm call that ends in a synchronisation of the tables' device;
-  * there is no kernel tuner (``autotune``, ``tune_*`` counters) and no
-    mesh serving yet, and no compiled program persists on disk (the
-    kernels' builds persist on their own under ``kernels/.build/``).
+  * the kernel tuner (``autotune()``, ``tune_*`` counters) tunes the
+    hand-written kernels' Hopper knobs on CUDA tables (backend ``"cuda"``,
+    or ``"cuda_wide"`` with 64-bit frequencies) and the plain FreqJoin's
+    dense-domain crossover on CPU tables (``"plain"``);
+  * there is no mesh serving yet, and no compiled program persists on
+    disk (the kernels' builds persist on their own under
+    ``kernels/.build/``).
 
 Request path (shared by sync ``submit``/``submit_many`` and the async
 scheduler — one internal pipeline, ``_serve_batch``):
@@ -74,11 +78,12 @@ per-key in-flight events so concurrent cold requests for the same artefact
 build it once.
 
 Warm starts: ``QueryService(db, schema, cache_dir=...)`` persists every
-shareable plan to a ``PlanStore`` and the table statistics and serve-time
-feedback to a ``StatsStore`` under ``cache_dir`` — so a new process over
-the same schema and data re-plans nothing (``plan_builds == 0``,
-``persist_hits`` counting) and recomputes no statistics
-(``stat_refreshes == 0``).  Disk failures of any kind degrade to
+shareable plan to a ``PlanStore``, the table statistics and serve-time
+feedback to a ``StatsStore`` and the tuned kernel configs to a
+``TuneStore`` under ``cache_dir`` — so a new process over the same schema
+and data re-plans nothing (``plan_builds == 0``, ``persist_hits``
+counting), recomputes no statistics (``stat_refreshes == 0``) and
+re-measures no kernel (``tune_searches == 0``).  Disk failures of any kind degrade to
 memory-only caching.  The entries are the JAX package's format: either
 package reads the other's.
 
@@ -112,6 +117,7 @@ from repro_torch.core.plan import (
 from repro_torch.core.rewrite import plan_query
 from repro_torch.core.sql import parse_sql
 from repro_torch.core.stats import FUSION_COST_DISPARITY, StatsCatalog
+from repro_torch.kernels.autotune import KernelTuner, backend_tag
 from repro_torch.service.fingerprint import CanonicalQuery, canonicalize
 from repro_torch.service.observability import (
     DEFAULT_TENANT,
@@ -126,6 +132,7 @@ from repro_torch.service.plan_store import (
     store_fingerprint,
 )
 from repro_torch.service.stats_store import STATS_PERSIST_ZEROS, StatsStore
+from repro_torch.service.tune_store import TUNE_PERSIST_ZEROS, TuneStore
 from repro_torch.tables.table import Schema, Table, bucket_capacity
 
 
@@ -317,6 +324,7 @@ class QueryService:
         # store fingerprint, as in the JAX package: () on one device
         self._topo = ()
         store = None
+        tune_store = None
         if cache_dir is not None:
             # the store identity covers schema AND planner configuration:
             # plans are planner output, so a store warmed under another
@@ -324,8 +332,23 @@ class QueryService:
             store = PlanStore(cache_dir,
                               store_fingerprint(schema, mode, use_fkpk,
                                                 topology=self._topo))
+            # tuned kernel configs persist beside the plans, scoped by the
+            # same topology
+            tune_store = TuneStore(cache_dir, topology=self._topo)
         self.cache = PlanCache(plan_capacity, exec_capacity, fused_capacity,
                                padded_capacity, store=store)
+        # kernel autotuning: the tuner resolves configs table → store →
+        # measured search, on the tables' device at the service's width; a
+        # warm start installs every persisted entry NOW so serving (and
+        # ``autotune()``) re-measures nothing (``tune_searches == 0``).  A
+        # compiled closure looks its configs up at its first call, so
+        # installed configs take effect on the next compile.
+        device = next(iter(self._db.values())).device if self._db else "cpu"
+        self.tuner = KernelTuner(
+            tune_store, backend=backend_tag(device, self._executor.wide),
+            device=device)
+        self.tuner.load_persisted()
+        self._executor.tuning = self.tuner.table
         # cost-calibrated planning: one statistics catalog feeds the gated
         # rewrite passes, the fusion-admission cost gate, and the serve-time
         # feedback loop.  Stats are derived state, so they persist under the
@@ -624,6 +647,69 @@ class QueryService:
         if sch is not None:
             sch.close(timeout=timeout)
 
+    # ---- kernel autotuning ----------------------------------------------
+    @property
+    def tune_store(self) -> TuneStore | None:
+        """The persistent tuned-config store (None without
+        ``cache_dir``)."""
+        return self.tuner.store
+
+    def autotune(self, kernels=("freq_join", "semi_join", "segment_sum"),
+                 *, row: Callable[..., Any] | None = None) -> dict[str, Any]:
+        """Tune the kernels for this service's loaded tables.
+
+        Runs the measured config search for every (kernel, shape-bucket)
+        combination the current tables can produce — join kernels over
+        (parent bucket × child bucket) pairs, the segmented sum per bucket
+        — skipping any combination already resolved by the in-memory table
+        or the persistent store (so a warm-started service measures
+        nothing and this call is cheap to repeat).  Every candidate is
+        gated on bitwise equality with the untuned answer inside the search
+        itself; a fresh install then drops the compiled executables, whose
+        closures hold the configs they looked up, so the next serve
+        compiles with the tuned ones.  ``row`` (a ``Recorder.row``-shaped
+        sink) receives the per-candidate timing trajectory.  The join
+        kernels are searched bucket by bucket, both joins of a bucket on
+        one draw of its synthetic inputs.  Returns a summary dict."""
+        with self._lock:
+            caps = sorted({self._bucket_cap(t.capacity)
+                           for t in self._db.values()})
+        before = self.tuner.metrics()
+        prev_row = self.tuner.row
+        if row is not None:
+            self.tuner.row = row
+        joins = [k for k in kernels if k != "segment_sum"]
+        try:
+            with self.tuner.shared_draws():
+                for bp in caps:
+                    for bc in caps:
+                        for kernel in joins:
+                            self.tuner.ensure(kernel, (bp, bc))
+            if "segment_sum" in kernels:
+                for b in caps:
+                    self.tuner.ensure("segment_sum", (b,))
+        finally:
+            self.tuner.row = prev_row
+        after = self.tuner.metrics()
+        installed = after["tune_installs"] - before["tune_installs"]
+        invalidated = 0
+        if installed:
+            # compiled closures captured the configs of their first call:
+            # drop the executable levels (plans are config-free and stay)
+            with self._lock:
+                invalidated = (
+                    self.cache.execs.invalidate_if(lambda k: True)
+                    + self.cache.fused.invalidate_if(lambda k: True))
+        return {
+            "buckets": caps,
+            "searches": after["tune_searches"] - before["tune_searches"],
+            "installed": installed,
+            "gate_rejects": (after["tune_gate_rejects"]
+                             - before["tune_gate_rejects"]),
+            "entries": after["tune_entries"],
+            "invalidated_executables": invalidated,
+        }
+
     # ---- cache persistence ----------------------------------------------
     @property
     def plan_store(self) -> PlanStore | None:
@@ -651,6 +737,19 @@ class QueryService:
             for fp, plan in own.load_all():
                 if fp not in exported and dest.save(fp, plan):
                     exported.add(fp)
+        # tuned kernel configs ship with the plans: everything in the
+        # in-memory table, plus store entries memory never loaded
+        tdest = TuneStore(path, topology=self._topo)
+        tuned = set()
+        for (kernel, shape, backend), cfg in self.tuner.table.entries():
+            if tdest.save(kernel, shape, backend, cfg):
+                tuned.add((kernel, shape, backend))
+        town = self.tuner.store
+        if town is not None \
+                and town.root.resolve() != tdest.root.resolve():
+            for key, cfg in town.load_all():
+                if key not in tuned:
+                    tdest.save(*key, cfg)
         return len(exported)
 
     def import_cache(self, path) -> int:
@@ -671,6 +770,17 @@ class QueryService:
             if write_through:
                 own.save(fp, plan)
             n += 1
+        # tuned kernel configs ride along: install into the live table
+        # (they take effect on the next compile) and write through to our
+        # own store when we have one
+        tsrc = TuneStore(path, topology=self._topo)
+        town = self.tuner.store
+        t_through = town is not None \
+            and town.root.resolve() != tsrc.root.resolve()
+        for (kernel, shape, backend), cfg in tsrc.load_all():
+            self.tuner.table.install(kernel, shape, backend, cfg)
+            if t_through:
+                town.save(kernel, shape, backend, cfg)
         return n
 
     def _serve_batch(self, reqs: list[_Request]) -> dict[int, QueryResult]:
@@ -1156,7 +1266,7 @@ class QueryService:
             # database state even if update_table swaps relations mid-run
             sub_db = {rel: self._db[rel] for rel in u.plan.scanned_rels()}
         ex = Executor(sub_db, self.schema, base.freq_dtype,
-                      dense_domain=base.dense_domain)
+                      dense_domain=base.dense_domain, tuning=base.tuning)
         stats = ExecStats()
         with self.obs.span(roots, "run", eager=True) as rsp:
             results = ex.execute(u.plan, stats)
@@ -1194,6 +1304,10 @@ class QueryService:
             snap["counters"].update(self.cache.metrics())
             snap["gauges"]["padded_relations"] = len(self.cache.padded)
         snap["counters"].update(self.cache.persist_metrics())
+        snap["counters"].update(self.tuner.metrics())
+        snap["counters"].update(
+            self.tuner.store.metrics() if self.tuner.store is not None
+            else dict(TUNE_PERSIST_ZEROS))
         snap["counters"].update(
             self.stats_store.metrics() if self.stats_store is not None
             else dict(STATS_PERSIST_ZEROS))

@@ -158,9 +158,27 @@ def test_cpu_run_launches_no_kernel(tpch):
 
 
 def test_tuning_is_not_ported(tpch):
+    """The refusal of ``tuning`` is gone: an Executor on CPU tables takes a
+    ``TuneTable``, looks its configs up under the ``"plain"`` backend by
+    each call's shape bucket, and answers as untuned (the dense path off
+    everywhere changes the plain FreqJoin's route, not its answer)."""
+    from repro_torch.kernels.autotune import KernelConfig, TuneTable
     _, _, tdb, tschema = tpch
-    with pytest.raises(NotImplementedError, match="tuning"):
-        tcore.Executor(tdb, tschema, tuning=object())
+    table = TuneTable()
+    caps = sorted({t.capacity for t in tdb.values()})
+    off = KernelConfig(dense_ratio=0)
+    for kernel in ("freq_join", "semi_join"):
+        for bp in caps:
+            for bc in caps:
+                table.install(kernel, (bp, bc), "plain", off)
+    ex = tcore.Executor(tdb, tschema, dense_domain=True, tuning=table)
+    assert ex.backend == "plain" and ex.jittable().tuning is table
+    untuned = tcore.Executor(tdb, tschema, dense_domain=True)
+    for a in V1_AGGS:
+        plan = tcore.plan_query(trel.tpch_v1_query(a), tschema)
+        _assert_answers_equal(ex.compile(plan)(tdb),
+                              untuned.compile(plan)(tdb))
+        _assert_answers_equal(ex.execute(plan), untuned.execute(plan))
 
 
 @pytest.mark.parametrize("dtype", ["int64", "float64"])

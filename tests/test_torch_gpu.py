@@ -831,3 +831,106 @@ def test_failing_request_on_gpu_leaves_batch_mates_intact(cuda):
     for r, sql in zip(res[:2], SERVE_V1[:2]):
         _values_equal(r.values, csvc.submit(sql).values)
     assert gsvc.metrics()["request_errors"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the kernel tuner's card candidates (kernels/autotune.py)
+# ---------------------------------------------------------------------------
+def _candidates(kernel, backend):
+    from repro_torch.kernels.autotune import candidate_configs
+    return candidate_configs(kernel, backend)
+
+
+WIDTHS = {"cuda": (np.int32, (np.int32, np.float32)),
+          "cuda_wide": (np.int64, (np.int64, np.float64))}
+
+
+@pytest.mark.parametrize("backend", list(WIDTHS))
+@pytest.mark.parametrize("kernel", ["semi_join", "freq_join"])
+@pytest.mark.parametrize("nc", [512, 513, 1024, 1025, 2048, 2049])
+def test_join_candidates_match_plain_at_the_cutoffs(cuda, backend, kernel,
+                                                    nc):
+    """Every card candidate of K1/K2, at both widths, on children at each
+    candidate's shared-path cut-off and one row past it, under a longer
+    and a shorter parent (so the child side, the parent side and shared
+    memory all run), with key −1 and int32's extremes on both sides."""
+    kd, fdts = WIDTHS[backend]
+    mode = "any" if kernel == "semi_join" else "sum"
+    kernel_obj = tsj.K1 if mode == "any" else tfj.K2
+    for np_ in (5000, nc - 7):
+        rng = np.random.default_rng([np_, nc])
+        pk, ck = _edge_keys(rng, np_, nc, "both")
+        for fdt in fdts:
+            t = [torch.tensor(a.astype(d), device=cuda) for a, d in (
+                (pk, kd), (rng.integers(0, 4, np_), fdt), (ck, kd),
+                (rng.integers(-1, 4, nc), fdt))]
+            want = tfj.freq_join_plain(*t, mode=mode)
+            for cfg in _candidates(kernel, backend):
+                side = tfj.join_path(np_, nc, cfg).side
+                before = kernel_obj.paths[side]
+                got = tops.freq_join(*t, mode=mode, config=cfg)
+                assert kernel_obj.paths[side] == before + 1, (cfg, side)
+                assert torch.equal(got, want), (cfg, np_, fdt)
+
+
+@pytest.mark.parametrize("backend", list(WIDTHS))
+@pytest.mark.parametrize("edge", [-1, 1])
+def test_segment_sum_candidates_match_plain_at_the_tile_edges(cuda, backend,
+                                                              edge):
+    """Every card candidate of K3, at both widths, at its own tile ± 1 rows
+    and over three tiles (so the look-back runs), integer-valued so float
+    sums are exact."""
+    kd, vdts = WIDTHS[backend]
+    for cfg in _candidates("segment_sum", backend):
+        tile = tss.tile_rows(cfg)
+        for n in (tile + edge, 3 * tile + edge):
+            rng = np.random.default_rng([n, cfg.seg_min_blocks])
+            k = torch.tensor(np.sort(rng.integers(-9, max(2, n // 40), n))
+                             .astype(kd), device=cuda)
+            for vdt in vdts:
+                v = torch.tensor(rng.integers(-3, 5, n).astype(vdt),
+                                 device=cuda)
+                got = tops.segment_sum_sorted(k, v, config=cfg)
+                want = tss.segment_sum_plain(k, v)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                    (cfg, n, vdt)
+
+
+def test_segment_sum_unknown_instance_is_refused(cuda):
+    from repro_torch.kernels.autotune import KernelConfig
+    k = torch.zeros(10_000, dtype=torch.int32, device=cuda)
+    for cfg in (KernelConfig(seg_items=16, seg_min_blocks=6),
+                KernelConfig(seg_items=2)):
+        with pytest.raises(KernelLaunchError):
+            tss.segment_sum_cuda(k, k, config=cfg)
+    with pytest.raises(KernelLaunchError):
+        tsj.semi_join_cuda(k, k, k, k,
+                           config=KernelConfig(join_threads=384))
+
+
+@pytest.mark.parametrize("freq_dtype", [torch.int32, torch.int64])
+def test_service_autotune_on_gpu(cuda, tmp_path, freq_dtype):
+    """``autotune()`` on CUDA tables: no gate rejects, tuned answers equal
+    the CPU service's, the executables compiled before the install are
+    dropped, and a warm restart measures nothing."""
+    from repro_torch.service import QueryService
+    gdb, schema = trel.make_tpch_db(scale=2000, seed=3, device=cuda)
+    cdb, _ = trel.make_tpch_db(scale=2000, seed=3, device="cpu")
+    kw = {"freq_dtype": freq_dtype}
+    gsvc = QueryService(gdb, schema, cache_dir=str(tmp_path), **kw)
+    csvc = QueryService(cdb, schema, **kw)
+    backend = "cuda" if freq_dtype == torch.int32 else "cuda_wide"
+    assert gsvc.tuner.backend == backend
+    for sql in SERVE_V1:
+        gsvc.submit(sql)
+    r = gsvc.autotune()
+    assert r["searches"] == r["installed"] > 0 and r["gate_rejects"] == 0
+    assert r["invalidated_executables"] == 3
+    for sql in SERVE_V1:
+        _values_equal(gsvc.submit(sql).values, csvc.submit(sql).values)
+    warm = QueryService(gdb, schema, cache_dir=str(tmp_path), **kw)
+    r2 = warm.autotune()
+    assert r2["searches"] == 0 and r2["invalidated_executables"] == 0
+    assert warm.metrics()["tune_store_hits"] == r["entries"]
+    for sql in SERVE_V1:
+        _values_equal(warm.submit(sql).values, csvc.submit(sql).values)

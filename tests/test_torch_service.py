@@ -5,14 +5,16 @@ package's tables carried into the port with ``db_from_numpy``, on the CPU):
 cold, warm, renamed aliases, ``submit_many`` with cost-banded fusion and
 with ``fusion_disparity=inf``, ``update_table`` within and across a shape
 bucket, eager Ref/Opt requests, a small graph submitted as ``AggQuery``s,
-warm starts from ``cache_dir`` and 64-bit frequencies.  Integer answers and
-MIN/MAX/MEDIAN must be bitwise equal, float SUM/AVG within rtol 1e-6 (the
-packages add in other orders); each request's ``ServeStats`` flags (cache
-levels, fusion membership, bucket, mode), ``explain()`` and every counter
-and gauge of ``metrics()`` must be equal.  The comparison leaves out only
-the JAX package's kernel-tuner counters (``TUNE_KEYS``, no tuner in the
-port yet), and reads ``compile_s_total``, a sum of seconds, as positive
-exactly when both have compiled.  No mesh gauge appears without a mesh.
+warm starts from ``cache_dir``, 64-bit frequencies and the kernel tuner
+(``autotune()`` cold, warm-restarted, repeated, and carried by
+``export_cache``/``import_cache``).  Integer answers and MIN/MAX/MEDIAN
+must be bitwise equal, float SUM/AVG within rtol 1e-6 (the packages add in
+other orders); each request's ``ServeStats`` flags (cache levels, fusion
+membership, bucket, mode), ``explain()``, the ``autotune()`` summaries and
+every counter and gauge of ``metrics()``, the tuner's included, must be
+equal.  The comparison reads ``compile_s_total``, a sum of seconds, as
+positive exactly when both have compiled.  No mesh gauge appears without a
+mesh.
 
 Last, the serving tier's two disciplines, which ``scripts/lint.py`` checks
 only under a path part named ``repro``: no ``perf_counter`` outside
@@ -45,12 +47,6 @@ jax.config.update("jax_platform_name", "cpu")
 
 SERVICE_DIR = Path(__file__).resolve().parents[1] / "src/repro_torch/service"
 FLOAT_RTOL = 1e-6
-TUNE_KEYS = frozenset({
-    "tune_searches", "tune_candidates", "tune_installs", "tune_gate_rejects",
-    "tune_entries", "tune_store_hits", "tune_persist_hits",
-    "tune_persist_misses", "tune_persist_writes",
-    "tune_persist_corrupt_skipped", "tune_persist_write_errors",
-    "tune_persist_entries"})
 STATS_FIELDS = ("fingerprint", "mode", "plan_cache_hit", "exec_cache_hit",
                 "shared_execution", "fused", "fused_group_size", "bucket",
                 "plan_source", "exec_source")
@@ -145,7 +141,7 @@ def _assert_results(tres, jres, ctx=""):
 
 def _assert_metrics(t, j):
     tm, jm = t.metrics(), j.metrics()
-    assert set(tm) == set(jm) - TUNE_KEYS
+    assert set(tm) == set(jm)
     for k in tm:
         if k == "compile_s_total":
             assert (tm[k] > 0) == (jm[k] > 0) == (jm["compiles"] > 0)
@@ -343,6 +339,50 @@ def test_x64_matches_reference(tpch):
         _assert_results(a, b, f"x64[{i}]")
     assert tr[1].values["count(*)"].dtype == torch.int64
     _assert_metrics(t, j)
+
+
+def test_autotune_stream_matches_reference(tmp_path):
+    """The kernel tuner through both services (the port's on CPU tables,
+    backend ``"plain"``; the JAX package's ``"xla"``): equal summaries and
+    counters cold, after a warm restart (``searches == 0``), on a repeat,
+    and after ``export_cache``/``import_cache``.  Winners are timings and
+    are not compared; tuned answers are."""
+    jdb, jschema = jrel.make_tpch_db(scale=20, seed=5)
+    tdb = _carry(jdb)
+    tschema = trel.make_tpch_db(scale=20, seed=5, device="cpu")[1]
+    kernels = ("freq_join", "segment_sum")
+
+    def pair(tag):
+        return (jsvc.QueryService(jdb, jschema,
+                                  cache_dir=str(tmp_path / f"j{tag}")),
+                tsvc.QueryService(tdb, tschema,
+                                  cache_dir=str(tmp_path / f"t{tag}")))
+
+    j, t = pair("")
+    _both(j, t, [MEDIAN, COSTLY_PARTS], ctx="untuned")
+    jr, tr = j.autotune(kernels), t.autotune(kernels)
+    assert tr == jr and tr["searches"] > 0 and tr["gate_rejects"] == 0
+    assert tr["invalidated_executables"] == 2
+    assert t.tuner.backend == "plain"
+    _both(j, t, [MEDIAN, COSTLY_PARTS], ctx="tuned")
+    _assert_metrics(t, j)
+    assert t.autotune(kernels) == j.autotune(kernels)    # a repeat: no-op
+    _assert_metrics(t, j)
+    jw, tw = pair("")
+    jr, tr = jw.autotune(kernels), tw.autotune(kernels)
+    assert tr == jr and tr["searches"] == 0
+    assert tr["invalidated_executables"] == 0
+    assert _assert_metrics(tw, jw)["tune_store_hits"] == tr["entries"]
+    _both(jw, tw, [MEDIAN, COSTLY_PARTS], ctx="warm")
+    assert t.export_cache(tmp_path / "t-export") \
+        == j.export_cache(tmp_path / "j-export")
+    ji, ti = pair("-imported")
+    ti.import_cache(tmp_path / "t-export")
+    ji.import_cache(tmp_path / "j-export")
+    assert dict(ti.tuner.table.entries()) == dict(t.tuner.table.entries())
+    assert ti.autotune(kernels) == ji.autotune(kernels)
+    assert ti.metrics()["tune_searches"] == 0
+    _assert_metrics(ti, ji)
 
 
 # ---------------------------------------------------------------------------
