@@ -110,16 +110,52 @@ device ms); and a second service on the same ``cache_dir`` must search
 nothing, drop no executable and load every entry from the store
 (``tune_warmstart``), with the same answers.
 
+The LM phases drive the port's LM serving path (``repro_torch.models``,
+``ServeEngine``), after one untimed request each.  ``lm_serve``:
+smollm-135m at its full published width (30 layers, d_model 576, 9 heads
+over 3 KV heads, d_ff 1536, vocab 49152), float32 master weights from seed
+0 and bfloat16 compute: the launcher's default traffic (8 requests, 4
+slots, 16-token prompts, 32 new tokens: two waves) and one wave of four
+2048-token prompts (two prefill chunks).  Each wave is timed from outside
+``run_wave`` (tokens/s); its steps then run again one by one through the
+public ``prefill``/``decode_step``, each synchronised, for the per-wave
+prefill ms and the median and p90 decode-step ms; with the decode step's
+bytes bound and peak allocated bytes.  One decode step runs under
+``torch.profiler`` (device ms, idle share, top kernels, and the device ms
+of every cast of the step beside the weight casts' bytes bound).  ``lm_check``: the same weights in float32 compute (TF32 stays off),
+prefill and 4 teacher-forced decode steps on the card within ``LM_TOL`` of
+the same on the CPU, each ``ServeEngine`` wave's tokens equal to
+``greedy_generate`` per prompt and ``greedy_generate``'s first 4 tokens
+equal to a ``forward`` rollout; a difference is allowed only at a step
+whose top two logits lie within ``LM_TOL`` (counted as a near-tie).  No
+kernel of the port runs in a dense model.  ``lm_moe``: Moonlight-16B-A3B
+(moonshot-v1-16b-a3b) at its published widths with the depth cut to 2
+layers (``reduced``), one wave of 4 requests (64-token prompts, 8 new
+tokens), a forward hook on each layer's MoE recording its input.  Serving
+computes no expert load: no kernel of the port lies on the served path,
+and K3's launches there (0) are the ``kernels`` line's
+``lm_serve_launches``.  Then the load accounting, its counts set to 0
+just before it: the router's choices for each recorded MoE call go
+through ``load_stats`` (COUNT(*) GROUP BY expert: a stable sort and K3),
+held bitwise against ``torch.bincount``, against ``load_stats`` on a CPU
+copy (the plain route) and, per K3 call, against ``segment_sum_plain`` on
+the card; K3's launches there are the ``kernels`` line's
+``lm_load_stats_launches``.  ``lm_load_stats`` times K3, ``load_stats``
+through K3 and through the plain version, and ``torch.bincount`` (the
+library call of the function) on the prefill's first layer's routing; a
+second ``lm_profile`` line profiles one of its decode steps.
+
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
 JSON line per query with its times, one per query with
 its device time by kernel from ``torch.profiler``, one per ``baseline`` and
-``fig6`` case, one per ``x64`` call, query and case and one per ``serve``
-and ``tune`` case (each with the card's name and power limit), one JSON line
-``{"kernels_x64": [...]}`` with the
+``fig6`` case, one per ``x64`` call, query and case and one per ``serve``,
+``tune`` and LM case (each with the card's name and power limit), one JSON
+line ``{"kernels_x64": [...]}`` with the
 64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
-library time on the int32 main path, and as its last line
+library time on the int32 main path (K3's also with its LM launches), the
+whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
 """
@@ -676,20 +712,20 @@ def v1_oracle(h, regions=(2, 3), price_threshold=1200.0):
             "median": {"median(bal)": median}}
 
 
-def profile_run(torch, fn, db) -> dict:
-    """Device time by kernel name over one run of ``fn(db)``, from
-    ``torch.profiler``: device-side events only (a CPU op's row repeats the
-    time of the kernels it launched).  The idle share is the part of the
-    profiled run's wall time with no device work recorded, profiler
-    overhead included."""
+def profile_rows(torch, fn, arg):
+    """Profiled wall ms of one run of ``fn(arg)`` (after one unprofiled
+    run), its device time by kernel name from ``torch.profiler``, as
+    (name, ms, launches) largest first: device-side events only (a CPU
+    op's row repeats the time of the kernels it launched), and the
+    profiler's averages by event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn(db)
+    fn(arg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(db)
+        fn(arg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((ev.key, ev.self_device_time_total / 1e3, ev.count)
@@ -697,6 +733,14 @@ def profile_run(torch, fn, db) -> dict:
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0),
                   key=lambda r: -r[1])
+    return wall_ms, rows, prof.key_averages()
+
+
+def profile_run(torch, fn, db) -> dict:
+    """Device time by kernel name over one run of ``fn(db)``
+    (``profile_rows``).  The idle share is the part of the profiled run's
+    wall time with no device work recorded, profiler overhead included."""
+    wall_ms, rows, _ = profile_rows(torch, fn, db)
     busy_ms = sum(r[1] for r in rows)
     return {"profiled_wall_ms": wall_ms, "device_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
@@ -1784,6 +1828,440 @@ def tune_win_line(torch, at, plain, errs, tuner, name, bshape, card):
             "winner_device_ms": ms["winner"], **card}
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+LM_SEED = 0
+# float32 logits, card against CPU, relative to the largest |logit|: each
+# side is about 1.2e-6 off a float64 run of the same weights on the CPU
+# (smollm-135m at full width, 4 × 16 tokens), both with TF32 off
+LM_TOL = 1e-4
+# the launcher's default traffic (repro_torch.launch.serve): two waves
+LM_TRAFFIC = {"n_requests": 8, "n_slots": 4, "prompt_len": 16, "max_new": 32}
+# one long-prompt wave: two prefill chunks of attn_chunk = 1024
+LM_LONG = {"n_requests": 4, "n_slots": 4, "prompt_len": 2048, "max_new": 16}
+LM_CHECK = {"n_requests": 8, "n_slots": 4, "prompt_len": 16, "max_new": 8,
+            "teacher_forced": 4, "rollout": 4}
+# Moonlight-16B-A3B at its published widths, depth cut to fit the run
+LM_MOE = {"n_layers": 2, "n_requests": 4, "n_slots": 4, "prompt_len": 64,
+          "max_new": 8}
+
+
+def lm_prompts(n: int, length: int, vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, length) for _ in range(n)]
+
+
+def lm_n_waves(traffic: dict) -> int:
+    return -(-traffic["n_requests"] // traffic["n_slots"])
+
+
+def lm_step_ms(torch, tm, model, cfg, toks, max_len: int,
+               n_decode: int) -> list:
+    """The steps ``ServeEngine.run_wave`` runs for the slots ``toks``
+    (greedy, no EOS): one prefill, then ``n_decode`` decode steps into a
+    cache of ``max_len``, through the public ``prefill``/``decode_step``,
+    each synchronised and timed on the host, its logits checked finite
+    after the timing.  Returns the ms of each step, the prefill first."""
+    dev = model.final_norm.device
+    cache = tm.init_decode_state(cfg, toks.shape[0], max_len, dev)
+    cur, ms = torch.as_tensor(toks, device=dev), []
+    for i in range(1 + n_decode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            logits, cache = tm.prefill(model, cfg, {"tokens": cur}, cache)
+        else:
+            logits, cache = tm.decode_step(model, cfg, cur, cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()),
+              f"lm {cfg.name} step {i}: non-finite logits")
+        cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    return ms
+
+
+def lm_serve(torch, lms, model, cfg, traffic: dict, seed: int):
+    """Serve ``traffic`` through one ``ServeEngine`` wave by wave, as the
+    launcher does, after one untimed request, each ``run_wave`` timed from
+    outside; every token in range, every slot to its budget.  Returns
+    (the prompts, the first request's ms, the waves)."""
+    t = traffic
+    engine = lms.ServeEngine(model, cfg, n_slots=t["n_slots"],
+                             max_len=t["prompt_len"] + t["max_new"] + 8)
+    prompts = lm_prompts(t["n_requests"], t["prompt_len"], cfg.vocab_size,
+                         seed)
+    # one untimed request first: the first calls of a process set up the
+    # card's libraries (a cold start, timed on its own)
+    t0 = time.perf_counter()
+    lms.greedy_generate(model, cfg, prompts[0][None, :], 2)
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    for p in prompts:
+        engine.submit(p)
+    waves = []
+    for _ in range(lm_n_waves(t)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.run_wave(max_tokens=t["max_new"])
+        wall = time.perf_counter() - t0
+        toks = [tok for v in outs.values() for tok in v]
+        check(all(len(v) == t["max_new"] for v in outs.values())
+              and all(0 <= tok < cfg.vocab_size for tok in toks),
+              f"lm serve {cfg.name}: a slot short of its budget or a "
+              "token out of range")
+        waves.append({"requests": len(outs), "tokens": len(toks),
+                      "wall_ms": wall * 1e3})
+    check(not engine.run_wave(max_tokens=1),
+          f"lm serve {cfg.name}: requests left after the waves")
+    return prompts, warmup_ms, waves
+
+
+def lm_wave_steps(torch, tm, model, cfg, traffic: dict, prompts,
+                  waves) -> None:
+    """Each served wave's steps again, one by one (``lm_step_ms``), for
+    its prefill's time and its per-token decode times."""
+    t, n = traffic, traffic["n_slots"]
+    for w, wave in enumerate(waves):
+        slots = np.zeros((n, t["prompt_len"]), np.int32)
+        for i, p in enumerate(prompts[w * n:(w + 1) * n]):
+            slots[i] = p
+        ms = lm_step_ms(torch, tm, model, cfg, slots,
+                        t["prompt_len"] + t["max_new"] + 8, t["max_new"] - 1)
+        wave.update(prefill_ms=ms[0], decode_ms=ms[1:])
+
+
+def lm_decode_bytes(model, cfg, n_slots: int, max_len: int) -> dict:
+    """Bytes one decode step must move at its dtypes, counted from the
+    model's shapes.  ``cast``: each float32 weight read once by its cast to
+    bfloat16, the copy written and read by its matmul (8 B a weight; the
+    embedding only for the slots' rows, read and cast); ``f32_once``: each
+    weight read once as stored (4 B).  Both add the KV cache, which the
+    step reads at every position (``attention_decode`` masks, it does not
+    slice) and writes at one."""
+    emb = model.embed.embedding
+    n = sum(w.numel() for w in model.parameters()) - emb.numel()
+    rows = n_slots * cfg.d_model * 6
+    kv = 2 * cfg.n_layers * n_slots * cfg.n_kv_heads * cfg.d_head * 2
+    return {"cast": 8 * n + rows + kv * (max_len + 1),
+            "f32_once": 4 * n + rows + kv * (max_len + 1)}
+
+
+def lm_near_tie(torch, tm, model, cfg, prompt, toks, j: int) -> bool:
+    """Whether the step that chose ``toks[j]`` after ``prompt`` had its top
+    two logits within ``LM_TOL`` of the largest |logit| (a float32 forward
+    over the prefix, on the card)."""
+    seq = list(prompt) + list(toks[:j])
+    logits, _ = tm.forward(model, cfg, {"tokens": torch.as_tensor(
+        [seq], dtype=torch.int32, device=model.final_norm.device)})
+    last = logits[0, -1].double()
+    top2 = torch.topk(last, 2).values
+    return float(top2[0] - top2[1]) <= LM_TOL * float(last.abs().max())
+
+
+def lm_same_tokens(torch, tm, model, cfg, prompt, got, want, what) -> int:
+    """1 if ``got`` first differs from ``want`` at a near-tie, 0 if they
+    are equal; any other difference fails."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None and len(got) == len(want):
+        return 0
+    check(j is not None and lm_near_tie(torch, tm, model, cfg, prompt, want,
+                                        j),
+          f"lm check {what}: tokens {got} != {want} (not at a near-tie)")
+    return 1
+
+
+def lm_check_line(torch, tm, lms, model, cfg, dev) -> dict:
+    """The served model's weights in float32 compute: prefill and
+    teacher-forced decode logits on the card against a CPU copy; each
+    ``ServeEngine`` wave's tokens against ``greedy_generate`` per prompt;
+    ``greedy_generate``'s first tokens against a ``forward`` rollout."""
+    import dataclasses
+    c = LM_CHECK
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    host = tm.LM(cfg32, "cpu")
+    host.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(LM_SEED + 1)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (c["n_slots"], c["prompt_len"] + c["teacher_forced"])
+                        ).astype(np.int32)
+    plen, errs, sides = c["prompt_len"], [], [[model, dev], [host, "cpu"]]
+    for side in sides:
+        m, d = side
+        cache = tm.init_decode_state(cfg32, c["n_slots"],
+                                     toks.shape[1], d)
+        out = []
+        logits, cache = tm.prefill(m, cfg32, {"tokens": torch.as_tensor(
+            toks[:, :plen], device=d)}, cache)
+        out.append(logits.cpu().double())
+        for i in range(c["teacher_forced"]):
+            logits, cache = tm.decode_step(m, cfg32, torch.as_tensor(
+                toks[:, plen + i:plen + i + 1], device=d), cache)
+            out.append(logits.cpu().double())
+        side.append(out)
+    for got, want in zip(sides[0][2], sides[1][2]):
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+        check(errs[-1] <= LM_TOL, f"lm check: card against CPU logits "
+              f"{errs[-1]} above {LM_TOL}")
+
+    prompts = lm_prompts(c["n_requests"], plen, cfg.vocab_size, LM_SEED + 2)
+    engine = lms.ServeEngine(model, cfg32, n_slots=c["n_slots"],
+                             max_len=plen + c["max_new"] + 8)
+    for p in prompts:
+        engine.submit(p)
+    served = {}
+    for _ in range(lm_n_waves(c)):
+        served.update(engine.run_wave(max_tokens=c["max_new"]))
+    check(len(served) == len(prompts), "lm check: requests left unserved")
+    serve_ties = 0
+    for rid, p in enumerate(prompts):
+        want = lms.greedy_generate(model, cfg32, p[None, :],
+                                   c["max_new"])[0].tolist()
+        serve_ties += lm_same_tokens(torch, tm, model, cfg32, p, served[rid],
+                                     want, f"serve request {rid}")
+    roll_ties = 0
+    batch = np.stack(prompts[:c["n_slots"]])
+    greedy = lms.greedy_generate(model, cfg32, batch, c["rollout"])
+    for i, p in enumerate(batch):
+        seq, roll = list(p), []
+        for _ in range(c["rollout"]):
+            logits, _ = tm.forward(model, cfg32, {"tokens": torch.as_tensor(
+                [seq], dtype=torch.int32, device=dev)})
+            roll.append(int(torch.argmax(logits[0, -1])))
+            seq.append(roll[-1])
+        roll_ties += lm_same_tokens(torch, tm, model, cfg32, p,
+                                    greedy[i].tolist(), roll,
+                                    f"greedy vs rollout {i}")
+    return {"lm_check": cfg.name, "dtype": "float32", "tol": LM_TOL,
+            "card_vs_cpu_rel_err": {"prefill": errs[0],
+                                    "decode": errs[1:]},
+            "serve_vs_greedy": {"requests": len(prompts),
+                                "tokens": len(prompts) * c["max_new"],
+                                "near_ties": serve_ties},
+            "greedy_vs_rollout": {"requests": len(batch),
+                                  "tokens": len(batch) * c["rollout"],
+                                  "near_ties": roll_ties}}
+
+
+def lm_profile_line(torch, tm, model, cfg, traffic: dict, card,
+                    dev) -> dict:
+    """One decode step after a prefill of ``traffic``'s slots, profiled:
+    device ms, idle share, kernels, the top five kernels, and
+    ``aten::_to_copy``'s device ms (every cast of the step, the float32 →
+    bfloat16 weight casts among them) beside the bytes bound of the weight
+    casts alone (6 B a weight: read float32, write bfloat16)."""
+    t = traffic
+    cache = tm.init_decode_state(cfg, t["n_slots"],
+                                 t["prompt_len"] + t["max_new"] + 8, dev)
+    toks = np.stack(lm_prompts(t["n_slots"], t["prompt_len"],
+                               cfg.vocab_size, LM_SEED))
+    logits, cache = tm.prefill(model, cfg, {"tokens": torch.as_tensor(
+        toks, device=dev)}, cache)
+    cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    wall_ms, rows, avgs = profile_rows(
+        torch, lambda _: tm.decode_step(model, cfg, cur, cache), None)
+    busy = sum(r[1] for r in rows)
+    to_copy = [ev for ev in avgs if ev.key == "aten::_to_copy"]
+    to_copy_ms = sum(ev.device_time_total for ev in to_copy) / 1e3
+    weights = [w for name, w in model.named_parameters()
+               if name != "embed.embedding" and w.dim() > 1]
+    cast_bound = bound_ms(6 * sum(w.numel() for w in weights))
+    return {"lm_profile": "decode_step", "arch": cfg.name,
+            "slots": t["n_slots"], "profiled_wall_ms": wall_ms,
+            "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "kernels": sum(r[2] for r in rows),
+            "to_copy_device_ms": to_copy_ms,
+            "to_copy_calls": sum(ev.count for ev in to_copy),
+            "weight_casts": len(weights),
+            "weight_cast_bound_ms": cast_bound,
+            # below the bound, the profile lost some of the casts' events
+            "to_copy_at_or_above_bound": to_copy_ms >= cast_bound,
+            "top": [[k[:80], ms, c] for k, ms, c in rows[:5]], **card}
+
+
+def lm_serve_lines(torch, card, dev) -> list[dict]:
+    """smollm-135m at its full width, float32 masters and bfloat16 compute:
+    the launcher's traffic, one long-prompt wave, one profiled decode step,
+    then the float32 checks (``lm_check_line``).  No kernel of the port
+    runs here: a dense model's path is plain PyTorch."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_serving as lms
+    cfg = get_config("smollm-135m")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tm.init_params(cfg, seed=LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lines = [{"lm_setup": cfg.name,
+              "params": sum(w.numel() for w in model.parameters()),
+              "param_bytes": sum(w.numel() * w.element_size()
+                                 for w in model.parameters()),
+              "compute_dtype": cfg.dtype, "init_s": init_s, **card}]
+    for name, traffic, seed in (("traffic", LM_TRAFFIC, LM_SEED),
+                                ("long_prompt", LM_LONG, LM_SEED + 3)):
+        prompts, warmup_ms, waves = lm_serve(torch, lms, model, cfg,
+                                             traffic, seed)
+        lm_wave_steps(torch, tm, model, cfg, traffic, prompts, waves)
+        dec = [ms for w in waves for ms in w["decode_ms"]]
+        nbytes = lm_decode_bytes(model, cfg, traffic["n_slots"],
+                                 traffic["prompt_len"] + traffic["max_new"]
+                                 + 8)
+        lines.append({
+            "lm_serve": name, "arch": cfg.name,
+            "traffic": traffic, "warmup_ms": warmup_ms,
+            "waves": [{k: w[k] for k in ("requests", "tokens", "prefill_ms",
+                                         "wall_ms")} for w in waves],
+            "decode_steps": len(dec),
+            "decode_ms_median": statistics.median(dec),
+            "decode_ms_p90": float(np.percentile(dec, 90)),
+            "tokens_per_s": sum(w["tokens"] for w in waves)
+            / (sum(w["wall_ms"] for w in waves) / 1e3),
+            "decode_bytes": nbytes["cast"],
+            "decode_bound_ms": bound_ms(nbytes["cast"]),
+            "decode_bytes_f32_once": nbytes["f32_once"],
+            "decode_bound_f32_once_ms": bound_ms(nbytes["f32_once"]),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            **card})
+
+    lines.append(lm_profile_line(torch, tm, model, cfg, LM_TRAFFIC, card,
+                                 dev))
+    lines.append({**lm_check_line(torch, tm, lms, model, cfg, dev), **card})
+    del model
+    torch.cuda.empty_cache()
+    return lines
+
+
+def lm_moe_lines(torch, ss, kernels, card, dev):
+    """moonshot-v1-16b-a3b at its published widths, depth cut: one wave of
+    4 requests through ``ServeEngine``, a forward hook on each layer's MoE
+    recording its input.  Serving computes no expert load and launches no
+    kernel of the port; its K3 launches are counted all the same.  Then
+    the load accounting over the recorded routing: ``load_stats`` (K3 on
+    the card) on the router's choices of every MoE call of the wave, each
+    held bitwise against ``torch.bincount``, against ``load_stats`` on a
+    CPU copy (the plain route) and, per K3 call, against
+    ``segment_sum_plain`` on the card.  Returns (lines, K3's launches in
+    the served wave, K3's launches in the accounting), each counted from 0
+    just before its run."""
+    import dataclasses
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_serving as lms
+    from repro_torch.models import moe
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, n_layers=LM_MOE["n_layers"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tm.init_params(cfg, seed=LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    seen = []
+    hooks = [lp.mlp.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[1], out[1])))
+        for lp in model.layers]
+    traffic = {k: LM_MOE[k] for k in ("n_requests", "n_slots", "prompt_len",
+                                      "max_new")}
+    ss.K3.reset_counts()
+    try:
+        prompts, warmup_ms, waves = lm_serve(torch, lms, model, cfg, traffic,
+                                             LM_SEED + 4)
+    finally:
+        for h in hooks:
+            h.remove()
+    serve_launches = ss.K3.launches
+    # lm_serve's untimed request first: a prefill and one decode step
+    check(len(seen) == cfg.n_layers * (2 + traffic["max_new"]),
+          f"lm moe: {len(seen)} MoE calls")
+    seen = seen[2 * cfg.n_layers:]
+    lm_wave_steps(torch, tm, model, cfg, traffic, prompts, waves)
+    calls, idxs = [], []
+
+    def keep(name, wrapper, args, **kw):
+        out = wrapper(*args, **kw)
+        calls.append((args, out))
+        return out
+
+    ss.K3.reset_counts()
+    with routed({"segment_sum": kernels["segment_sum"]}, keep):
+        for p, x, _ in seen:
+            idx = moe.route(p, cfg, x.reshape(-1, cfg.d_model),
+                            cfg.compute_dtype)[3]
+            loads = moe.load_stats(idx, cfg.n_experts)
+            want = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+            check(torch.equal(loads, want.to(torch.int32)),
+                  "lm moe: load_stats != bincount")
+            check(torch.equal(loads.cpu(), moe.load_stats(
+                idx.cpu(), cfg.n_experts)), "lm moe: load_stats on the card "
+                "!= the plain route on the CPU")
+            idxs.append(idx)
+    launches = ss.K3.launches
+    check(launches == len(seen), f"lm moe: K3 launched {launches} times "
+          f"for {len(seen)} load_stats calls")
+    errs = []
+    for i, (args, out) in enumerate(calls):
+        hold_segsum(torch, ss.segment_sum_plain, errs, f"lm K3 call {i}",
+                    out, *args, exact=True)
+    first = seen[0][2]
+    loads = moe.load_stats(idxs[0], cfg.n_experts).double()
+    nbytes = lm_decode_bytes(model, cfg, traffic["n_slots"],
+                             traffic["prompt_len"] + traffic["max_new"] + 8)
+    dec = [ms for w in waves for ms in w["decode_ms"]]
+    lines = [{"lm_moe": cfg.name, "reduced": {"n_layers": [full.n_layers,
+                                                           cfg.n_layers]},
+              "params": sum(w.numel() for w in model.parameters()),
+              "param_bytes": sum(w.numel() * w.element_size()
+                                 for w in model.parameters()),
+              "init_s": init_s, "traffic": traffic,
+              "warmup_ms": warmup_ms,
+              "prefill_ms": [w["prefill_ms"] for w in waves],
+              "decode_ms_median": statistics.median(dec),
+              "decode_ms_p90": float(np.percentile(dec, 90)),
+              "tokens_per_s": sum(w["tokens"] for w in waves)
+              / (sum(w["wall_ms"] for w in waves) / 1e3),
+              "decode_bound_ms": bound_ms(nbytes["cast"]),
+              "decode_bound_f32_once_ms": bound_ms(nbytes["f32_once"]),
+              "first_prefill_layer": {
+                  "assignments": int(idxs[0].numel()),
+                  "capacity": moe._capacity(cfg, seen[0][1].shape[0]
+                                            * seen[0][1].shape[1]),
+                  "dropped_frac": float(first["dropped_frac"]),
+                  "load_min": float(loads.min()),
+                  "load_max": float(loads.max()),
+                  "load_mean": float(loads.mean()),
+                  "load_std": float(loads.std()),
+                  "experts_unused": int((loads == 0).sum())},
+              "moe_calls": len(seen), "serve_k3_launches": serve_launches,
+              "load_stats_k3_launches": launches,
+              "k3_calls_held": len(calls), "max_abs_err": max(errs),
+              **card}]
+    # the prefill's first layer: K3 alone, load_stats through K3 and
+    # through the plain version, and torch.bincount, on the same routing
+    idx = idxs[0]
+    keys, vals = calls[0][0]
+    with routed({"segment_sum": kernels["segment_sum"]},
+                lambda name, w, args, **kw: ss.segment_sum_plain(*args)):
+        plain_ms = time_ms(torch, lambda: moe.load_stats(idx, cfg.n_experts))
+    lines.append({
+        "lm_load_stats": cfg.name, "rows": int(keys.shape[0]),
+        "experts": cfg.n_experts,
+        "k3_ms": time_ms(torch, lambda: ss.segment_sum_cuda(keys, vals)),
+        "k3_device_ms": time_ms(torch, lambda: ss.segment_sum_cuda(keys, vals),
+                                queued=True),
+        "k3_bound_ms": bound_ms(segsum_bytes(keys.shape[0])),
+        "load_stats_ms": time_ms(torch,
+                                 lambda: moe.load_stats(idx, cfg.n_experts)),
+        "load_stats_plain_ms": plain_ms,
+        "bincount_ms": time_ms(torch, lambda: torch.bincount(
+            idx.reshape(-1), minlength=cfg.n_experts)),
+        **card})
+    lines.append(lm_profile_line(torch, tm, model, cfg, traffic, card, dev))
+    del model, seen, calls
+    torch.cuda.empty_cache()
+    return lines, serve_launches, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1800,6 +2278,7 @@ def main() -> int:
     from repro_torch.kernels import segment_sum as ss
     from repro_torch.kernels import semi_join as sj
 
+    t_start = time.perf_counter()
     dev = "cuda"
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -2001,6 +2480,27 @@ def main() -> int:
     log("tune: no gate reject, every tuned answer equal to the oracle and "
         "every kernel call of the phase equal to its plain version")
 
+    # -- the LM serving path, each phase counted on its own ---------------
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    for line in lm_serve_lines(torch, card, dev):
+        log(json.dumps(line))
+    dense = {name: k.launches for name, (_, _, k) in kernels.items()}
+    lm_lines, moe_serve, lm_accounting = lm_moe_lines(torch, ss, kernels,
+                                                      card, dev)
+    for line in lm_lines:
+        log(json.dumps(line))
+    check(lm_accounting > 0,
+          "the LM load accounting launched segment_sum no time")
+    lm_serve_k3 = dense["segment_sum"] + moe_serve
+    log(f"lm: smollm-135m served at full width, its float32 checks held; "
+        f"the served waves launched no kernel of the port by design (dense "
+        f"{dense}, the MoE wave's segment_sum {moe_serve}); load_stats over "
+        f"the MoE wave's recorded routing launched segment_sum "
+        f"{lm_accounting} times, each equal to bincount and the plain "
+        f"version, in {time.perf_counter() - t0:.1f} s")
+
     rows = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -2014,6 +2514,9 @@ def main() -> int:
                      "bound_by": "bytes",
                      "library_ms": timing[name]["library_ms"],
                      "calls_timed": calls_timed[name]})
+        if name == "segment_sum":
+            rows[-1].update(lm_serve_launches=lm_serve_k3,
+                            lm_load_stats_launches=lm_accounting)
     rows64 = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -2029,6 +2532,8 @@ def main() -> int:
                        "library_ms": timing64[name]["library_ms"],
                        "calls_timed": calls64[name]})
     log(json.dumps({"kernels_x64": rows64, **card}))
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,164 @@
+"""Attention: GQA + RoPE + optional qk-norm / sliding-window / local:global.
+
+The port of the JAX package's ``models/attention.py``, with its three
+execution paths kept apart because their numerics differ:
+
+  * train   — dense masked attention; the scores are divided by sqrt(d_head)
+              in the compute dtype (``forward`` runs it)
+  * prefill — chunked online softmax over KV blocks of ``attn_chunk``; the
+              scores are scaled by 1/sqrt(d_head) in float32
+  * decode  — one new token against the whole ``[B, Smax]`` KV cache under
+              the ``kp <= pos`` ∧ window mask; divided by sqrt(d_head) in
+              float32
+
+Plain ``torch.einsum`` and ``softmax``, as the reference is plain ``jnp``
+(no Pallas kernel): ``scaled_dot_product_attention`` computes in another
+order and would hide what the reference computes.  GQA computes grouped
+einsums; ``n_kv_heads == 1`` (gemma3) is MQA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, param, rms_norm, rope
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """Projections in the fused head layout ``[d, h·hd]``, as the
+    reference stores them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = param(d, h * hd, device=device)
+        self.wk = param(d, kv * hd, device=device)
+        self.wv = param(d, kv * hd, device=device)
+        self.wo = param(h * hd, d, device=device)
+        self.q_norm = param(hd, device=device) if cfg.qk_norm else None
+        self.k_norm = param(hd, device=device) if cfg.qk_norm else None
+
+
+def window_of(cfg: ModelConfig) -> int | None:
+    """gemma3's local window where layers alternate, else the SWA width."""
+    return cfg.local_window if cfg.local_global_ratio else cfg.sliding_window
+
+
+def _qkv(p: Attention, cfg: ModelConfig, x, pos, dtype):
+    """Project + (qk-norm) + rope.  q [B,S,KV,G,hd], k and v [B,S,KV,hd]."""
+    b, s = x.shape[:2]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (x @ p.wq.to(dtype)).reshape(b, s, h, hd)
+    k = (x @ p.wk.to(dtype)).reshape(b, s, kv, hd)
+    v = (x @ p.wv.to(dtype)).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    sin, cos = rope(pos, hd, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    return q.reshape(b, s, kv, h // kv, hd), k, v
+
+
+def _mask(q_pos, k_pos, window, is_global: bool):
+    """[Sq, Sk] bool: causal ∧ (global ∨ within window)."""
+    causal = q_pos[:, None] >= k_pos[None, :]
+    if window is None or is_global:
+        return causal
+    return causal & ((q_pos[:, None] - k_pos[None, :]) < window)
+
+
+def _sqrt_hd(hd: int) -> torch.Tensor:
+    """sqrt(d_head) as the reference's float32 scalar (a CPU 0-dim tensor,
+    which an op on the card takes as a scalar, with no copy)."""
+    return torch.tensor(math.sqrt(hd), dtype=torch.float32)
+
+
+def attention_train(p: Attention, cfg: ModelConfig, x, pos, is_global: bool,
+                    dtype):
+    """Dense masked attention (``forward``'s path)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, pos, dtype)
+    mask = _mask(pos[0], pos[0], window_of(cfg), is_global)
+    scores = torch.einsum("bqhgk,bshk->bhgqs", q, k) \
+        / _sqrt_hd(cfg.d_head).to(dtype)
+    scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
+    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo.to(dtype)
+
+
+def attention_prefill(p: Attention, cfg: ModelConfig, x, pos,
+                      is_global: bool, dtype):
+    """Chunked online-softmax attention (inference prefill).  Returns
+    ``(out, k, v)``: the prefix's keys and values feed the cache, where the
+    reference projects them a second time with the same bits."""
+    b, s, _ = x.shape
+    hd = cfg.d_head
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk:
+        raise ValueError(f"prefill length {s} is not a multiple of the "
+                         f"attention chunk {chunk}")
+    q, k, v = _qkv(p, cfg, x, pos, dtype)
+    kvh, g = q.shape[2], q.shape[3]
+    window = window_of(cfg)
+    qp = pos[0]
+    scale = 1.0 / _sqrt_hd(hd)
+    f32 = torch.float32
+    m = torch.full((b, kvh, g, s), NEG_INF, dtype=f32, device=x.device)
+    l = torch.zeros((b, kvh, g, s), dtype=f32, device=x.device)
+    acc = torch.zeros((b, kvh, g, s, hd), dtype=f32, device=x.device)
+    for idx in range(s // chunk):
+        kc = k[:, idx * chunk:(idx + 1) * chunk]
+        vc = v[:, idx * chunk:(idx + 1) * chunk]
+        kp = qp[0] + idx * chunk + torch.arange(chunk, device=x.device)
+        msk = _mask(qp, kp, window, is_global)
+        sc = torch.einsum("bqhgk,bshk->bhgqs", q, kc).to(f32) * scale
+        sc = torch.where(msk, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(sc - m_new[..., None])
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqs,bshk->bhgqk", pexp.to(dtype), vc).to(f32)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+    out = torch.movedim(out, 3, 1).reshape(b, s, cfg.n_heads * hd)
+    return out @ p.wo.to(dtype), k, v
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
+                     pos: int, is_global: bool, dtype):
+    """One new token per row against the KV cache.
+
+    x: [B, 1, D]; cache_k/v: [B, Smax, KV, hd], written IN PLACE at the
+    host position ``pos`` (the reference returns updated copies).  Returns
+    out [B, 1, D]."""
+    b = x.shape[0]
+    hd = cfg.d_head
+    smax = cache_k.shape[1]
+    if not 0 <= pos < smax:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{smax} positions")
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, cfg, x, posv, dtype)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    kp = torch.arange(smax, device=x.device)
+    valid = kp <= pos
+    window = window_of(cfg)
+    if window is not None and not is_global:
+        valid = valid & ((pos - kp) < window)
+    sc = torch.einsum("bqhgk,bshk->bhgqs", q,
+                      cache_k.to(dtype)).to(torch.float32)
+    sc = sc / _sqrt_hd(hd)
+    sc = torch.where(valid, sc, NEG_INF)
+    probs = torch.softmax(sc, dim=-1).to(dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, cache_v.to(dtype))
+    return out.reshape(b, 1, cfg.n_heads * hd) @ p.wo.to(dtype)

@@ -1,0 +1,105 @@
+"""Shared neural layers: init helper, RMSNorm, RoPE, SwiGLU, embeddings.
+
+The port of the JAX package's ``models/layers.py``.  Weights live in
+``nn.Module``s whose attribute names are the keys of the JAX package's
+parameter tree (``models.convert`` carries a tree across by those names);
+the functions take the module and compute op for op as the reference does.
+Weights are float32 masters, cast to the compute dtype at each use, as the
+reference casts them.  The reference's ``shard`` annotations are no-ops on
+one device and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(*shape: int, device) -> nn.Parameter:
+    """An uninitialised float32 weight (``init_params`` or
+    ``from_reference_params`` fills it).  No autograd in this slice."""
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
+               device=None) -> torch.Tensor:
+    """A seeded standard normal in float32 times ``1/sqrt(fan_in)``."""
+    fan_in = shape[in_axis]
+    out = torch.randn(shape, generator=gen, dtype=torch.float32,
+                      device=device)
+    return out * (1.0 / math.sqrt(fan_in))
+
+
+def rms_norm(x, weight, eps: float):
+    """In float32, the weight applied as ``1 + w``, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.to(torch.float32))).to(dt)
+
+
+def rope(pos, d_head: int, theta: float):
+    """Rotary tables: (sin, cos), each of shape pos.shape + [d_head/2]."""
+    half = d_head // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=pos.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = pos.to(torch.float32)[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x, sin, cos):
+    """x: [..., n_heads, d_head]; sin/cos broadcastable to [..., d_head/2].
+    The two halves rotate together (not interleaved pairs)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, device=None):
+        super().__init__()
+        self.wi = param(d_model, d_ff, device=device)
+        self.wg = param(d_model, d_ff, device=device)
+        self.wo = param(d_ff, d_model, device=device)
+
+
+def mlp_apply(p: MLP, x, dtype):
+    h = x @ p.wi.to(dtype)
+    g = x @ p.wg.to(dtype)
+    return (F.silu(g) * h) @ p.wo.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding / unembedding
+# --------------------------------------------------------------------------
+class Embed(nn.Module):
+    def __init__(self, vocab: int, d_model: int, tie: bool, device=None):
+        super().__init__()
+        self.embedding = param(vocab, d_model, device=device)
+        self.unembed = None if tie else param(d_model, vocab, device=device)
+
+
+def embed_apply(p: Embed, tokens, dtype):
+    """The rows are gathered before the cast, which the reference does after
+    (``take`` of the cast table): the cast is elementwise, so the bits are
+    the same, and only the gathered rows are cast."""
+    return p.embedding[tokens].to(dtype)
+
+
+def unembed_apply(p: Embed, x, dtype, softcap: float = 0.0):
+    """Logits in the compute dtype; the embedding's transpose when tied."""
+    w = p.unembed if p.unembed is not None else p.embedding.T
+    logits = x @ w.to(dtype)
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits

@@ -1,0 +1,126 @@
+"""Mixture-of-Experts layer: top-k router, capacity-bounded scatter
+dispatch, per-expert SwiGLU, optional shared experts (Moonlight-style).
+
+The port of the JAX package's ``models/moe.py``, op for op: a float32
+softmax router, top-k with the gate renormalised, first-come-first-served
+positions within each expert from a stable sort, a linear-index scatter
+into an ``[e·(cap+1), d]`` buffer whose row ``cap`` of each expert is the
+trash row of dropped tokens, the experts as batched einsums, a gather +
+gate-weighted combine, the shared expert, and the aux values
+``load_balance``, ``router_z`` and ``dropped_frac``.
+
+``load_stats`` is expert load as ``SELECT expert, COUNT(*) GROUP BY
+expert`` through the query engine's ``group_by_sum``: on the card it
+launches the segmented-sum kernel K3.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MLP, mlp_apply, param
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = param(d, e, device=device)
+        self.wi = param(e, d, f, device=device)
+        self.wg = param(e, d, f, device=device)
+        self.wo = param(e, f, d, device=device)
+        self.shared = (MLP(d, f * cfg.n_shared_experts, device)
+                       if cfg.n_shared_experts else None)
+
+    def forward(self, cfg: ModelConfig, x, dtype):
+        """``moe_apply`` as a module call, so that forward hooks see each
+        layer's input."""
+        return moe_apply(self, cfg, x, dtype)
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    c = int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
+    return max(8, (c + 7) // 8 * 8)
+
+
+def route(p: MoE, cfg: ModelConfig, xt, dtype):
+    """Router over tokens ``xt`` [t, d]: float32 ``(logits, probs)`` [t, e]
+    and the renormalised ``(gate, expert_idx)`` [t, k].  Ties go to the
+    lower expert index, as ``jax.lax.top_k`` breaks them: a stable
+    descending sort keeps equal probabilities in index order, where
+    ``torch.topk`` promises no order."""
+    logits = (xt @ p.router.to(dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate = top.values[:, :cfg.top_k]
+    expert_idx = top.indices[:, :cfg.top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, gate, expert_idx
+
+
+def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
+    """x: [B, S, D] → ([B, S, D], aux dict of float32 scalars)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(cfg, t)
+    xt = x.reshape(t, d)
+    logits, probs, gate, expert_idx = route(p, cfg, xt, dtype)
+
+    # position of each (token, choice) within its expert: a stable sort by
+    # expert gives first-come-first-served positions; over capacity drops
+    n_assign = t * k
+    flat_e = expert_idx.reshape(n_assign)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(e, device=x.device))
+    pos_sorted = torch.arange(n_assign, device=x.device) - seg_start[sorted_e]
+    pos = torch.zeros(n_assign, dtype=torch.int32, device=x.device)
+    pos[order] = pos_sorted.to(torch.int32)
+    keep = pos < cap
+
+    # scatter into the buffer by linear row index; row cap is the trash
+    flat_pos = torch.where(keep, pos, cap)
+    lin = flat_e * (cap + 1) + flat_pos
+    buf = torch.zeros((e * (cap + 1), d), dtype=dtype, device=x.device)
+    buf[lin] = torch.repeat_interleave(xt, k, dim=0).to(dtype)
+    buf = buf.reshape(e, cap + 1, d)[:, :cap]
+
+    # batched per-expert SwiGLU
+    h = torch.einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
+    g = torch.einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
+    out_buf = torch.einsum("ecf,efd->ecd", F.silu(g) * h, p.wo.to(dtype))
+    out_buf = out_buf.reshape(e * cap, d)
+
+    # combine: gather each (token, choice) result, weight by gate
+    lin_out = flat_e * cap + torch.clamp(flat_pos, max=cap - 1)
+    w = (gate.reshape(n_assign) * keep).to(dtype)
+    out = (out_buf[lin_out] * w[:, None]).reshape(t, k, d).sum(dim=1)
+
+    if p.shared is not None:
+        out = out + mlp_apply(p.shared, xt, dtype)
+
+    # aux losses (Switch-style load balance + router z-loss)
+    density = torch.bincount(flat_e, minlength=e).to(torch.float32) / t
+    aux = {
+        "load_balance": e * torch.sum(density * probs.mean(dim=0)),
+        "router_z": torch.mean(torch.square(torch.logsumexp(logits, -1))),
+        "dropped_frac": 1.0 - keep.to(torch.float32).mean(),
+    }
+    return out.reshape(b, s, d), aux
+
+
+def load_stats(expert_idx, n_experts: int):
+    """Expert load = ``SELECT expert, COUNT(*) GROUP BY expert`` over the
+    (token → expert) assignment relation, through the query engine's
+    stable sort and segmented sum (K3 on the card): int32 ``[n_experts]``."""
+    flat = expert_idx.reshape(-1).to(torch.int32)
+    keys, sums, valid = kops.group_by_sum(flat, torch.ones_like(flat))
+    loads = torch.zeros(n_experts + 1, dtype=torch.int32, device=flat.device)
+    loads.index_add_(0, torch.where(valid, keys, n_experts).long(),
+                     torch.where(valid, sums, 0))
+    return loads[:n_experts]

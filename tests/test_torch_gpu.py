@@ -11,9 +11,12 @@ every instance: int32 keys with int32/float32 frequencies (the narrow
 layouts) and int32 or int64 keys with int64/float64 frequencies (the wide
 ones, the JAX package's x64 setting).  The slice's queries on the GPU are
 held against the same queries on the CPU, the materialising Ref/Opt joins
-and 64-bit frequencies included.
+and 64-bit frequencies included.  The LM slice: SmolLM-135M at its full
+width in float32 on the card against the same weights on the CPU, and MoE
+expert load (``load_stats``) through K3 against ``bincount``.
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -22,6 +25,8 @@ import torch
 
 import repro_torch.core as tcore
 import repro_torch.data.relational as trel
+import repro_torch.models as tm
+from repro_torch.configs import get_config
 from repro_torch.kernels import freq_join as tfj
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import segment_sum as tss
@@ -29,6 +34,7 @@ from repro_torch.kernels import semi_join as tsj
 from repro_torch.core.executor import ExecStats
 from repro_torch.core.plan import MaterializeJoinOp
 from repro_torch.kernels._build import KernelLaunchError
+from repro_torch.models.moe import load_stats
 from repro_torch.tables.table import (
     ColumnMeta,
     RelSchema,
@@ -934,3 +940,44 @@ def test_service_autotune_on_gpu(cuda, tmp_path, freq_dtype):
     assert warm.metrics()["tune_store_hits"] == r["entries"]
     for sql in SERVE_V1:
         _values_equal(warm.submit(sql).values, csvc.submit(sql).values)
+
+
+# float32 logits of the full-width model, card against CPU: each side is
+# about 1.2e-6 of the largest logit off a float64 run of the same weights
+# (on the CPU), both matmuls in full float32 (TF32 off, PyTorch's default)
+LM_F32_TOL = 1e-4
+
+
+def test_lm_smollm_full_width_matches_the_cpu(cuda):
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    model = tm.init_params(cfg, seed=0, device=cuda)
+    host = tm.LM(cfg, "cpu")
+    host.load_state_dict(model.state_dict())
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    sides = [[model, cuda, None], [host, "cpu", None]]
+    for step in range(4):
+        out = []
+        for side in sides:
+            m, dev, cache = side
+            if step == 0:
+                cache = tm.init_decode_state(cfg, 2, 68, dev)
+                batch = {"tokens": torch.as_tensor(toks, device=dev)}
+                logits, side[2] = tm.prefill(m, cfg, batch, cache)
+            else:
+                tok = torch.as_tensor(toks[:, step:step + 1], device=dev)
+                logits, side[2] = tm.decode_step(m, cfg, tok, cache)
+            out.append(logits.cpu().double())
+        err = (out[0] - out[1]).abs().max() / out[1].abs().max()
+        assert float(err) <= LM_F32_TOL, step
+
+
+def test_lm_load_stats_launches_k3(cuda):
+    idx = np.random.default_rng(1).integers(0, 63, (256, 6))
+    tss.K3.reset_counts()
+    got = load_stats(torch.as_tensor(idx, device=cuda), 64)
+    torch.cuda.synchronize()
+    assert tss.K3.launches == 1
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(),
+                          np.bincount(idx.ravel(), minlength=64))
