@@ -110,6 +110,29 @@ device ms); and a second service on the same ``cache_dir`` must search
 nothing, drop no executable and load every entry from the store
 (``tune_warmstart``), with the same answers.
 
+The ``mesh`` phase drives the mesh ring sweep
+(``repro_torch.core.distributed``) on a NCCL process group of world size 1
+(its rendezvous a ``FileStore`` in a temporary directory; the group is
+destroyed before the last line) and a ``"cuda"`` ``DeviceMesh`` of shape
+(1,) named ("data",): V.1 at the same scale through
+``DistributedExecutor.compile`` with presort off and on and the dense
+domain off and on (minmax and count under 0MA with K1 in the ring, median
+under Opt⁺ with K2 in the ring), and ``compile_multi`` of the three
+queries, the kernels' counts set to 0 just before those runs and read just
+after.  Every answer must equal the local ``Executor``'s over the same
+padded capacities bitwise and the numpy oracle's; every K1/K2 call of the
+counted runs is held against its plain version.  Each (variant, query)
+prints its compiled mesh ms beside the local run's; with presort and the
+dense domain off also the root state's all-gather alone and a
+``torch.profiler`` run of each side.  ``mesh_steps``: for each distinct
+K1/K2 ring call with an 8M-row side (``ps⋉p``, ``s⋉ps``, ``ps⋉s``), one
+rank's ring steps over P = 2, 4 and 8 child blocks, each the ring's own
+step function (the kernel with a unit parent frequency, or the presort
+step), folded as the ring folds them: the result bitwise the one-call
+kernel's, the steps' summed device ms beside the one call's and its
+bytes bound.  One card holds one NCCL rank, so no multi-rank ring runs
+here.
+
 The LM phases drive the port's LM serving path (``repro_torch.models``,
 ``ServeEngine``), after one untimed request each.  ``lm_serve``:
 smollm-135m at its full published width (30 layers, d_model 576, 9 heads
@@ -154,7 +177,8 @@ its device time by kernel from ``torch.profiler``, one per ``baseline`` and
 line ``{"kernels_x64": [...]}`` with the
 64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
-library time on the int32 main path (K3's also with its LM launches), the
+library time on the int32 main path and its launches in the ``mesh`` phase
+(``mesh_launches``; K3's also with its LM launches), the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
@@ -2262,6 +2286,234 @@ def lm_moe_lines(torch, ss, kernels, card, dev):
     return lines, serve_launches, launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh ring sweep (repro_torch.core.distributed) at world size 1
+# ---------------------------------------------------------------------------
+# (presort, dense_domain) of each DistributedExecutor the mesh phase runs
+MESH_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
+MESH_REPS = 5
+MESH_STEP_SIZES = (2, 4, 8)
+MESH_STEP_ROWS = 1 << 23     # the 8M-row edges' padded side
+
+
+@contextlib.contextmanager
+def nccl_world(torch):
+    """A NCCL process group of world size 1 on card 0, its rendezvous a
+    ``FileStore`` in a temporary directory; destroyed on the way out."""
+    import tempfile
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1)
+        try:
+            yield dist
+        finally:
+            dist.destroy_process_group()
+
+
+def wall_ms(torch, fn, arg, reps: int = MESH_REPS) -> list[float]:
+    """Host-clock ms of ``reps`` calls of ``fn(arg)``, each synchronised."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def mesh_lines(torch, kernels, plain, errs, db, schema, plans, oracle, card,
+               dev):
+    """The ``mesh`` phase: V.1 through ``DistributedExecutor.compile`` on a
+    ``"cuda"`` DeviceMesh of shape (1,) named ("data",) over NCCL, with
+    presort off and on and the dense domain off and on, and
+    ``compile_multi`` of the three queries; the kernels' counts set to 0
+    just before those runs and read just after.  Each answer must equal
+    the local Executor's over the same padded capacities bitwise and the
+    numpy oracle's; every K1/K2 call of the counted runs is recorded and
+    held against its plain version.  Then each (variant, query) is timed
+    against the local compiled run; with presort and the dense domain off,
+    also the root state's all-gather alone, and one run of each side under
+    ``torch.profiler`` (device ms, idle share, top kernels).
+    Returns (lines, launches, the recorded K1/K2 calls)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core import Executor
+    from repro_torch.core.distributed import DistributedExecutor
+
+    check(plans["minmax"].mode == plans["count"].mode == "oma"
+          and plans["median"].mode == "opt_plus",
+          f"V.1's plans: {[p.mode for p in plans.values()]}")
+    mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+    dexes = {v: DistributedExecutor(schema, mesh, presort=v[0],
+                                    dense_domain=v[1])
+             for v in MESH_VARIANTS}
+    dex0 = dexes[(False, False)]
+    t0 = time.perf_counter()
+    sharded = dex0.shard_db(db)
+    torch.cuda.synchronize()
+    setup = {"mesh_setup": {
+        "topology": dex0.topology(), "device": str(dex0.device),
+        "capacities": {r: t.capacity for r, t in sharded.items()},
+        "shard_db_s": time.perf_counter() - t0, **card}}
+    local_db = {r: t.pad_to(dex0.shard_capacity(t.capacity))
+                for r, t in db.items()}
+    seen = []
+
+    def keep(name, wrapper, args, **kw):
+        out = wrapper(*args, **kw)
+        seen.append((name, args, out))
+        return out
+
+    fns = {(v, q): dex.compile(plans[q]) for v, dex in dexes.items()
+           for q in QUERIES}
+    fused_fn = dex0.compile_multi([plans[q] for q in QUERIES])
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    torch.cuda.synchronize()
+    with routed(kernels, keep):
+        got = {key: fn(sharded) for key, fn in fns.items()}
+        fused = fused_fn(sharded)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, (_, _, k) in kernels.items()}
+    for name in ("semi_join", "freq_join"):
+        check(launches[name] > 0, f"the mesh phase launched {name} no time")
+    check(launches["segment_sum"] == 0, "the ring launched segment_sum "
+          f"{launches['segment_sum']} times; pre-grouping is off the ring")
+    held = hold_calls(torch, plain, errs, "mesh", seen, dev)
+    for name, n in launches.items():
+        check(held.get(name, 0) == n,
+              f"mesh: {name} launched {n} times, {held.get(name, 0)} held")
+
+    local_fns = {(dense, q): Executor(local_db, schema,
+                                      dense_domain=dense).compile(plans[q])
+                 for dense in (False, True) for q in QUERIES}
+    lines = [setup]
+    for (v, q), res in got.items():
+        presort, dense = v
+        want = local_fns[(dense, q)](local_db)
+        diff = answers_diff(torch, res, want)
+        check(diff is None, f"mesh {q} presort={presort} dense={dense} "
+              f"against the local Executor: {diff}")
+        check(answers_equal(res, oracle[q]),
+              f"mesh {q} presort={presort} dense={dense}: {res} != "
+              f"{oracle[q]}")
+        line = {"mesh": q, "mode": plans[q].mode, "presort": presort,
+                "dense_domain": dense,
+                "answer": {k: t.item() for k, t in res.items()},
+                "mesh_ms": wall_ms(torch, fns[(v, q)], sharded),
+                "local_ms": wall_ms(torch, local_fns[(dense, q)], local_db)}
+        line["mesh_median_ms"] = statistics.median(line["mesh_ms"])
+        line["local_median_ms"] = statistics.median(line["local_ms"])
+        if v == (False, False):
+            plan = plans[q]
+            st = dex0._trace_plan(sharded, plan, {}, {},
+                                  root=dex0._agg_state_node(plan))
+            parts = [c for k, c in st.cols.items()
+                     if k in dex0._agg_cols(plan)] + [st.freq]
+            line["gather_ms"] = time_ms(
+                torch, lambda: [dex0._gather(t) for t in parts])
+            line["gather_bytes"] = sum(t.numel() * t.element_size()
+                                       for t in parts)
+            line["mesh_profile"] = profile_run(torch, fns[(v, q)], sharded)
+            line["local_profile"] = profile_run(torch, local_fns[(dense, q)],
+                                                local_db)
+        lines.append({**line, **card})
+    for q, res in zip(QUERIES, fused):
+        diff = answers_diff(torch, res, got[((False, False), q)])
+        check(diff is None, f"mesh compile_multi {q} against solo: {diff}")
+    lines.append({"mesh_fused": list(QUERIES),
+                  "mesh_ms": wall_ms(torch, fused_fn, sharded), **card})
+    lines.append({"mesh_launches": launches, "held": held, **card})
+    kept = [(name, args) for name, args, _ in seen]
+    del sharded, local_db, got, fused, seen
+    torch.cuda.empty_cache()
+    return lines, launches, kept
+
+
+def mesh_step_lines(torch, kern, plain, errs, ring_calls, card):
+    """The ``mesh_steps`` phase: one rank's ring steps over P = 2, 4 and 8
+    child blocks, on the card, for each distinct K1/K2 call of the mesh
+    phase with an 8M-row side (``ps⋉p``, ``s⋉ps``, ``ps⋉s``; a ring step's
+    parent frequency is 1).  Each step is the ring's own step function: K1
+    or K2 against one block (``_local_multiplier``), or with presort on,
+    two searchsorteds and a gather against that block's presorted payload,
+    then the fold into the running multiplier.  The folded result must be
+    bitwise the one-call kernel's, and every step's kernel output its
+    plain version's.  Prints the steps' summed device ms (queued CUDA
+    events) beside the one call's and its bytes bound."""
+    from repro_torch.core import distributed as tdist
+
+    edges = {}
+    for name, args in ring_calls:
+        pk, _, ck, _ = args
+        if max(pk.shape[0], ck.shape[0]) >= MESH_STEP_ROWS:
+            edges.setdefault((name, pk.shape[0], ck.shape[0]), args)
+    check(len(edges) >= 3, f"the mesh phase made {len(edges)} distinct "
+          "8M-row ring calls")
+    lines = []
+    for (name, np_, nc), (pk, unit, ck, cf) in sorted(edges.items()):
+        mode = "any" if name == "semi_join" else "sum"
+        one = check_join(torch, kern[name], plain[name], errs[name],
+                         f"mesh_steps {name} one call", pk, unit, ck, cf)
+        one_ms = time_ms(torch, lambda: kern[name](pk, unit, ck, cf),
+                         queued=True)
+        for p in MESH_STEP_SIZES:
+            cks, cfs = ck.view(p, -1), cf.view(p, -1)
+            mult = torch.zeros_like(unit)
+            for b in range(p):
+                m = hold_join(torch, plain[name], errs[name],
+                              f"mesh_steps {name} P={p} step {b}",
+                              tdist._local_multiplier(pk, cks[b], cfs[b],
+                                                      mode, unit),
+                              pk, unit, cks[b], cfs[b])
+                mult = tdist.accumulate(mult, m, mode)
+            ring = unit * ((mult > 0).to(unit.dtype) if mode == "any"
+                           else mult)
+            check(torch.equal(ring, one),
+                  f"mesh_steps {name} P={p}: the folded steps differ from "
+                  "the one call")
+            payloads = [tdist.presort_payload(cks[b], cfs[b], mode,
+                                              unit.dtype) for b in range(p)]
+            mult = torch.zeros_like(unit)
+            for pay in payloads:
+                mult = tdist.accumulate(
+                    mult, tdist.presort_multiplier(pk, *pay, unit.dtype),
+                    mode)
+            pre = unit * ((mult > 0).to(unit.dtype) if mode == "any"
+                          else mult)
+            check(torch.equal(pre, one),
+                  f"mesh_steps {name} P={p}: the presort steps differ from "
+                  "the one call")
+            steps = [lambda b=b: tdist.accumulate(
+                         unit, tdist._local_multiplier(pk, cks[b], cfs[b],
+                                                       mode, unit), mode)
+                     for b in range(p)]
+            pre_steps = [lambda pay=pay: tdist.accumulate(
+                             unit, tdist.presort_multiplier(pk, *pay,
+                                                            unit.dtype),
+                             mode)
+                         for pay in payloads]
+            step_ms = [statistics.median(t)
+                       for t in split_ms(torch, steps, queued=True)]
+            pre_ms = [statistics.median(t)
+                      for t in split_ms(torch, pre_steps, queued=True)]
+            lines.append({
+                "mesh_steps": name, "shape": [np_, nc], "P": p,
+                "steps_device_ms": sum(step_ms), "step_device_ms": step_ms,
+                "presort_steps_device_ms": sum(pre_ms),
+                "one_call_device_ms": one_ms,
+                "one_call_bound_ms": bound_ms(join_bytes(np_, nc)),
+                "steps_bound_ms": bound_ms(p * join_bytes(np_, 0)
+                                           + join_bytes(0, nc)),
+                **card})
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2480,6 +2732,25 @@ def main() -> int:
     log("tune: no gate reject, every tuned answer equal to the oracle and "
         "every kernel call of the phase equal to its plain version")
 
+    # -- the mesh ring sweep over NCCL at world size 1, counted on its own --
+    t0 = time.perf_counter()
+    errs_mesh = {name: [] for name in kernels}
+    with nccl_world(torch):
+        lines, mesh_launches, ring_calls = mesh_lines(
+            torch, kernels, plain, errs_mesh, db, schema, plans, oracle,
+            card, dev)
+        for line in lines:
+            log(json.dumps(line))
+        for line in mesh_step_lines(torch, kern, plain, errs_mesh,
+                                    ring_calls, card):
+            log(json.dumps(line))
+        del ring_calls
+    log(f"mesh: V.1 through DistributedExecutor over NCCL at world size 1 "
+        f"equal to the local Executor and the oracle, launches "
+        f"{mesh_launches}, every K1/K2 call equal to its plain version, the "
+        f"ring steps over 2, 4 and 8 child blocks equal to one call, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # -- the LM serving path, each phase counted on its own ---------------
     t0 = time.perf_counter()
     for _, _, k in kernels.values():
@@ -2513,7 +2784,8 @@ def main() -> int:
                      "bound_ms": bound_ms(timing[name]["bytes"]),
                      "bound_by": "bytes",
                      "library_ms": timing[name]["library_ms"],
-                     "calls_timed": calls_timed[name]})
+                     "calls_timed": calls_timed[name],
+                     "mesh_launches": mesh_launches[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

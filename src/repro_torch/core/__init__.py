@@ -1,6 +1,8 @@
 """The paper's contribution, in PyTorch: query IR, GYO join trees, 0MA
-classification, rule-based rewrites (§4), and the frequency-propagating
-executor whose sweep runs the hand-written CUDA kernels (§5)."""
+classification, rule-based rewrites (§4), the frequency-propagating
+executor whose sweep runs the hand-written CUDA kernels (§5), and the
+mesh ring sweep over ``torch.distributed`` (``core.distributed``, imported
+from there as the JAX package's ``repro.core.distributed`` is)."""
 
 from repro_torch.core.executor import (
     ExecStats,

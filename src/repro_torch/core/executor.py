@@ -383,15 +383,31 @@ class Executor:
                 "execute() for guarded baselines, or build the Executor "
                 "without oom_guard to compile.")
 
+    def _inner_executor(self, db: dict[str, Table]) -> "Executor":
+        """The node evaluator ``_trace_plan`` runs with over ``db``: this
+        executor itself.  A subclass swaps in another evaluator here
+        (``DistributedExecutor`` returns one whose semi-joins and
+        FreqJoins are ring sweeps over the mesh); the traversal — the
+        content-key memo, sub-DAG dedup, multi-plan fusion — is shared and
+        lives only in ``_trace_plan``."""
+        return self
+
     def _trace_plan(self, db: dict[str, Table], plan: PhysicalPlan,
-                    memo: dict, cfgs: dict[int, tuple]) -> Any:
+                    memo: dict, cfgs: dict[int, tuple],
+                    root: PlanNode | None = None) -> Any:
         """One plan's DAG evaluation without per-step stats, each join
         under its configs in ``cfgs`` (``_plan_configs``).
 
         ``memo`` maps node content keys (``PlanNode.key``) to the frequency
         vectors already computed in this call: a key hit reuses the vector
         (only the column views of the node's parent chain are rebuilt —
-        free) and skips the node's kernels AND its entire child sub-DAG."""
+        free) and skips the node's kernels AND its entire child sub-DAG.
+
+        ``root`` selects where evaluation stops (default: the whole plan,
+        ``plan.root``).  The mesh path stops at ``plan.root.inputs[0]``,
+        the pre-aggregate root state, and aggregates after gathering it,
+        so one traversal serves both."""
+        inner = self._inner_executor(db)
         vals: dict[int, _State] = {}
 
         def ev(node: PlanNode) -> Any:
@@ -401,7 +417,7 @@ class Executor:
             op = node.op
             key = node.key()
             if isinstance(op, ScanOp):
-                st = self._scan(db, plan, op)
+                st = inner._scan(db, plan, op)
                 if key is not None:
                     if key in memo:
                         st = _State(st.cols, memo[key])
@@ -412,18 +428,18 @@ class Executor:
                 if key is not None and key in memo:
                     st = _State(p.cols, memo[key])
                 else:
-                    st = self._join(plan, node, p, ev(node.inputs[1]),
-                                    cfgs)
+                    st = inner._join(plan, node, p, ev(node.inputs[1]),
+                                     cfgs)
                     if key is not None:
                         memo[key] = st.freq
             elif isinstance(op, FinalAggOp):
-                st = self._final_agg(plan, op, ev(node.inputs[0]))
+                st = inner._final_agg(plan, op, ev(node.inputs[0]))
             else:  # pragma: no cover — _check_jittable rejects these
                 raise TypeError(op)
             vals[id(node)] = st
             return st
 
-        return ev(plan.root)
+        return ev(plan.root if root is None else root)
 
     def compile(self, plan: PhysicalPlan):
         """The static plan classes (oma / opt_plus) as ``db → aggregates``.

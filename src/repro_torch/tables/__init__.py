@@ -10,6 +10,7 @@ from repro_torch.tables.table import (
     int_dtype,
     is_wide,
     pack_keys,
+    sharded_bucket_capacity,
 )
 
 __all__ = [
@@ -24,4 +25,5 @@ __all__ = [
     "int_dtype",
     "is_wide",
     "pack_keys",
+    "sharded_bucket_capacity",
 ]

@@ -242,6 +242,25 @@ def bucket_capacity(n: int, min_capacity: int = 8) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def sharded_bucket_capacity(n: int, n_shards: int,
+                            min_capacity: int = 8) -> int:
+    """Shape bucket for a table of n rows row-sharded over ``n_shards``
+    ranks: each shard holds a power-of-two block of
+    ``bucket_capacity(ceil(n / n_shards))`` rows, so the total divides
+    evenly among the shards and rows added anywhere inside the per-shard
+    bucket never change any shard's shapes.
+
+    For power-of-two shard counts this equals
+    ``bucket_capacity(n, n_shards * min_capacity)``, so one device padded
+    with ``min_capacity = n_shards * min_capacity`` holds exactly the
+    mesh's global shapes."""
+    n_shards = int(n_shards)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    per_shard = -(-max(int(n), 1) // n_shards)   # ceil
+    return n_shards * bucket_capacity(per_shard, min_capacity)
+
+
 def pack_keys(
     cols: Sequence[torch.Tensor],
     domains: Sequence[int | None],

@@ -981,3 +981,136 @@ def test_lm_load_stats_launches_k3(cuda):
     assert got.dtype == torch.int32
     assert np.array_equal(got.cpu().numpy(),
                           np.bincount(idx.ravel(), minlength=64))
+
+
+# ---------------------------------------------------------------------------
+# the mesh ring sweep over NCCL at world size 1 (the card is one rank)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: NCCL runs on the card")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        yield DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("agg", ["minmax", "median"])
+def test_mesh_at_world_size_1_matches_local_executor(nccl_mesh, monkeypatch,
+                                                     agg):
+    """V.1 through ``DistributedExecutor`` on a one-rank NCCL mesh: the
+    answers bitwise the local Executor's over the same padded capacities,
+    and every K1/K2 ring step equal to its plain version."""
+    from repro_torch.core.distributed import DistributedExecutor
+    db, schema = trel.make_tpch_db(scale=2000, seed=1, device="cuda")
+    plan = tcore.plan_query(trel.tpch_v1_query(agg), schema)
+    dex = DistributedExecutor(schema, nccl_mesh)
+    assert dex.device == torch.device("cuda", 0)
+    sharded = dex.shard_db(db)
+    seen = []
+    for mod, attr, name in ((tsj, "semi_join_cuda", "semi_join"),
+                            (tfj, "freq_join_cuda", "freq_join")):
+        def keep(*args, _wrapped=getattr(mod, attr), _name=name, **kw):
+            out = _wrapped(*args, **kw)
+            seen.append((_name, args, out))
+            return out
+        monkeypatch.setattr(mod, attr, keep)
+    got = dex.compile(plan)(sharded)
+    monkeypatch.undo()
+    assert seen
+    for name, (pk, pf, ck, cf), out in seen:
+        plain = tsj.semi_join_plain if name == "semi_join" \
+            else tfj.freq_join_plain
+        assert torch.equal(out, plain(pk, pf, ck, cf)), name
+    host = {r: db[r].pad_to(sharded[r].capacity) for r in db}
+    want = tcore.Executor(host, schema).compile(plan)(host)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("mode", ["sum", "any"])
+def test_ring_steps_over_child_blocks_match_one_call(cuda, mode):
+    """One rank's ring steps over P = 4 child blocks, folded as the ring
+    folds them, equal the one-call K1/K2 bitwise (int32 wrap included),
+    and so do the presort steps."""
+    from repro_torch.core import distributed as tdist
+    rng = np.random.default_rng(7)
+    pk = torch.tensor(rng.integers(-2, 5000, 100_003).astype(np.int32),
+                      device=cuda)
+    pf = torch.tensor(rng.integers(0, 4099, 100_003).astype(np.int32),
+                      device=cuda)
+    ck = torch.tensor(rng.integers(-2, 5000, 40_000).astype(np.int32),
+                      device=cuda)
+    cf = torch.tensor(rng.integers(0, 1 << 20, 40_000).astype(np.int32),
+                      device=cuda)
+    one = tops.freq_join(pk, pf, ck, cf, mode=mode)
+    unit = torch.ones_like(pf)
+    for presort in (False, True):
+        mult = torch.zeros_like(pf)
+        for ckb, cfb in zip(ck.view(4, -1), cf.view(4, -1)):
+            if presort:
+                m = tdist.presort_multiplier(
+                    pk, *tdist.presort_payload(ckb, cfb, mode, pf.dtype),
+                    pf.dtype)
+            else:
+                m = tdist._local_multiplier(pk, ckb, cfb, mode, unit)
+            mult = tdist.accumulate(mult, m, mode)
+        if mode == "any":
+            mult = (mult > 0).to(pf.dtype)
+        assert torch.equal(pf * mult, one), presort
+
+
+def _mesh_rank(rank: int, world: int, store: str) -> None:
+    """One rank of ``test_mesh_over_every_card_matches_local_executor``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.distributed import DistributedExecutor
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        shapes = [((world,), ("data",))]
+        if world % 2 == 0 and world > 2:
+            shapes.append(((2, world // 2), ("pod", "data")))
+        db, schema = trel.make_tpch_db(scale=2000, seed=1, device="cuda")
+        for shape, names in shapes:
+            mesh = DeviceMesh("cuda", torch.arange(world).reshape(shape),
+                              mesh_dim_names=names)
+            for presort in (False, True):
+                dex = DistributedExecutor(schema, mesh, data_axes=names,
+                                          presort=presort)
+                sharded = dex.shard_db(db)
+                host = {r: db[r].pad_to(dex.shard_capacity(db[r].capacity))
+                        for r in db}
+                for agg in ("minmax", "count", "median"):
+                    plan = tcore.plan_query(trel.tpch_v1_query(agg), schema)
+                    got = dex.compile(plan)(sharded)
+                    want = tcore.Executor(host, schema).compile(plan)(host)
+                    for k in want:
+                        assert torch.equal(got[k], want[k]), (shape, agg, k)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_over_every_card_matches_local_executor(cuda, tmp_path):
+    """V.1 through ``DistributedExecutor`` with one NCCL rank on each card
+    (a 1-D ring, and the nested 2 × n/2 ring where the count is even and
+    above 2), presort off and on: every rank's answers bitwise the local
+    Executor's over the same padded capacities.  Needs two cards or more."""
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA GPUs or more: NCCL puts one rank on a "
+                    "card")
+    mp.start_processes(_mesh_rank, args=(world, str(tmp_path / "store")),
+                       nprocs=world, start_method="spawn")
