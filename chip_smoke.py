@@ -133,6 +133,26 @@ kernel's, the steps' summed device ms beside the one call's and its
 bytes bound.  One card holds one NCCL rank, so no multi-rank ring runs
 here.
 
+The ``serve_mesh`` phase runs inside the ``mesh`` phase's process group:
+``QueryService(mesh=...)`` on the same one-rank ``"cuda"`` mesh, in modes
+auto, opt_plus, oma and opt, each beside a local ``QueryService`` of the
+same mode and ``min_bucket`` (one shard pads as one device does), all on
+one temporary ``cache_dir`` inside the checkout (the tables' statistics
+are computed once).  Each mode serves V.1 minmax, count and median and
+``tests/helpers/mesh_service_check.py``'s GROUPBY and COSTLY as one batch
+and then each alone; the auto service also serves one ``submit_async``
+and ``explain()``, and last, partsupp grows by 100k rows inside its
+bucket with no recompile.  The kernels' counts are set to 0 just before
+the mesh services' requests and read just after (K1 and K2 in the ring
+programs, K3 in opt's regroup), every kernel call of those requests is
+held against its plain version, every answer must equal the local
+service's (bitwise; the grouped AVG within ``grouped_avg_bound``) with
+the same errors where a mode cannot plan a query, and V.1's the
+oracle's.  ``serve_mesh_warm`` times warm ``submit`` of V.1, mesh against
+local, one rep of each after the other, with the ``ring_sweep`` span's
+and the local ``run`` span's ms (medians of ``TIMING_REPS``); the lines
+also print the mesh gauges and ``explain()``'s placement.
+
 The LM phases drive the port's LM serving path (``repro_torch.models``,
 ``ServeEngine``), after one untimed request each.  ``lm_serve``:
 smollm-135m at its full published width (30 layers, d_model 576, 9 heads
@@ -177,8 +197,9 @@ its device time by kernel from ``torch.profiler``, one per ``baseline`` and
 line ``{"kernels_x64": [...]}`` with the
 64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
-library time on the int32 main path and its launches in the ``mesh`` phase
-(``mesh_launches``; K3's also with its LM launches), the
+library time on the int32 main path and its launches in the ``mesh`` and
+``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``; K3's
+also with its LM launches), the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
@@ -1404,7 +1425,7 @@ def answers_diff(torch, got: dict, want: dict, bounds=None) -> str | None:
     return None
 
 
-def grouped_avg_bound(torch, h, res) -> dict:
+def grouped_avg_bound(torch, h, res, col: str = "avg") -> dict:
     """The dashboard's AVG(s_acctbal) GROUP BY nation sums each group with
     ``index_add_``, whose adds on the card land in another order on every
     run.  Two orders of a group's n float32 terms differ by at most
@@ -1420,11 +1441,11 @@ def grouped_avg_bound(torch, h, res) -> dict:
                     weights=np.abs(sup["s_acctbal"].astype(np.float64)),
                     minlength=64)
     nation = groups["n.n_nationkey"].cpu().numpy()
-    avg = groups["avg"].double().cpu().numpy()
+    avg = groups[col].double().cpu().numpy()
     eps = float(np.finfo(np.float32).eps)
     bound = (2 * np.maximum(n[nation] - 1, 0) * eps * s[nation]
              / np.maximum(n[nation], 1) + eps * np.abs(avg))
-    return {"avg": torch.tensor(bound, device=groups["avg"].device)}
+    return {col: torch.tensor(bound, device=groups[col].device)}
 
 
 def served(svc, sql, tag: str):
@@ -2435,6 +2456,246 @@ def mesh_lines(torch, kernels, plain, errs, db, schema, plans, oracle, card,
     return lines, launches, kept
 
 
+# the serve_mesh phase: QueryService(mesh=...) on the one-rank NCCL mesh
+SERVE_MESH_MODES = ("auto", "opt_plus", "oma", "opt")
+# tests/helpers/mesh_service_check.py's GROUPBY and COSTLY queries
+SERVE_MESH_EXTRA = {
+    "groupby": """SELECT COUNT(*) AS suppliers, AVG(s.s_acctbal) AS avg_bal
+        FROM supplier s, nation n
+        WHERE s.s_nationkey = n.n_nationkey
+        GROUP BY s.s_nationkey""",
+    "costly": """SELECT SUM(ps.ps_supplycost), COUNT(*)
+        FROM partsupp ps, part p
+        WHERE ps.ps_partkey = p.p_partkey AND p.p_price > 1500.0""",
+}
+
+
+def serve_mesh_lines(torch, tsvc, kernels, plain, errs, db, schema, h,
+                     oracle, dev, card):
+    """The ``serve_mesh`` phase: ``QueryService(mesh=...)`` on the phase's
+    one-rank NCCL mesh, in modes auto, opt_plus, oma and opt, beside a
+    local ``QueryService`` of the same mode and ``min_bucket`` (one shard
+    pads as one device does).  Each mode serves V.1 minmax, count and
+    median and ``mesh_service_check.py``'s GROUPBY and COSTLY as one batch,
+    then each alone; the auto service also serves one ``submit_async`` and
+    ``explain()``, and last, partsupp grows inside its bucket.  The
+    kernels' counts are set to 0 just before the mesh services' requests
+    and read just after (the local services and the timed reps run
+    outside), every kernel call of those requests is held against its plain
+    version after the request, each answer must equal the local service's
+    (bitwise; the grouped AVG within ``grouped_avg_bound``, as ``index_add_``
+    adds in another order on every run) with the same errors where a mode
+    cannot plan a query, and V.1's the oracle's.  Then warm ``submit`` of
+    V.1 is timed, mesh against local, each rep of one beside one of the
+    other, with the ``ring_sweep`` span's ms.  Yields one line per case."""
+    import tempfile
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.tables import Table
+
+    queries = {q: SERVE_SQL[q][0] for q in QUERIES}
+    queries.update(SERVE_MESH_EXTRA)
+    mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+    pending = []
+
+    def keep(name, wrapper, args, **kw):
+        out = wrapper(*args, **kw)
+        pending.append((name, args, out))
+        return out
+
+    held = {name: 0 for name in kernels}
+
+    def drain(tag):
+        torch.cuda.synchronize()
+        calls = list(pending)
+        pending.clear()
+        for name, n in hold_calls(torch, plain, errs, tag, calls,
+                                  dev).items():
+            held[name] += n
+
+    def counted(fn):
+        for _, _, k in kernels.values():
+            k.reset_counts()
+        torch.cuda.synchronize()
+        with routed(kernels, keep):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, {name: k.launches for name, (_, _, k) in kernels.items()}
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="serve-mesh-cache-",
+                                     dir=Path(__file__).resolve().parent
+                                     ) as cache_dir:
+        # one cache_dir: the tables' statistics are computed once
+        t0 = time.perf_counter()
+        svcs = {mode: (tsvc.QueryService(db, schema, mode=mode, mesh=mesh,
+                                         cache_dir=cache_dir),
+                       tsvc.QueryService(db, schema, mode=mode,
+                                         cache_dir=cache_dir))
+                for mode in SERVE_MESH_MODES}
+        auto = svcs["auto"][0]
+        yield {"serve_mesh": "setup", "services_s": time.perf_counter() - t0,
+               "gauges": {k: v for k, v in auto.metrics_v2()["gauges"].items()
+                          if k.startswith("mesh_")}, **card}
+
+        # -- the mesh services' requests, counted -------------------------
+        def drive():
+            got = {}
+            for mode, (msvc, _) in svcs.items():
+                batch = msvc.submit_many(list(queries.values()))
+                drain(f"serve_mesh {mode} batch")
+                solo = {}
+                for (q, sql), r in zip(queries.items(), batch):
+                    if r.ok:
+                        solo[q] = msvc.submit_many([sql])[0]
+                        drain(f"serve_mesh {mode} {q}")
+                got[mode] = (batch, solo)
+            fut = auto.submit_async(queries["minmax"])
+            got["async"] = fut.result(120)
+            drain("serve_mesh async")
+            got["explain"] = auto.explain(queries["minmax"])
+            drain("serve_mesh explain")
+            return got
+
+        got, launches = counted(drive)
+        for mode, (msvc, lsvc) in svcs.items():
+            batch, solo = got[mode]
+            want = lsvc.submit_many(list(queries.values()))
+            answers = {}
+            for (q, sql), r, w in zip(queries.items(), batch, want):
+                check(r.ok == w.ok and (r.ok or type(r.error) is
+                                        type(w.error)),
+                      f"serve_mesh {mode} {q}: mesh {r.error!r}, local "
+                      f"{w.error!r}")
+                if not r.ok:
+                    answers[q] = type(r.error).__name__
+                    continue
+                bounds = grouped_avg_bound(torch, h, w.values, "avg_bal") \
+                    if q == "groupby" else None
+                for tag, res in (("batch", r), ("solo", solo[q])):
+                    diff = answers_diff(torch, res.values, w.values, bounds)
+                    check(diff is None, f"serve_mesh {mode} {q} {tag} "
+                          f"against the local service: {diff}")
+                if q in QUERIES:
+                    check(serve_equal(r.values, oracle[q]),
+                          f"serve_mesh {mode} {q}: {r.values} != "
+                          f"{oracle[q]}")
+                    answers[q] = {k: v.item() for k, v in r.values.items()}
+                else:
+                    answers[q] = "equal to the local service"
+            yield {"serve_mesh": mode, "answers": answers,
+                   "fused": [r.stats.fused for r in batch],
+                   "exec_source": [r.stats.exec_source for r in batch],
+                   **card}
+        check(got["async"].ok and serve_equal(got["async"].values,
+                                              oracle["minmax"]),
+              f"serve_mesh async: {got['async'].error!r}")
+        exp = got["explain"]
+        yield {"serve_mesh_explain": {
+            "topology": exp["topology"], "sharding": exp["sharding"],
+            "text": [ln.strip() for ln in exp["text"].splitlines()
+                     if "sharding" in ln]}, **card}
+
+        # -- warm submit, mesh against local ------------------------------
+        # each request's stages from its TraceSpan tree, and the time
+        # outside them (admission, the lane's hand-off, bookkeeping)
+        lauto = svcs["auto"][1]
+        for q in QUERIES:
+            sql = queries[q]
+            times = {"mesh_submit_ms": [], "local_submit_ms": [],
+                     "ring_sweep_ms": [], "local_run_ms": []}
+            stages = {"mesh": {}, "local": {}}
+            for svc in (auto, lauto):     # the local one has served it
+                served(svc, sql, f"serve_mesh warm-up {q}")   # fused only
+            for _ in range(TIMING_REPS):
+                for side, svc in (("mesh", auto), ("local", lauto)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = served(svc, sql, f"serve_mesh warm {q}")
+                    ms = (time.perf_counter() - t0) * 1e3
+                    times[f"{side}_submit_ms"].append(ms)
+                    check(serve_equal(res.values, oracle[q]),
+                          f"serve_mesh warm {q}: wrong answer")
+                    check(res.stats.exec_cache_hit,
+                          f"serve_mesh warm {q}: not an exec-cache hit")
+                    spans = {sp.name: sp.duration_s * 1e3
+                             for sp in res.stats.trace.walk()}
+                    if svc is auto:
+                        times["ring_sweep_ms"].append(spans["ring_sweep"])
+                    else:
+                        times["local_run_ms"].append(spans["run"])
+                    st = stage_ms(res)
+                    st["outside_stages"] = ms - sum(st.values())
+                    for k, v in st.items():
+                        stages[side].setdefault(k, []).append(v)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            yield {"serve_mesh_warm": q, **med,
+                   "mesh_over_local_ms": med["mesh_submit_ms"]
+                   - med["local_submit_ms"], "reps": TIMING_REPS,
+                   **{f"{side}_stages_ms": {k: statistics.median(v)
+                                            for k, v in st.items()}
+                      for side, st in stages.items()},
+                   "mesh_submit_all_ms": times["mesh_submit_ms"], **card}
+        # the lane's hand-off alone: a step that does nothing, called from
+        # this thread and run on the lane
+        lane = []
+        for _ in range(TIMING_REPS):
+            t0 = time.perf_counter()
+            auto._sync.run("no-op", lambda _: None)
+            lane.append((time.perf_counter() - t0) * 1e3)
+        yield {"serve_mesh_lane": "no-op step", "ms": statistics.median(lane),
+               "all_ms": lane, **card}
+
+        # -- growth inside partsupp's bucket, counted ---------------------
+        ps = h["partsupp"]
+        n_ps = len(ps["ps_partkey"])
+        rng = np.random.default_rng(SEED + 1)
+        extra = {c: v[rng.integers(0, n_ps, SERVE_GROWTH_ROWS)]
+                 for c, v in ps.items()}
+        extra["ps_partkey"] = rng.permutation(extra["ps_partkey"])
+        grown = {c: np.concatenate([ps[c], extra[c]]) for c in ps}
+        grown_oracle = v1_oracle({**h, "partsupp": grown})
+        before = auto.metrics()
+
+        def grow():
+            auto.update_table("partsupp", Table.from_numpy(grown, device=dev))
+            out = {}
+            for q in QUERIES:
+                out[q] = served(auto, queries[q], f"serve_mesh growth {q}")
+                drain(f"serve_mesh growth {q}")
+            return out
+
+        res, grow_launches = counted(grow)
+        m = auto.metrics()
+        for q, r in res.items():
+            check(serve_equal(r.values, grown_oracle[q]),
+                  f"serve_mesh growth {q}: {r.values} != {grown_oracle[q]}")
+            check(r.stats.exec_cache_hit,
+                  f"serve_mesh growth {q}: not an exec-cache hit")
+        recompiles = m["compiles"] - before["compiles"]
+        check(recompiles == 0, f"serve_mesh growth: {recompiles} recompiles")
+        yield {"serve_mesh_growth": SERVE_GROWTH_ROWS,
+               "recompiles": recompiles,
+               "bucket_invalidations": m["bucket_invalidations"]
+               - before["bucket_invalidations"], **card}
+        for svc_pair in svcs.values():
+            for svc in svc_pair:
+                svc.close()
+        del svcs, auto, lauto
+    launches = {name: launches[name] + grow_launches[name]
+                for name in kernels}
+    for name, n in launches.items():
+        check(n > 0, f"the serve_mesh phase launched {name} no time")
+        check(held[name] == n, f"serve_mesh: {name} launched {n} times, "
+              f"{held[name]} calls held")
+    torch.cuda.empty_cache()
+    yield {"kernels_serve_mesh": [
+        {"name": name, "launches": launches[name], "held": held[name],
+         "max_abs_err": max(errs[name])} for name in kernels],
+        "phase_s": time.perf_counter() - t_phase, **card}
+
+
 def mesh_step_lines(torch, kern, plain, errs, ring_calls, card):
     """The ``mesh_steps`` phase: one rank's ring steps over P = 2, 4 and 8
     child blocks, on the card, for each distinct K1/K2 call of the mesh
@@ -2745,11 +3006,26 @@ def main() -> int:
                                     ring_calls, card):
             log(json.dumps(line))
         del ring_calls
-    log(f"mesh: V.1 through DistributedExecutor over NCCL at world size 1 "
-        f"equal to the local Executor and the oracle, launches "
-        f"{mesh_launches}, every K1/K2 call equal to its plain version, the "
-        f"ring steps over 2, 4 and 8 child blocks equal to one call, in "
-        f"{time.perf_counter() - t0:.1f} s")
+        log(f"mesh: V.1 through DistributedExecutor over NCCL at world size "
+            f"1 equal to the local Executor and the oracle, launches "
+            f"{mesh_launches}, every K1/K2 call equal to its plain version, "
+            f"the ring steps over 2, 4 and 8 child blocks equal to one call, "
+            f"in {time.perf_counter() - t0:.1f} s")
+        # -- mesh serving on the same group, counted on its own ------------
+        t0 = time.perf_counter()
+        errs_serve_mesh = {name: [] for name in kernels}
+        for line in serve_mesh_lines(torch, tsvc, kernels, plain,
+                                     errs_serve_mesh, db, schema, host,
+                                     oracle, dev, card):
+            log(json.dumps(line))
+            if "kernels_serve_mesh" in line:
+                serve_mesh_launches = {r["name"]: r["launches"]
+                                       for r in line["kernels_serve_mesh"]}
+        log(f"serve_mesh: QueryService(mesh=...) over NCCL at world size 1 "
+            f"in modes {', '.join(SERVE_MESH_MODES)} equal to the local "
+            f"service and V.1 to the oracle, launches {serve_mesh_launches}, "
+            f"every kernel call equal to its plain version, in "
+            f"{time.perf_counter() - t0:.1f} s")
 
     # -- the LM serving path, each phase counted on its own ---------------
     t0 = time.perf_counter()
@@ -2785,7 +3061,8 @@ def main() -> int:
                      "bound_by": "bytes",
                      "library_ms": timing[name]["library_ms"],
                      "calls_timed": calls_timed[name],
-                     "mesh_launches": mesh_launches[name]})
+                     "mesh_launches": mesh_launches[name],
+                     "serve_mesh_launches": serve_mesh_launches[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

@@ -376,6 +376,18 @@ class KernelTuner:
                 self.counters["tune_installs"] += n
         return n
 
+    def adopt(self, entries) -> int:
+        """Install ``TuneTable.entries()`` of another tuner (a mesh
+        service's rank 0) into the table, as its winners.  Returns the
+        number installed."""
+        n = 0
+        for (kernel, shape, backend), config in entries:
+            self.table.install(kernel, shape, backend, config)
+            n += 1
+        with self._lock:
+            self.counters["tune_installs"] += n
+        return n
+
     def ensure(self, kernel: str, shape) -> KernelConfig:
         """The tuned config for (kernel, bucket(shape)) — from the table,
         the store, or a fresh measured search (persisted on the way

@@ -27,9 +27,8 @@ equal counters.  What differs:
     hand-written kernels' Hopper knobs on CUDA tables (backend ``"cuda"``,
     or ``"cuda_wide"`` with 64-bit frequencies) and the plain FreqJoin's
     dense-domain crossover on CPU tables (``"plain"``);
-  * there is no mesh serving yet, and no compiled program persists on
-    disk (the kernels' builds persist on their own under
-    ``kernels/.build/``).
+  * no compiled program persists on disk (the kernels' builds persist on
+    their own under ``kernels/.build/``).
 
 Request path (shared by sync ``submit``/``submit_many`` and the async
 scheduler — one internal pipeline, ``_serve_batch``):
@@ -87,6 +86,29 @@ re-measures no kernel (``tune_searches == 0``).  Disk failures of any kind degra
 memory-only caching.  The entries are the JAX package's format: either
 package reads the other's.
 
+Serving beyond one device: ``QueryService(db, schema, mesh=...)`` over a
+``torch.distributed`` ``DeviceMesh`` serves through
+``repro_torch.core.distributed.DistributedExecutor``: tables pad to
+per-shard power-of-two buckets (``min_bucket`` is per shard) and each
+rank keeps its row block of every padded view; the executable-cache keys
+and the stores carry the shard topology; ``metrics_v2()`` gains the
+``mesh_*`` gauges and the ``run`` span a ``ring_sweep`` child.  Answers
+are bitwise those of a local service padded to the same capacities
+(``min_bucket = n_shards * min_bucket`` for a power-of-two mesh).  Eager
+(ref/opt) plans run locally on the unpadded tables on every rank.  A mesh
+service runs on every rank, each holding the full tables, and every rank
+makes the same calls and gets the same answers.  So that every rank
+issues the same collectives in the same order, one thread per service
+runs every batch, table update and tuning run, in rank 0's order
+(``repro_torch.service.mesh_sync``), and rank 0 decides whatever reads a
+clock or writes the disk: the serve-time feedback, the async batcher's
+claims and the tuner's winners are rank 0's, and only rank 0 writes under
+``cache_dir``, which every rank reads.  With more than one rank a query
+must be shareable (SQL text, or an ``AggQuery`` with declarative
+selections: an opaque callable has no identity another process can
+check), and the async tier admits without backpressure (its rate and
+depth bounds read timing, so tenant ``rate``/``max_queue`` are refused).
+
 Observability: every request carries a ``TraceSpan`` tree (parse →
 queue-wait → fingerprint → plan → pad → compile → run) recorded through
 ``repro_torch.service.observability`` — the ONLY timing source in this
@@ -99,6 +121,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import threading
+import weakref
 from concurrent.futures import Future
 from typing import Any, Callable
 
@@ -119,6 +142,7 @@ from repro_torch.core.sql import parse_sql
 from repro_torch.core.stats import FUSION_COST_DISPARITY, StatsCatalog
 from repro_torch.kernels.autotune import KernelTuner, backend_tag
 from repro_torch.service.fingerprint import CanonicalQuery, canonicalize
+from repro_torch.service.mesh_sync import Lockstep
 from repro_torch.service.observability import (
     DEFAULT_TENANT,
     NULL_SPAN,
@@ -134,6 +158,12 @@ from repro_torch.service.plan_store import (
 from repro_torch.service.stats_store import STATS_PERSIST_ZEROS, StatsStore
 from repro_torch.service.tune_store import TUNE_PERSIST_ZEROS, TuneStore
 from repro_torch.tables.table import Schema, Table, bucket_capacity
+
+
+_OPAQUE_ON_MESH = (
+    "a query with opaque selection callables has no identity another rank "
+    "can check: a mesh service of more than one rank serves SQL text and "
+    "declarative selections only")
 
 
 class AdmissionError(ValueError):
@@ -266,6 +296,9 @@ class QueryService:
                  clock: Callable[[], float] | None = None,
                  tracing: bool = True,
                  profile_annotations: bool = False,
+                 mesh: "Any | None" = None,
+                 data_axes: tuple[str, ...] | None = None,
+                 mesh_presort: bool = False,
                  fusion_disparity: float | None = None,
                  tenants: "dict[str, Any] | None" = None):
         self._db = dict(db)
@@ -317,24 +350,67 @@ class QueryService:
         ])
         self.obs.set_gauge("queue_depth", 0)
         self.obs.register_peak_gauge("queue_depth_peak", "queue_depth")
-        self._executor = Executor(
-            self._db, schema, freq_dtype, dense_domain=dense_domain,
-            profile_annotations=profile_annotations)
-        # the shard topology folded into every executable-cache key and the
-        # store fingerprint, as in the JAX package: () on one device
-        self._topo = ()
+        # mesh serving: same pipeline, the distributed executor for the
+        # compiled plans, topology-aware keys, per-shard buckets, this
+        # rank's blocks as padded views, and the lane (``_sync``) keeping
+        # the ranks in step; None on one device
+        self._mesh = mesh
+        self._sync: Lockstep | None = None
+        if mesh is not None:
+            from repro_torch.core.distributed import DistributedExecutor
+
+            axes = tuple(data_axes) if data_axes is not None \
+                else tuple(mesh.mesh_dim_names)
+            dex = DistributedExecutor(
+                schema, mesh, data_axes=axes, freq_dtype=freq_dtype,
+                presort=mesh_presort, dense_domain=dense_domain,
+                profile_annotations=profile_annotations)
+            for name, t in self._db.items():
+                if t.device.type != dex.device.type:
+                    raise ValueError(
+                        f"table {name!r} lies on {t.device}, the mesh on "
+                        f"{dex.device}; a mesh serves tables of its own "
+                        "device type")
+            self._executor = dex
+            # the shape-relevant mesh identity, folded into every
+            # executable-cache key and the store fingerprint: a ring
+            # program for one mesh shape never answers another
+            self._topo = dex.topology()
+            self._sync = Lockstep(dex.device)
+            weakref.finalize(self, Lockstep.close, self._sync)
+            if self._sync.world > 1:
+                for name, pol in (tenants or {}).items():
+                    if getattr(pol, "rate", None) is not None \
+                            or getattr(pol, "max_queue", None) is not None:
+                        raise ValueError(
+                            f"tenant {name!r}: a rate or depth quota reads "
+                            "timing, and every rank of a mesh must admit "
+                            "the same requests")
+            self.obs.set_gauge("mesh_devices", dex.n_shards)
+            for a, n in zip(*self._topo):
+                self.obs.set_gauge(f"mesh_shard_count_{a}", n)
+        else:
+            self._executor = Executor(
+                self._db, schema, freq_dtype, dense_domain=dense_domain,
+                profile_annotations=profile_annotations)
+            self._topo = ()
+        # only rank 0 of a mesh writes under cache_dir; every rank reads it
+        read_only = self._sync is not None and self._sync.rank != 0
         store = None
         tune_store = None
         if cache_dir is not None:
-            # the store identity covers schema AND planner configuration:
-            # plans are planner output, so a store warmed under another
-            # mode/use_fkpk must never serve this service
+            # the store identity covers schema AND planner configuration
+            # AND shard topology: plans are planner output, so a store
+            # warmed under another mode/use_fkpk must never serve this
+            # service, and each topology keeps its own entries
             store = PlanStore(cache_dir,
                               store_fingerprint(schema, mode, use_fkpk,
-                                                topology=self._topo))
+                                                topology=self._topo),
+                              read_only=read_only)
             # tuned kernel configs persist beside the plans, scoped by the
             # same topology
-            tune_store = TuneStore(cache_dir, topology=self._topo)
+            tune_store = TuneStore(cache_dir, topology=self._topo,
+                                   read_only=read_only)
         self.cache = PlanCache(plan_capacity, exec_capacity, fused_capacity,
                                padded_capacity, store=store)
         # kernel autotuning: the tuner resolves configs table → store →
@@ -358,7 +434,8 @@ class QueryService:
         # over identical data loads every table from disk and reports
         # ``stat_refreshes == 0``.
         self.stats = StatsCatalog(schema)
-        self.stats_store = (StatsStore(cache_dir, schema_fingerprint(schema))
+        self.stats_store = (StatsStore(cache_dir, schema_fingerprint(schema),
+                                       read_only=read_only)
                             if cache_dir is not None else None)
         # live content tokens per relation — refreshed on update_table; the
         # store key composites each table's token with its FK destinations'
@@ -369,6 +446,10 @@ class QueryService:
             self._refresh_stats(name)
         if self.stats_store is not None:
             fb = self.stats_store.load_feedback()
+            if self._sync is not None:
+                # every rank starts from the feedback rank 0 read
+                fb = self._sync.run("load_feedback",
+                                    lambda _: self._sync.share(fb))
             if fb is not None:
                 self.stats.load_feedback(fb)
         # fingerprint → last fusion-admission decision payload, for
@@ -428,6 +509,19 @@ class QueryService:
                     f"table {name!r} lies on {table.device}, the existing "
                     f"table on {old.device}; the service serves on its "
                     "tables' device")
+        token = table.content_token()
+        if self._sync is None:
+            self._swap_table(name, table, token)
+            return
+
+        def step(_):
+            # every rank must be swapping in the same data
+            self._sync.check(("update_table", name, token))
+            self._swap_table(name, table, token)
+
+        self._sync.run(("update_table", name), step)
+
+    def _swap_table(self, name: str, table: Table, token: str) -> None:
         with self._lock:
             old_bucket = self._bucket_cap(self._db[name].capacity) \
                 if name in self._db else None
@@ -441,7 +535,7 @@ class QueryService:
         # whose FK points AT it (their orphan counts read the new data).
         # Outside the lock — stats computes copy device tensors to the host
         # and the catalog has its own synchronisation.
-        self._tokens[name] = table.content_token()
+        self._tokens[name] = token
         self._refresh_stats(name)
         for fk in self.schema.foreign_keys:
             if fk.dst == name and fk.src in self._db:
@@ -497,7 +591,11 @@ class QueryService:
 
     def _bucket_cap(self, n_rows: int) -> int:
         """The shape bucket an n-row table pads to: the next power of two,
-        at least ``min_bucket``."""
+        at least ``min_bucket``; on a mesh, power-of-two blocks per shard
+        (``min_bucket`` bounds the PER-SHARD block there, so growth inside
+        every shard's bucket reuses the compiled ring program)."""
+        if self._mesh is not None:
+            return self._executor.shard_capacity(n_rows, self.min_bucket)
         return bucket_capacity(n_rows, self.min_bucket)
 
     def _snapshot(self, rels) -> tuple[ShapeBucket, dict[str, Table]]:
@@ -525,14 +623,24 @@ class QueryService:
         """`table` padded to `cap`, from the bounded padded-view cache.
         Entries are tagged with their source table; a tag mismatch (the
         relation was swapped after our snapshot) pads fresh but only
-        caches the view while it still describes the live table."""
+        caches the view while it still describes the live table.  On a
+        mesh the view is this rank's row block of the padded table."""
         entry, _ = self._get_or_build(
             self.cache.padded, rel,
-            lambda: (table, table.pad_to(cap)),
+            lambda: (table, self._pad_table(table, cap)),
             flight_key=("pad", rel, cap),
             valid=lambda e: e[0] is table,
             cache_if=lambda e: self._db.get(rel) is table)
         return entry[1]
+
+    def _pad_table(self, table: Table, cap: int) -> Table:
+        padded = table.pad_to(cap)
+        if self._mesh is not None:
+            from repro_torch.core.distributed import shard_table
+
+            dex = self._executor
+            padded = shard_table(padded, dex.block, dex.n_shards, dex.device)
+        return padded
 
     # ---- request plane ---------------------------------------------------
     def submit(self, query, *, tenant: str | None = None) -> QueryResult:
@@ -619,6 +727,7 @@ class QueryService:
         ``TenantAdmissionError`` when ``tenant`` is over its queue-depth
         bound or token-bucket rate (backpressure; the error names the
         tenant and the cause), ``ServiceClosedError`` after ``close()``."""
+        ident = self._identity(query) if self._multi_rank() else None
         sch = self._scheduler
         if sch is None:
             from repro_torch.service.scheduler import AsyncScheduler
@@ -635,7 +744,22 @@ class QueryService:
                         max_queue=max_queue,
                         tenants=self._tenant_policies)
                 sch = self._scheduler
-        return sch.submit_async(query, tenant=tenant)
+        return sch.submit_async(query, tenant=tenant, ident=ident)
+
+    def _multi_rank(self) -> bool:
+        return self._sync is not None and self._sync.world > 1
+
+    def _identity(self, query) -> str:
+        """What a rank other than 0 matches one of rank 0's async claims
+        by: the SQL text, or the canonical fingerprint of an ``AggQuery``.
+        An opaque one has none another process could check, and is refused
+        at once (on every rank alike)."""
+        if isinstance(query, str):
+            return "sql " + hashlib.sha256(query.encode()).hexdigest()
+        canon = canonicalize(query)
+        if not canon.shareable:
+            raise AdmissionError(_OPAQUE_ON_MESH)
+        return "query " + canon.fingerprint
 
     def close(self, timeout: float | None = 10.0) -> None:
         """Stop the async batcher (if started), draining queued requests.
@@ -656,6 +780,34 @@ class QueryService:
 
     def autotune(self, kernels=("freq_join", "semi_join", "segment_sum"),
                  *, row: Callable[..., Any] | None = None) -> dict[str, Any]:
+        """Tune the kernels for this service's loaded tables (see
+        ``_autotune``).  On a mesh the search is rank 0's, on its clock:
+        every other rank installs rank 0's winners, drops its executables
+        where rank 0 dropped its own, and returns rank 0's summary."""
+        if self._sync is None:
+            return self._autotune(kernels, row)
+        lead = self._sync.rank == 0
+
+        def step(_):
+            out = self._autotune(kernels, row) if lead else None
+            out, entries = self._sync.share(
+                (out, self.tuner.table.entries() if lead else None))
+            if not lead:
+                self.tuner.adopt(entries)
+                if out["installed"]:
+                    self._drop_executables()
+            return out
+
+        return self._sync.run(("autotune", tuple(kernels)), step)
+
+    def _drop_executables(self) -> int:
+        """Drop the executable levels (plans are config-free and stay);
+        returns how many entries went."""
+        with self._lock:
+            return (self.cache.execs.invalidate_if(lambda k: True)
+                    + self.cache.fused.invalidate_if(lambda k: True))
+
+    def _autotune(self, kernels, row) -> dict[str, Any]:
         """Tune the kernels for this service's loaded tables.
 
         Runs the measured config search for every (kernel, shape-bucket)
@@ -694,12 +846,8 @@ class QueryService:
         installed = after["tune_installs"] - before["tune_installs"]
         invalidated = 0
         if installed:
-            # compiled closures captured the configs of their first call:
-            # drop the executable levels (plans are config-free and stay)
-            with self._lock:
-                invalidated = (
-                    self.cache.execs.invalidate_if(lambda k: True)
-                    + self.cache.fused.invalidate_if(lambda k: True))
+            # compiled closures captured the configs of their first call
+            invalidated = self._drop_executables()
         return {
             "buckets": caps,
             "searches": after["tune_searches"] - before["tune_searches"],
@@ -722,7 +870,17 @@ class QueryService:
         persisted in this service's own store that memory has evicted.
         Returns the number of plans exported.  Use to seed warm starts on
         other machines (ship the directory; ``cache_dir=path`` or
-        ``import_cache`` consumes it)."""
+        ``import_cache`` consumes it).  On a mesh only rank 0 writes, and
+        every rank returns its count."""
+        if self._sync is None:
+            return self._export_cache(path)
+        lead = self._sync.rank == 0
+        return self._sync.run(
+            ("export_cache", str(path)),
+            lambda _: self._sync.share(self._export_cache(path) if lead
+                                       else None))
+
+    def _export_cache(self, path) -> int:
         dest = PlanStore(path, store_fingerprint(self.schema, self.mode,
                                                  self.use_fkpk,
                                                  topology=self._topo))
@@ -787,9 +945,18 @@ class QueryService:
         """The batch pipeline: fingerprint-group → plan-unit →
         fusion-group → serve → per-request results, keyed by request id.
         Shared by sync ``submit_many`` and the async scheduler; errors
-        attach to the affected requests, never to the batch."""
+        attach to the affected requests, never to the batch.  On a mesh
+        the batch is one step of the lane, keyed by its fingerprints."""
         if not reqs:
             return {}
+        if self._sync is None:
+            return self._serve_requests(reqs)
+        key = hashlib.sha256("\n".join(
+            r.canon.fingerprint for r in reqs).encode()).hexdigest()
+        return self._sync.run(("batch", key),
+                              lambda _: self._serve_requests(reqs))
+
+    def _serve_requests(self, reqs: list[_Request]) -> dict[int, QueryResult]:
         groups: dict[str, list[_Request]] = {}
         for r in reqs:
             groups.setdefault(r.canon.fingerprint, []).append(r)
@@ -817,7 +984,8 @@ class QueryService:
             except Exception:
                 # the fused program failed as a whole — fall back to
                 # serving each member singly, so only the member(s) that
-                # actually cannot serve carry an error
+                # actually cannot serve carry an error (on a mesh, every
+                # rank sees the failure of any rank: ``Lockstep.program``)
                 for u in us:
                     u.served_sig = ""       # it is a solo serve after all
                     self._try_serve(self._serve_single, u)
@@ -826,12 +994,14 @@ class QueryService:
         # (fingerprint, fusion-group signature) — "" is the solo baseline —
         # so the grouper demotes fusions that keep regressing a member.
         # One atomic feedback write-back per observing batch.
-        observed = False
-        for u in units:
-            if u.results and all(r.error is None for r in u.group):
-                self.stats.observe_serve(u.canon.fingerprint, u.served_sig,
-                                         u.group[0].stats.run_s)
-                observed = True
+        observed = [(u.canon.fingerprint, u.served_sig,
+                     u.group[0].stats.run_s) for u in units
+                    if u.results and all(r.error is None for r in u.group)]
+        if self._sync is not None:
+            # a serve time reads a clock: every rank takes rank 0's
+            observed = self._sync.share(observed)
+        for fp, sig, run_s in observed:
+            self.stats.observe_serve(fp, sig, run_s)
         if observed and self.stats_store is not None:
             self.stats_store.save_feedback(self.stats.feedback_payload())
 
@@ -886,6 +1056,8 @@ class QueryService:
                     "first")
         with self.obs.span(trace, "fingerprint"):
             canon = canonicalize(query)
+        if not canon.shareable and self._multi_rank():
+            raise AdmissionError(_OPAQUE_ON_MESH)
         stats.fingerprint = canon.fingerprint
         trace.note(fingerprint=canon.fingerprint)
         return _Request(canon, stats, trace=trace, tenant=tenant)
@@ -1135,13 +1307,28 @@ class QueryService:
                 self._inflight.pop(fk, None)
             ev.set()
 
-    def _invoke(self, fn: Callable, sub_db: dict[str, Table]):
+    def _invoke(self, fn: Callable, sub_db: dict[str, Table], span,
+                key=None):
         """Execute one ready closure to completion: the device work it
-        queued is waited for on the tables' device, so the caller's span
-        covers it."""
-        results = fn(sub_db)
-        _sync(sub_db.values())
-        return results
+        queued is waited for on the tables' device, so the caller's
+        ``span`` covers it.  On a mesh the run is one ring program
+        (``key`` names it to the other ranks) inside a ``ring_sweep``
+        child of ``span``: the collective sweep is the mesh path's own
+        cost and gets its own timing row."""
+        if self._sync is None:
+            results = fn(sub_db)
+            _sync(sub_db.values())
+            return results
+        axes, _ = self._topo
+
+        def run():
+            with self.obs.span(span, "ring_sweep", axes="×".join(axes),
+                               shards=self._executor.n_shards):
+                results = fn(sub_db)
+                _sync(sub_db.values())
+            return results
+
+        return self._sync.program(key, run)
 
     def _finish_unit(self, u: _Unit, results: dict, *, exec_hit: bool,
                      bucket: ShapeBucket, compile_s: float, run_s: float,
@@ -1168,7 +1355,10 @@ class QueryService:
         fn, exec_hit, compile_s = self._executable(u.canon, u.plan, bucket,
                                                    sub_db, roots)
         with self.obs.span(roots, "run") as rsp:
-            results = self._invoke(fn, sub_db)
+            results = self._invoke(
+                fn, sub_db, rsp,
+                ("run", PlanCache.exec_key(u.canon.fingerprint, bucket,
+                                           self._topo)))
         self._finish_unit(u, results, exec_hit=exec_hit, bucket=bucket,
                           compile_s=compile_s, run_s=rsp.duration_s,
                           exec_source="exec_cache" if exec_hit
@@ -1194,24 +1384,23 @@ class QueryService:
             # the signature _admit_fusion computes for the same member set
             u.served_sig = signature
         compile_s = 0.0
+        key = PlanCache.fused_key(signature, bucket, self._topo)
 
         def build():
             nonlocal compile_s
             with self.obs.span(roots, "compile", cold=True, fused=True,
                                members=len(units)) as sp:
                 fn = self._executor.compile_multi(plans)
-                self._invoke(fn, sub_db)
+                self._invoke(fn, sub_db, sp, ("compile", key))
             compile_s = sp.duration_s
             self.obs.inc("compiles")
             self.obs.inc("fused_compiles")
             self.obs.inc("compile_s_total", compile_s)
             return fn
 
-        fn, exec_hit = self._get_or_build(
-            self.cache.fused,
-            PlanCache.fused_key(signature, bucket, self._topo), build)
+        fn, exec_hit = self._get_or_build(self.cache.fused, key, build)
         with self.obs.span(roots, "run", fused=True) as rsp:
-            outs = self._invoke(fn, sub_db)
+            outs = self._invoke(fn, sub_db, rsp, ("run", key))
 
         self.obs.inc("fused_batches")
         self.obs.inc("fused_queries", len(units))
@@ -1232,6 +1421,7 @@ class QueryService:
                     parents=(),
                     ) -> tuple[Callable, bool, float]:
         compile_s = 0.0
+        key = PlanCache.exec_key(canon.fingerprint, bucket, self._topo)
 
         def build():
             nonlocal compile_s
@@ -1242,16 +1432,13 @@ class QueryService:
                 # shapes, as the JAX package traces and compiles here: the
                 # kernels' libraries load and the allocator grows inside
                 # `compile`, and `run_s` times a warm call
-                self._invoke(fn, sub_db)
+                self._invoke(fn, sub_db, sp, ("compile", key))
             compile_s = sp.duration_s
             self.obs.inc("compiles")
             self.obs.inc("compile_s_total", compile_s)
             return fn
 
-        fn, hit = self._get_or_build(
-            self.cache.execs,
-            PlanCache.exec_key(canon.fingerprint, bucket, self._topo),
-            build)
+        fn, hit = self._get_or_build(self.cache.execs, key, build)
         return fn, hit, compile_s
 
     def _serve_eager(self, u: _Unit) -> None:
@@ -1347,6 +1534,19 @@ class QueryService:
             fusion_admission = self._fusion_decisions.get(fp)
         decisions = list(plan.decisions) if plan is not None else []
         sharding = None
+        if self._mesh is not None:
+            axes, counts = self._topo
+            n = self._executor.n_shards
+            sharding = {
+                "data_axes": list(axes),
+                "shard_counts": dict(zip(axes, counts)),
+                "devices": n,
+                # every scanned relation is row-sharded over the data
+                # axes; bucket capacities are per-shard blocks × shards
+                "placement": {rel: f"rows over {'×'.join(axes)} "
+                                   f"({cap // n} rows/shard)"
+                              for rel, cap in st.bucket},
+            }
         report = {
             "fingerprint": fp,
             "mode": st.mode,
@@ -1394,7 +1594,10 @@ class QueryService:
                          + ("admitted" if fa["admitted"] else "rejected")
                          + f" — {fa['reason']}")
         lines += [
-                 "  sharding: single-device",
+                 "  sharding: " + (
+                     f"rows over {'×'.join(sharding['data_axes'])} "
+                     f"({sharding['devices']} shards)"
+                     if sharding is not None else "single-device"),
                  "  timings: " + " ".join(
                      f"{k}={v * 1e3:.2f}ms"
                      for k, v in report["timings_s"].items())]

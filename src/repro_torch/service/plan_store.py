@@ -108,8 +108,11 @@ class PlanStore:
     concurrently (the serving engine issues them from per-fingerprint
     in-flight builds); a lock guards only the counters."""
 
-    def __init__(self, root, schema_fp: str):
+    def __init__(self, root, schema_fp: str, *, read_only: bool = False):
         self.root = Path(root)
+        # read_only: loads as usual; nothing under root is created, written
+        # or evicted (a mesh service's ranks other than 0 read rank 0's)
+        self.read_only = read_only
         # entries are scoped by the store fingerprint: two services with
         # different schemas or planner configs sharing one cache_dir get
         # disjoint directories (the per-entry header check below is then
@@ -126,7 +129,8 @@ class PlanStore:
                                           # memory-only caching)
         }
         try:
-            self.plans_dir.mkdir(parents=True, exist_ok=True)
+            if not read_only:
+                self.plans_dir.mkdir(parents=True, exist_ok=True)
         except OSError:
             # unwritable root: loads will miss, saves will count errors —
             # the service degrades to memory-only caching, never crashes
@@ -217,7 +221,7 @@ class PlanStore:
         except Exception:
             # skip — and in our own directory, evict — without ever
             # crashing a request
-            if evict:
+            if evict and not self.read_only:
                 try:
                     path.unlink()
                 except OSError:
@@ -246,7 +250,10 @@ class PlanStore:
         """Persist one plan.  Returns False — without raising — when the
         plan is not serialisable (opaque selections) or the write fails
         (read-only/full disk): persistence is an optimisation, never a
-        request-path dependency."""
+        request-path dependency.  A read-only store writes nothing and
+        returns False."""
+        if self.read_only:
+            return False
         try:
             payload = plan_to_payload(plan)
             body = _canonical_body(payload)

@@ -60,6 +60,16 @@ histograms and trace retention see exactly the failed requests too
 Latency/throughput trade-off: ``max_wait_ms`` is the most a lone request
 waits for company; under load the window closes early at ``max_batch``,
 so the added latency shrinks exactly when batching pays most.
+
+On a mesh of more than one rank the window is rank 0's: its batcher forms
+the batch on its own clock and announces what it claimed through the
+service's lane (``mesh_sync.Lockstep``); every other rank's batcher,
+once it has a request queued, claims for each of rank 0's requests, in
+rank 0's order, its own earliest queued request with the same identity
+(the SQL text or the canonical fingerprint), waiting for it to be
+submitted if need be.  Every rank thus serves the same batches.  There
+the depth bounds do not apply (the queue's depth at a submission is a
+matter of timing, which differs between ranks).
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ import weakref
 from concurrent.futures import Future, InvalidStateError
 from typing import TYPE_CHECKING, Callable
 
+from repro_torch.service.mesh_sync import WAIT_S, MeshDivergence
 from repro_torch.service.observability import DEFAULT_TENANT, NULL_SPAN
 
 if TYPE_CHECKING:  # import cycle guard: engine lazily imports this module
@@ -156,6 +167,8 @@ class _Pending:
     root: object                     # enqueue-time root TraceSpan
     qspan: object                    # open queue_wait child
     tenant: str
+    ident: str | None = None         # what another rank matches it by
+    seq: int = 0                     # this rank's submission number
 
 
 @dataclasses.dataclass
@@ -236,7 +249,13 @@ class AsyncScheduler:
             if not isinstance(pol, TenantPolicy):
                 raise TypeError(f"tenants[{name!r}] must be a TenantPolicy")
         self._states: dict[str, _TenantState] = {}
+        # a mesh of more than one rank: rank 0's claims rule (see the
+        # module docstring); None otherwise
+        sync = service._sync
+        self._lockstep = sync if sync is not None and sync.world > 1 \
+            else None
         self._cv = threading.Condition()
+        self._submitted = 0              # numbers requests as submitted
         self._closed = False
         self._thread = threading.Thread(target=self._drain_loop,
                                         name="query-service-batcher",
@@ -265,12 +284,13 @@ class AsyncScheduler:
     def _depth_locked(self) -> int:
         return sum(len(st.queue) for st in self._states.values())
 
-    def submit_async(self, query, *, tenant: str | None = None) \
-            -> Future[QueryResult]:
+    def submit_async(self, query, *, tenant: str | None = None,
+                     ident: str | None = None) -> Future[QueryResult]:
         """Admit one query into its tenant's queue; returns its future.
         Raises ``TenantAdmissionError`` when the tenant is over its
         queue-depth bound or token-bucket rate, ``ServiceClosedError``
-        after ``close()``."""
+        after ``close()``.  ``ident`` is the query's identity on a mesh of
+        more than one rank."""
         from repro_torch.service.engine import (ServiceClosedError,
                                           TenantAdmissionError)
         tenant = DEFAULT_TENANT if tenant is None else str(tenant)
@@ -285,7 +305,7 @@ class AsyncScheduler:
             st = self._tenant_state(tenant)
             cap = st.policy.max_queue if st.policy.max_queue is not None \
                 else self._max_queue
-            if len(st.queue) >= cap:
+            if self._lockstep is None and len(st.queue) >= cap:
                 self._obs.inc("rejected")
                 self._obs.tenant_inc(tenant, "rejected_depth")
                 raise TenantAdmissionError(
@@ -305,7 +325,9 @@ class AsyncScheduler:
             # (the scheduler hands the root through submit_many(_traces=))
             root = self._obs.begin_request(via="async", tenant=tenant)
             qspan = self._obs.open_span(root, "queue_wait")
-            st.queue.append(_Pending(query, fut, root, qspan, tenant))
+            self._submitted += 1
+            st.queue.append(_Pending(query, fut, root, qspan, tenant,
+                                     ident, self._submitted))
             self._keepalive = self._service_ref()  # pin while work pends
             self._obs.inc("async_requests")
             self._obs.set_gauge("queue_depth", self._depth_locked())
@@ -368,7 +390,21 @@ class AsyncScheduler:
 
     def _drain_loop(self) -> None:
         while True:
-            batch = self._next_batch()
+            try:
+                batch = self._next_batch()
+            except MeshDivergence as e:
+                # the ranks' claims parted: nothing queued can be served in
+                # step any more, so every queued request fails with the cause
+                with self._cv:
+                    batch = [p for st in self._states.values()
+                             for p in st.queue]
+                    for st in self._states.values():
+                        st.queue.clear()
+                    self._obs.set_gauge("queue_depth", 0)
+                for p in batch:
+                    self._end_root(p, e)
+                    _resolve(p.fut, error=e)
+                continue
             if batch is None:
                 return
             try:
@@ -389,6 +425,41 @@ class AsyncScheduler:
                     return None
                 # bounded wait: the heartbeat re-checks service liveness
                 self._cv.wait(timeout=1.0)
+            follow = self._lockstep is not None and self._lockstep.rank != 0
+        if follow:
+            bspan = self._obs.open_span(None, "batch_form")
+            batch = self._lockstep.run("async_claim", self._claim_named)
+        else:
+            bspan, batch = self._form_window()
+            if self._lockstep is not None:
+                # announce the claim: the other ranks claim the same
+                try:
+                    self._lockstep.run("async_claim", lambda _: None,
+                                       payload=[p.ident for p in batch])
+                except MeshDivergence as e:
+                    for p in batch:
+                        self._end_root(p, e)
+                        _resolve(p.fut, error=e)
+                    raise
+        # annotate BEFORE closing: close_span folds the span into
+        # histograms/export, and a closed span rejects late notes
+        bspan.note(claimed=len(batch),
+                   tenants=len({p.tenant for p in batch}))
+        self._obs.close_span(bspan)
+        for p in batch:
+            # queue time ends when the batcher claims the request; the
+            # shared formation window rides along INSIDE every member's
+            # queue_wait (it overlaps the wait, so attaching it to the
+            # request root would break root ≥ Σ direct children)
+            self._obs.close_span(p.qspan)
+            if bspan is not NULL_SPAN and p.qspan is not NULL_SPAN:
+                p.qspan.children.append(bspan)
+        return batch
+
+    def _form_window(self):
+        """Hold the formation window open, then claim (priority lanes,
+        DRR within a lane).  Returns (the window's span, the batch)."""
+        with self._cv:
             # formation window: wait for co-arriving callers (skipped when
             # the queue is already a full batch, or on shutdown).
             # time.monotonic (not the injectable obs clock) on purpose:
@@ -405,19 +476,30 @@ class AsyncScheduler:
             batch = _drr_claim(list(self._states.values()), self._max_batch)
             self._obs.set_gauge("queue_depth", self._depth_locked())
             self._obs.inc("async_batches")
-        # annotate BEFORE closing: close_span folds the span into
-        # histograms/export, and a closed span rejects late notes
-        bspan.note(claimed=len(batch),
-                   tenants=len({p.tenant for p in batch}))
-        self._obs.close_span(bspan)
-        for p in batch:
-            # queue time ends when the batcher claims the request; the
-            # shared formation window rides along INSIDE every member's
-            # queue_wait (it overlaps the wait, so attaching it to the
-            # request root would break root ≥ Σ direct children)
-            self._obs.close_span(p.qspan)
-            if bspan is not NULL_SPAN and p.qspan is not NULL_SPAN:
-                p.qspan.children.append(bspan)
+        return bspan, batch
+
+    def _claim_named(self, idents: list) -> list[_Pending]:
+        """On a rank other than 0, inside the lane's claim step: for each
+        identity rank 0 claimed, in its order, this rank's earliest queued
+        request with that identity (waiting for it to be submitted)."""
+        def earliest(ident):
+            found = [(p.seq, st, p) for st in self._states.values()
+                     for p in st.queue if p.ident == ident]
+            return min(found, key=lambda f: f[0])[1:] if found else None
+
+        batch = []
+        with self._cv:
+            for ident in idents:
+                if not self._cv.wait_for(lambda: earliest(ident) is not None,
+                                         WAIT_S):
+                    raise MeshDivergence(
+                        "rank 0 claimed a request this rank was not given "
+                        f"within {WAIT_S:g} s")
+                st, p = earliest(ident)
+                st.queue.remove(p)
+                batch.append(p)
+            self._obs.set_gauge("queue_depth", self._depth_locked())
+            self._obs.inc("async_batches")
         return batch
 
     def _serve(self, batch: list[_Pending]) -> None:

@@ -63,8 +63,11 @@ class StatsStore:
     Thread-safe: a lock guards the counters; file operations are atomic
     per entry (temp file + ``os.replace``)."""
 
-    def __init__(self, root, schema_fp: str):
+    def __init__(self, root, schema_fp: str, *, read_only: bool = False):
         self.root = Path(root)
+        # read_only: loads as usual; nothing under root is created, written
+        # or evicted (a mesh service's ranks other than 0 read rank 0's)
+        self.read_only = read_only
         self.stats_dir = self.root / "stats" / schema_fp[:16]
         self.schema_fp = schema_fp
         self._lock = threading.Lock()
@@ -76,7 +79,8 @@ class StatsStore:
             "stats_persist_write_errors": 0,
         }
         try:
-            self.stats_dir.mkdir(parents=True, exist_ok=True)
+            if not read_only:
+                self.stats_dir.mkdir(parents=True, exist_ok=True)
         except OSError:
             # unwritable root: loads miss, saves count errors — the
             # service degrades to in-memory statistics, never crashes
@@ -199,6 +203,8 @@ class StatsStore:
             return None, True
 
     def _evict(self, path: Path) -> None:
+        if self.read_only:
+            return
         try:
             path.unlink()
         except OSError:
@@ -208,6 +214,8 @@ class StatsStore:
                 self._entries = max(0, self._entries - 1)
 
     def _write(self, path: Path, fields: dict) -> bool:
+        if self.read_only:
+            return False
         doc = {
             "format_version": STATS_FORMAT_VERSION,
             "schema_fingerprint": self.schema_fp,

@@ -72,9 +72,13 @@ class TuneStore:
     """Versioned, checksummed, corruption-tolerant tuned-config
     persistence.  Thread-safe: a lock guards only the counters."""
 
-    def __init__(self, root, topology: tuple = ()):
+    def __init__(self, root, topology: tuple = (), *,
+                 read_only: bool = False):
         self.root = Path(root)
         self.topology = tuple(topology)
+        # read_only: loads as usual; nothing under root is created, written
+        # or evicted (a mesh service's ranks other than 0 read rank 0's)
+        self.read_only = read_only
         self.tune_dir = self.root / "tune" / _topology_tag(self.topology)
         self._lock = threading.Lock()
         self.counters = {
@@ -85,7 +89,8 @@ class TuneStore:
             "tune_persist_write_errors": 0,
         }
         try:
-            self.tune_dir.mkdir(parents=True, exist_ok=True)
+            if not read_only:
+                self.tune_dir.mkdir(parents=True, exist_ok=True)
         except OSError:
             # unwritable root: loads miss, saves count errors — the
             # service degrades to default configs, never crashes
@@ -165,7 +170,7 @@ class TuneStore:
             return KernelConfig(**{k: int(v) for k, v in raw_cfg.items()}), \
                 False
         except Exception:
-            if evict:
+            if evict and not self.read_only:
                 try:
                     path.unlink()
                 except OSError:
@@ -217,7 +222,10 @@ class TuneStore:
     def save(self, kernel: str, shape, backend: str, config: KernelConfig,
              *, measurements: dict | None = None) -> bool:
         """Persist one winner (atomically).  Returns False — without
-        raising — when the write fails: tuning degrades to in-memory."""
+        raising — when the write fails: tuning degrades to in-memory —
+        or the store is read-only."""
+        if self.read_only:
+            return False
         payload = {
             "config": dataclasses.asdict(config),
             "measurements": {k: float(v)

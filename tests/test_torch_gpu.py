@@ -1037,6 +1037,30 @@ def test_mesh_at_world_size_1_matches_local_executor(nccl_mesh, monkeypatch,
         assert torch.equal(got[k], want[k]), k
 
 
+def test_mesh_service_at_world_size_1_matches_local_service(nccl_mesh):
+    """V.1 as SQL through ``QueryService(mesh=...)`` on a one-rank NCCL
+    mesh, batched and alone: bitwise the local service's (one shard pads as
+    one device does), with K1 and K2 launched in the ring programs."""
+    from repro_torch.service import QueryService
+    db, schema = trel.make_tpch_db(scale=2000, seed=1, device="cuda")
+    msvc = QueryService(db, schema, mesh=nccl_mesh)
+    lsvc = QueryService(db, schema)
+    for k in (tsj.K1, tfj.K2):
+        k.reset_counts()
+    batch = msvc.submit_many(SERVE_V1)
+    launched = (tsj.K1.launches, tfj.K2.launches)
+    assert all(n > 0 for n in launched), launched
+    want = lsvc.submit_many(SERVE_V1)
+    for sql, got, w in zip(SERVE_V1, batch, want):
+        assert got.ok and w.ok, (got.error, w.error)
+        host = {k: v.cpu() for k, v in w.values.items()}
+        _values_equal(got.values, host)
+        _values_equal(msvc.submit(sql).values, host)
+    spans = [sp.name for sp in batch[0].stats.trace.walk()]
+    assert "ring_sweep" in spans, spans
+    assert msvc.metrics_v2()["gauges"]["mesh_devices"] == 1
+
+
 @pytest.mark.parametrize("mode", ["sum", "any"])
 def test_ring_steps_over_child_blocks_match_one_call(cuda, mode):
     """One rank's ring steps over P = 4 child blocks, folded as the ring
