@@ -187,6 +187,19 @@ the card; K3's launches there are the ``kernels`` line's
 through K3 and through the plain version, and ``torch.bincount`` (the
 library call of the function) on the prefill's first layer's routing; a
 second ``lm_profile`` line profiles one of its decode steps.
+``lm_mixers``: the recurrent families at their full published widths and
+depth, rwkv6-1.6b (24 RWKV6 blocks, d_model 2048, 32 WKV heads of 64,
+d_ff 7168, vocab 65536, chunk 64) and zamba2-1.2b (38 Mamba2 layers,
+d_inner 4096, 64 SSM heads of 64, state 64, chunk 128, one shared
+attention+MLP block applied before each of 7 groups), each as smollm is
+driven above (``lm_setup``, ``lm_serve`` over the same traffic and long
+wave, ``lm_profile``, ``lm_check``), plus ``lm_state``: in float32, the
+chunked prefill's final recurrent states (``wkv``/``tok``/``ffn``, or
+``ssm``/``conv``) against those of per-token ``decode_step`` from a fresh
+state over the same prompt, within ``LM_STATE_TOL``.  The kernels' counts
+are set to 0 just before the phase and read just after: no kernel of the
+port lies on these paths, and the ``kernels`` line's
+``lm_mixers_launches`` (0 for each) say so.
 
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
@@ -198,8 +211,9 @@ line ``{"kernels_x64": [...]}`` with the
 64-bit instances' times, bounds and launches, one JSON line
 ``{"kernels": [...]}`` with each kernel's time, bound, plain-version and
 library time on the int32 main path and its launches in the ``mesh`` and
-``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``; K3's
-also with its LM launches), the
+``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``), in
+the recurrent LM phase (``lm_mixers_launches``; K3's also with its other
+LM launches), the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
@@ -1890,6 +1904,14 @@ LM_CHECK = {"n_requests": 8, "n_slots": 4, "prompt_len": 16, "max_new": 8,
 # Moonlight-16B-A3B at its published widths, depth cut to fit the run
 LM_MOE = {"n_layers": 2, "n_requests": 4, "n_slots": 4, "prompt_len": 64,
           "max_new": 8}
+# the recurrent families, at full published width and depth
+LM_MIXERS = ("rwkv6-1.6b", "zamba2-1.2b")
+# float32 on the card: the chunked prefill's final states against the
+# per-token recurrence's, per state, relative to its largest magnitude; the
+# JAX package's bound between the two forms of one mixer is rtol = atol =
+# 2e-4 (tests/test_mixers.py), and float32 sums in two orders drift far
+# less than that through 24 or 38 layers
+LM_STATE_TOL = 2e-4
 
 
 def lm_prompts(n: int, length: int, vocab: int, seed: int) -> list:
@@ -1976,20 +1998,46 @@ def lm_wave_steps(torch, tm, model, cfg, traffic: dict, prompts,
         wave.update(prefill_ms=ms[0], decode_ms=ms[1:])
 
 
-def lm_decode_bytes(model, cfg, n_slots: int, max_len: int) -> dict:
+def lm_state_bytes(tm, cfg, n_slots: int, max_len: int) -> int:
+    """Bytes one decode step moves in its caches, counted from the shapes
+    ``init_decode_state`` gives (on the meta device): a KV cache is read at
+    every position (``attention_decode`` masks, it does not slice) and
+    written at one; a recurrent state is read and written whole."""
+    total = 0
+    for name, t in tm.init_decode_state(cfg, n_slots, max_len,
+                                        "meta").items():
+        if name == "pos":
+            continue
+        nbytes = t.numel() * t.element_size()
+        total += (nbytes // max_len * (max_len + 1) if name in ("k", "v")
+                  else 2 * nbytes)
+    return total
+
+
+def lm_weight_reads(tm, model, cfg, min_dim: int = 1) -> int:
+    """Weights of ``min_dim`` or more dimensions a decode step reads, the
+    embedding aside, the hybrid's shared block once per application."""
+    uses = 1
+    if cfg.family == "hybrid":
+        uses = tm.init_decode_state(cfg, 1, 1, "meta")["k"].shape[0]
+    return sum(w.numel() * (uses if name.startswith("shared.") else 1)
+               for name, w in model.named_parameters()
+               if name != "embed.embedding" and w.dim() >= min_dim)
+
+
+def lm_decode_bytes(tm, model, cfg, n_slots: int, max_len: int) -> dict:
     """Bytes one decode step must move at its dtypes, counted from the
-    model's shapes.  ``cast``: each float32 weight read once by its cast to
-    bfloat16, the copy written and read by its matmul (8 B a weight; the
-    embedding only for the slots' rows, read and cast); ``f32_once``: each
-    weight read once as stored (4 B).  Both add the KV cache, which the
-    step reads at every position (``attention_decode`` masks, it does not
-    slice) and writes at one."""
-    emb = model.embed.embedding
-    n = sum(w.numel() for w in model.parameters()) - emb.numel()
+    model's shapes.  ``cast``: each float32 weight read by its cast to
+    bfloat16 at each use, the copy written and read by its matmul (8 B a
+    weight; the embedding only for the slots' rows, read and cast);
+    ``f32_once``: each weight read once as stored (4 B).  Both add the
+    caches (``lm_state_bytes``)."""
+    n = sum(w.numel() for w in model.parameters()) \
+        - model.embed.embedding.numel()
     rows = n_slots * cfg.d_model * 6
-    kv = 2 * cfg.n_layers * n_slots * cfg.n_kv_heads * cfg.d_head * 2
-    return {"cast": 8 * n + rows + kv * (max_len + 1),
-            "f32_once": 4 * n + rows + kv * (max_len + 1)}
+    state = lm_state_bytes(tm, cfg, n_slots, max_len)
+    return {"cast": 8 * lm_weight_reads(tm, model, cfg) + rows + state,
+            "f32_once": 4 * n + rows + state}
 
 
 def lm_near_tie(torch, tm, model, cfg, prompt, toks, j: int) -> bool:
@@ -2110,7 +2158,7 @@ def lm_profile_line(torch, tm, model, cfg, traffic: dict, card,
     to_copy_ms = sum(ev.device_time_total for ev in to_copy) / 1e3
     weights = [w for name, w in model.named_parameters()
                if name != "embed.embedding" and w.dim() > 1]
-    cast_bound = bound_ms(6 * sum(w.numel() for w in weights))
+    cast_bound = bound_ms(6 * lm_weight_reads(tm, model, cfg, min_dim=2))
     return {"lm_profile": "decode_step", "arch": cfg.name,
             "slots": t["n_slots"], "profiled_wall_ms": wall_ms,
             "device_ms": busy, "idle_share": 1 - busy / wall_ms,
@@ -2124,22 +2172,24 @@ def lm_profile_line(torch, tm, model, cfg, traffic: dict, card,
             "top": [[k[:80], ms, c] for k, ms, c in rows[:5]], **card}
 
 
-def lm_serve_lines(torch, card, dev) -> list[dict]:
-    """smollm-135m at its full width, float32 masters and bfloat16 compute:
-    the launcher's traffic, one long-prompt wave, one profiled decode step,
-    then the float32 checks (``lm_check_line``).  No kernel of the port
-    runs here: a dense model's path is plain PyTorch."""
+def lm_serve_lines(torch, card, dev,
+                   arch: str = "smollm-135m") -> list[dict]:
+    """``arch`` at its full published width, float32 masters and bfloat16
+    compute: the launcher's traffic, one long-prompt wave, one profiled
+    decode step, then the float32 checks (``lm_check_line`` and, for a
+    recurrent family, ``lm_state_line``).  No kernel of the port runs
+    here: an LM's serving path is plain PyTorch."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.models import lm_serving as lms
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = tm.init_params(cfg, seed=LM_SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    lines = [{"lm_setup": cfg.name,
+    lines = [{"lm_setup": cfg.name, "family": cfg.family,
               "params": sum(w.numel() for w in model.parameters()),
               "param_bytes": sum(w.numel() * w.element_size()
                                  for w in model.parameters()),
@@ -2150,7 +2200,7 @@ def lm_serve_lines(torch, card, dev) -> list[dict]:
                                              traffic, seed)
         lm_wave_steps(torch, tm, model, cfg, traffic, prompts, waves)
         dec = [ms for w in waves for ms in w["decode_ms"]]
-        nbytes = lm_decode_bytes(model, cfg, traffic["n_slots"],
+        nbytes = lm_decode_bytes(tm, model, cfg, traffic["n_slots"],
                                  traffic["prompt_len"] + traffic["max_new"]
                                  + 8)
         lines.append({
@@ -2173,9 +2223,40 @@ def lm_serve_lines(torch, card, dev) -> list[dict]:
     lines.append(lm_profile_line(torch, tm, model, cfg, LM_TRAFFIC, card,
                                  dev))
     lines.append({**lm_check_line(torch, tm, lms, model, cfg, dev), **card})
+    if cfg.family in ("rwkv6", "mamba2", "hybrid"):
+        lines.append({**lm_state_line(torch, tm, model, cfg, dev), **card})
     del model
     torch.cuda.empty_cache()
     return lines
+
+
+def lm_state_line(torch, tm, model, cfg, dev) -> dict:
+    """float32 on the card: the chunked prefill's final recurrent states
+    against those of per-token ``decode_step`` from a fresh state over the
+    same prompts, each within ``LM_STATE_TOL`` of its largest
+    magnitude."""
+    import dataclasses
+    c = LM_CHECK
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = torch.as_tensor(np.stack(lm_prompts(
+        c["n_slots"], c["prompt_len"], cfg.vocab_size, LM_SEED + 5)),
+        dtype=torch.int32, device=dev)
+    chunked = tm.init_decode_state(cfg32, c["n_slots"], c["prompt_len"], dev)
+    _, chunked = tm.prefill(model, cfg32, {"tokens": toks}, chunked)
+    rec = tm.init_decode_state(cfg32, c["n_slots"], c["prompt_len"], dev)
+    for t in range(c["prompt_len"]):
+        _, rec = tm.decode_step(model, cfg32, toks[:, t:t + 1], rec)
+    errs = {}
+    for name in sorted(set(chunked) - {"pos", "k", "v"}):
+        a, b = chunked[name].double(), rec[name].double()
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+        check(errs[name] <= LM_STATE_TOL, f"lm state {cfg.name} {name}: "
+              f"chunked prefill against the recurrence {errs[name]} above "
+              f"{LM_STATE_TOL}")
+    check(bool(errs), f"lm state {cfg.name}: no recurrent state")
+    return {"lm_state": cfg.name, "dtype": "float32",
+            "prompt": [c["n_slots"], c["prompt_len"]],
+            "tol": LM_STATE_TOL, "chunked_vs_recurrence_rel_err": errs}
 
 
 def lm_moe_lines(torch, ss, kernels, card, dev):
@@ -2250,7 +2331,7 @@ def lm_moe_lines(torch, ss, kernels, card, dev):
                     out, *args, exact=True)
     first = seen[0][2]
     loads = moe.load_stats(idxs[0], cfg.n_experts).double()
-    nbytes = lm_decode_bytes(model, cfg, traffic["n_slots"],
+    nbytes = lm_decode_bytes(tm, model, cfg, traffic["n_slots"],
                              traffic["prompt_len"] + traffic["max_new"] + 8)
     dec = [ms for w in waves for ms in w["decode_ms"]]
     lines = [{"lm_moe": cfg.name, "reduced": {"n_layers": [full.n_layers,
@@ -3048,6 +3129,21 @@ def main() -> int:
         f"{lm_accounting} times, each equal to bincount and the plain "
         f"version, in {time.perf_counter() - t0:.1f} s")
 
+    # -- the recurrent families at full width, counted on their own --------
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    for arch in LM_MIXERS:
+        for line in lm_serve_lines(torch, card, dev, arch):
+            log(json.dumps(line))
+    mixers = {name: k.launches for name, (_, _, k) in kernels.items()}
+    check(not any(mixers.values()),
+          f"the recurrent LM phase launched a kernel of the port: {mixers}")
+    log(f"lm_mixers: {', '.join(LM_MIXERS)} served at full width, their "
+        f"float32 checks and chunked-against-recurrent states held; no "
+        f"kernel of the port launched ({mixers}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     rows = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -3062,7 +3158,8 @@ def main() -> int:
                      "library_ms": timing[name]["library_ms"],
                      "calls_timed": calls_timed[name],
                      "mesh_launches": mesh_launches[name],
-                     "serve_mesh_launches": serve_mesh_launches[name]})
+                     "serve_mesh_launches": serve_mesh_launches[name],
+                     "lm_mixers_launches": mixers[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

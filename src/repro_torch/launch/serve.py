@@ -1,6 +1,8 @@
 """Serving launcher: batched greedy generation over request waves.
 
-Usage (on the GPU; ``--device cpu`` runs on the CPU):
+Usage (on the GPU; ``--device cpu`` runs on the CPU; any architecture of
+``repro_torch.configs``, the recurrent rwkv6-1.6b and zamba2-1.2b among
+them):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --n-requests 8 --prompt-len 16 --max-new 32
 """

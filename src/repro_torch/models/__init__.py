@@ -1,4 +1,5 @@
-"""The LM stack's models: the dense and MoE families, on one device.
+"""The LM stack's models: the dense, MoE, rwkv6, mamba2 and hybrid
+(zamba2) families, on one device.
 
 The port of the JAX package's ``repro.models`` (``decode_state_specs``, a
 sharding annotation, has no counterpart)."""

@@ -4,8 +4,10 @@
 package's ``init_params`` returns, as nested dicts of numpy arrays, and
 returns the port's ``LM`` holding the same float32 values.  The port names
 its weights by the tree's keys, so the map is mechanical: ``layers/<path>``
-is stacked ``[L, ...]`` and row ``i`` fills ``layers.<i>.<path>``; every
-other leaf fills the weight of its own path.
+is stacked ``[L, ...]`` and row ``i`` fills ``layers.<i>.<path>`` (for the
+recurrent families ``layers/mixer/<leaf>`` fills ``layers.<i>.mixer.<leaf>``);
+every other leaf, the hybrid's unstacked ``shared/...`` among them, fills
+the weight of its own path.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 """Shared neural layers: init helper, RMSNorm, RoPE, SwiGLU, embeddings.
 
-The port of the JAX package's ``models/layers.py``.  Weights live in
+The port of the JAX package's ``models/layers.py``, plus the two places
+where the port follows how XLA rounds the reference's bfloat16 arithmetic
+on the CPU, so that a bfloat16 model computes what the reference computes
+(``silu``/``sigmoid``, ``add_rms_norm``).  Weights live in
 ``nn.Module``s whose attribute names are the keys of the JAX package's
 parameter tree (``models.convert`` carries a tree across by those names);
 the functions take the module and compute op for op as the reference does.
@@ -14,7 +17,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 
@@ -34,13 +36,37 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
     return out * (1.0 / math.sqrt(fan_in))
 
 
-def rms_norm(x, weight, eps: float):
-    """In float32, the weight applied as ``1 + w``, cast back to x's dtype."""
-    dt = x.dtype
+def rms_norm(x, weight, eps: float, dtype=None):
+    """In float32, the weight applied as ``1 + w``, cast to ``dtype`` (x's
+    own by default)."""
+    dt = x.dtype if dtype is None else dtype
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.to(torch.float32))).to(dt)
+
+
+def add_rms_norm(x, y, weight, eps: float):
+    """``(x + y, rms_norm(x + y))``, the norm reading the sum before it is
+    rounded to x's dtype.  XLA keeps a bfloat16 sum that the reference
+    casts straight to float32 (``rms_norm``'s first step) in float32, and
+    rounds only the copy the residual stream carries on; in float32 both
+    are the plain sum."""
+    s = x.to(torch.float32) + y
+    return s.to(x.dtype), rms_norm(s, weight, eps, x.dtype)
+
+
+def sigmoid(x):
+    """``1 / (1 + exp(-x))`` with each step rounded to x's dtype: XLA
+    expands the reference's logistic into these four operations and rounds
+    a bfloat16 value after each, where ``torch.sigmoid`` rounds once."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def silu(x):
+    """``x · sigmoid(x)``, rounded as the reference's ``jax.nn.silu``
+    (``sigmoid`` above)."""
+    return x * sigmoid(x)
 
 
 def rope(pos, d_head: int, theta: float):
@@ -76,7 +102,7 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x, dtype):
     h = x @ p.wi.to(dtype)
     g = x @ p.wg.to(dtype)
-    return (F.silu(g) * h) @ p.wo.to(dtype)
+    return (silu(g) * h) @ p.wo.to(dtype)
 
 
 # --------------------------------------------------------------------------

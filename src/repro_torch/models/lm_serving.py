@@ -2,9 +2,10 @@
 
 The port of the JAX package's ``models/lm_serving.py``.  ``ServeEngine``
 owns a fixed batch of request slots: a wave left-pads its prompts with
-token 0 to a common length (the padded positions are attended, as the
-reference attends them), runs one batched prefill and then single-token
-decode steps until every slot has reached EOS or the budget.  Each step's
+token 0 to a common length (the padded positions are attended, and
+ingested by a recurrent state, as in the reference), runs one batched
+prefill and then single-token decode steps until every slot has reached
+EOS or the budget; the same loop serves every family.  Each step's
 tokens come back to the host in one copy.  Neither loop runs the decode
 step whose logits the reference computes after the last token and never
 reads, so a wave runs one step fewer; the tokens are the same.

@@ -1,16 +1,21 @@
-"""Model assembly: init / forward / prefill / decode for the dense and MoE
-families.
+"""Model assembly: init / forward / prefill / decode for every family.
 
-The port of the JAX package's ``models/model.py`` for its dense/MoE
-skeleton, ``[LN → attention → LN → SwiGLU or MoE(+shared)] × L``.  The
-reference scans one block over weights stacked ``[L, ...]``; here each
-layer is a ``Block`` in an ``nn.ModuleList`` and a Python loop runs them.
-The decode caches stay stacked ``[L, B, Smax, KV, hd]`` as the reference's
-are, and are written in place; their position is a host integer, so no
-step reads the device to learn it.
+The port of the JAX package's ``models/model.py``.  One decoder skeleton,
+pluggable mixers:
 
-The rwkv6, mamba2 and hybrid families are not ported yet (``ROADMAP.md``
-§1, item 2: the mixers): building one raises ``NotImplementedError``.
+  dense   — [LN → attention → LN → SwiGLU] × L
+  moe     — [LN → attention → LN → MoE(+shared)] × L
+  rwkv6   — [RWKV block (time mix + channel mix)] × L
+  mamba2  — [LN → Mamba2 mixer] × L
+  hybrid  — zamba2: groups of ``shared_attn_every`` Mamba2 layers, each
+            group preceded by ONE weight-shared attention+MLP block (7
+            applications for 38 layers, each with its own KV cache)
+
+The reference scans one block over weights stacked ``[L, ...]``; here each
+layer is a module in an ``nn.ModuleList`` and a Python loop runs them.
+The decode caches stay stacked over layers (or the shared block's
+applications) as the reference's are, and are written in place; their
+position is a host integer, so no step reads the device to learn it.
 ``forward`` runs without rematerialisation only; the training slice brings
 ``remat`` (``ROADMAP.md`` §1, item 2: training).
 """
@@ -23,11 +28,14 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLP,
     Embed,
+    add_rms_norm,
     dense_init,
     embed_apply,
     mlp_apply,
@@ -37,8 +45,14 @@ from repro_torch.models.layers import (
 )
 
 DEFAULT_DEVICE = "cuda"
-PORTED_FAMILIES = ("dense", "moe")
-_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+# leaves the reference initialises to a constant, by leaf name: the norms,
+# rwkv6's token-shift mixes, decay bias and bonus, mamba2's A_log, D and
+# dt_bias (every other leaf but the embedding is ``dense_init``)
+_CONSTANT_LEAVES = {
+    "ln1": 0.0, "ln2": 0.0, "final_norm": 0.0, "q_norm": 0.0, "k_norm": 0.0,
+    "norm_w": 0.0, "mu": 0.5, "ffn_mu": 0.5, "w_bias": -6.0, "u": 0.0,
+    "A_log": 0.0, "D": 1.0, "dt_bias": 0.0,
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -51,14 +65,10 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md §1, item 2: the mixers rwkv6/mamba2/hybrid)")
-
-
 class Block(nn.Module):
+    """A transformer block: a dense or MoE layer, or the hybrid's shared
+    attention+MLP block."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.ln1 = param(cfg.d_model, device=device)
@@ -68,41 +78,64 @@ class Block(nn.Module):
                     else MLP(cfg.d_model, cfg.d_ff, device))
 
 
+class RWKVLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.mixer = rk.RWKV6(cfg, device)
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.mixer = m2.Mamba2(cfg, device)
+        self.ln1 = param(cfg.d_model, device=device)
+
+
+_LAYERS = {"dense": Block, "moe": Block, "rwkv6": RWKVLayer,
+           "mamba2": MambaLayer, "hybrid": MambaLayer}
+
+
 class LM(nn.Module):
-    """Uninitialised weights of one dense or MoE model, named as the JAX
-    package's parameter tree (``layers.3.attn.wq`` is ``layers/attn/wq``'s
-    row 3)."""
+    """Uninitialised weights of one model, named as the JAX package's
+    parameter tree (``layers.3.attn.wq`` is ``layers/attn/wq``'s row 3;
+    the hybrid's unstacked ``shared/attn/wq`` is ``shared.attn.wq``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_family(cfg)
+        if cfg.family not in _LAYERS:
+            raise ValueError(cfg.family)
         device = resolve_device(device)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                            device)
         self.final_norm = param(cfg.d_model, device=device)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.layers = nn.ModuleList(_LAYERS[cfg.family](cfg, device)
                                     for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared = Block(cfg, device)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     """A model with seeded random weights on ``device`` (the GPU unless the
-    caller names another), drawn by a ``torch.Generator`` on that device:
-    norms 0, the embedding normal × 0.02, every other weight
-    ``dense_init``.  The draws are not the JAX package's (tests carry its
-    weights across with ``models.convert``)."""
+    caller names another), drawn by a ``torch.Generator`` on that device,
+    each leaf as the reference's initialiser draws it: the constants of
+    ``_CONSTANT_LEAVES``, the embedding normal × 0.02, every other weight
+    ``dense_init`` (× 0.1 for rwkv6's ``ww``).  The draws are not the JAX
+    package's (tests carry its weights across with ``models.convert``)."""
     model = LM(cfg, device)
     dev = model.final_norm.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for name, w in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in _NORMS:
-                w.zero_()
+            if leaf in _CONSTANT_LEAVES:
+                w.fill_(_CONSTANT_LEAVES[leaf])
             elif leaf == "embedding":
                 w.copy_(torch.randn(w.shape, generator=gen, device=dev)
                         * 0.02)
             else:
                 w.copy_(dense_init(gen, tuple(w.shape), device=dev))
+                if leaf == "ww":   # rwkv6's decay projection: decay near 1
+                    w.mul_(0.1)
     return model
 
 
@@ -140,34 +173,114 @@ def _zero_aux(device) -> dict:
             for name in ("load_balance", "router_z", "dropped_frac")}
 
 
+def _block(bp: Block, cfg: ModelConfig, x, pos, is_global: bool, mode: str,
+           cache, slot: int, dtype):
+    """One transformer block.  "prefill" writes the prefix's keys and
+    values into the cache's ``slot`` (a layer, or an application of the
+    hybrid's shared block) from position 0; "decode" attends one token at
+    ``cache["pos"]``.  Returns (x, the MoE aux values or None)."""
+    h = rms_norm(x, bp.ln1, cfg.norm_eps)
+    if mode == "train":
+        a = attn.attention_train(bp.attn, cfg, h, pos, is_global, dtype)
+    elif mode == "prefill":
+        a, k, v = attn.attention_prefill(bp.attn, cfg, h, pos, is_global,
+                                         dtype)
+        cache["k"][slot, :, :k.shape[1]] = k.to(cache["k"].dtype)
+        cache["v"][slot, :, :v.shape[1]] = v.to(cache["v"].dtype)
+    else:
+        a = attn.attention_decode(bp.attn, cfg, h, cache["k"][slot],
+                                  cache["v"][slot], cache["pos"], is_global,
+                                  dtype)
+    x, h2 = add_rms_norm(x, a, bp.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = bp.mlp(cfg, h2, dtype)
+        return x + y, aux
+    return x + mlp_apply(bp.mlp, h2, dtype), None
+
+
 def _dense_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
-    """The blocks in order.  ``mode`` "train" sums the MoE aux values over
-    the layers; "prefill" writes the prefix's keys and values into the
-    cache from position 0; "decode" attends one token at ``cache["pos"]``.
-    Returns (x, aux)."""
+    """The blocks in order; "train" sums the MoE aux values over the
+    layers.  Returns (x, aux)."""
     dtype = cfg.compute_dtype
     aux = _zero_aux(x.device)
     for i, (lp, ig) in enumerate(zip(model.layers, _is_global_pattern(cfg))):
-        h = rms_norm(x, lp.ln1, cfg.norm_eps)
-        if mode == "train":
-            a = attn.attention_train(lp.attn, cfg, h, pos, ig, dtype)
-        elif mode == "prefill":
-            a, k, v = attn.attention_prefill(lp.attn, cfg, h, pos, ig, dtype)
-            cache["k"][i, :, :k.shape[1]] = k.to(cache["k"].dtype)
-            cache["v"][i, :, :v.shape[1]] = v.to(cache["v"].dtype)
-        else:
-            a = attn.attention_decode(lp.attn, cfg, h, cache["k"][i],
-                                      cache["v"][i], cache["pos"], ig, dtype)
-        x = x + a
-        h2 = rms_norm(x, lp.ln2, cfg.norm_eps)
-        if cfg.family == "moe":
-            y, layer_aux = lp.mlp(cfg, h2, dtype)
-            if mode == "train":
-                aux = {n: aux[n] + layer_aux[n] for n in aux}
-        else:
-            y = mlp_apply(lp.mlp, h2, dtype)
-        x = x + y
+        x, layer_aux = _block(lp, cfg, x, pos, ig, mode, cache, i, dtype)
+        if mode == "train" and layer_aux is not None:
+            aux = {n: aux[n] + layer_aux[n] for n in aux}
     return x, aux
+
+
+def _rwkv_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
+    """The RWKV blocks in order: "train" and "prefill" run the chunked form
+    from a zero state (prefill writes each layer's final state into the
+    cache), "decode" the recurrence from the cache.  Returns (x, None)."""
+    dtype = cfg.compute_dtype
+    for i, lp in enumerate(model.layers):
+        if mode == "decode":
+            x, carry = rk.rwkv6_decode(lp.mixer, cfg, x, (
+                cache["wkv"][i], cache["tok"][i], cache["ffn"][i]), dtype)
+        else:
+            x, carry = rk.rwkv6_apply(lp.mixer, cfg, x, dtype)
+        if mode != "train":
+            for name, t in zip(("wkv", "tok", "ffn"), carry):
+                cache[name][i] = t
+    return x, None
+
+
+def _mamba_layers(model: LM, cfg: ModelConfig, x, mode: str, cache,
+                  layers: range):
+    """Mamba2 layers ``layers`` in order, each ``x + mixer(LN1(x))``; the
+    ssm and conv states as ``_rwkv_stack`` treats the RWKV ones."""
+    dtype = cfg.compute_dtype
+    for i in layers:
+        lp = model.layers[i]
+        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        if mode == "decode":
+            y, (ssm, conv) = m2.mamba2_decode(lp.mixer, cfg, h,
+                                              cache["ssm"][i],
+                                              cache["conv"][i], dtype)
+        else:
+            y, (ssm, conv) = m2.mamba2_apply(lp.mixer, cfg, h, dtype)
+        if mode != "train":
+            cache["ssm"][i] = ssm
+            cache["conv"][i] = conv
+        x = x + y
+    return x
+
+
+def _mamba_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
+    return _mamba_layers(model, cfg, x, mode, cache,
+                         range(cfg.n_layers)), None
+
+
+def _hybrid_groups(cfg: ModelConfig) -> list[int]:
+    """The sizes of the hybrid's groups of Mamba2 layers, each preceded by
+    one application of the shared block: ``shared_attn_every`` layers a
+    group, the last one shorter where they do not divide."""
+    every, n = cfg.shared_attn_every, cfg.n_layers
+    return [min(every, n - off) for off in range(0, n, every)]
+
+
+def _hybrid_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
+    """For each group: the shared block (global attention; application
+    ``gi`` keeps its own KV cache slot ``gi``), then the group's Mamba2
+    layers ``off .. off + size``.  Returns (x, None)."""
+    off = 0
+    for gi, size in enumerate(_hybrid_groups(cfg)):
+        x, _ = _block(model.shared, cfg, x, pos, True, mode, cache, gi,
+                      cfg.compute_dtype)
+        x = _mamba_layers(model, cfg, x, mode, cache, range(off, off + size))
+        off += size
+    return x, None
+
+
+_STACKS = {
+    "dense": _dense_stack,
+    "moe": _dense_stack,
+    "rwkv6": _rwkv_stack,
+    "mamba2": _mamba_stack,
+    "hybrid": _hybrid_stack,
+}
 
 
 def _positions(x):
@@ -180,52 +293,83 @@ def _positions(x):
 # ==========================================================================
 @torch.inference_mode()
 def forward(model: LM, cfg: ModelConfig, batch, *, remat: str = "none"):
-    """Full-sequence forward (dense attention).  Returns (logits, aux): the
-    MoE aux values summed over the layers, zeros for a dense model."""
+    """Full-sequence forward (dense attention in the attention blocks).
+    Returns (logits, aux): the MoE aux values summed over the layers, zeros
+    for a dense model, None for the rwkv6, mamba2 and hybrid families."""
     if remat != "none":
         raise NotImplementedError(
             f"remat={remat!r}: rematerialisation comes with the training "
             "slice (ROADMAP.md §1, item 2: training)")
     dtype = cfg.compute_dtype
     x = _embed_inputs(model, cfg, batch, dtype)
-    x, aux = _dense_stack(model, cfg, x, _positions(x), "train", None)
+    x, aux = _STACKS[cfg.family](model, cfg, x, _positions(x), "train", None)
     return _head(model, cfg, x, dtype), aux
 
 
 @torch.inference_mode()
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
-    """Fresh decode caches, stacked over layers, on ``device`` (the GPU
-    unless the caller names another); ``pos`` is a host integer."""
-    check_family(cfg)
+    """Fresh decode caches on ``device`` (the GPU unless the caller names
+    another); ``pos`` is a host integer.  Attention KV caches ``k``/``v``
+    [L or applications, B, max_len, KV, hd]; rwkv6's float32 ``wkv``
+    [L, B, h, hd, hd] and last tokens ``tok``/``ffn`` [L, B, d]; mamba2's
+    float32 ``ssm`` [L, B, H, P, N] and ``conv`` [L, B, conv_width - 1,
+    d_inner + 2N].  Everything but the float32 states is in the KV dtype
+    (bfloat16 for a bfloat16 model)."""
+    if cfg.family not in _STACKS:
+        raise ValueError(cfg.family)
     device = resolve_device(device)
     kvd = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=kvd, device=device),
-            "v": torch.zeros(shape, dtype=kvd, device=device),
-            "pos": 0}
+    L = cfg.n_layers
+
+    def zeros(*shape, dtype=kvd):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    state = {}
+    if cfg.family in ("dense", "moe", "hybrid"):
+        n = L if cfg.family != "hybrid" else len(_hybrid_groups(cfg))
+        state["k"] = zeros(n, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        state["v"] = zeros(n, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    if cfg.family == "rwkv6":
+        hd = cfg.ssm_head_dim
+        state["wkv"] = zeros(L, batch, cfg.d_model // hd, hd, hd,
+                             dtype=torch.float32)
+        state["tok"] = zeros(L, batch, cfg.d_model)
+        state["ffn"] = zeros(L, batch, cfg.d_model)
+    if cfg.family in ("mamba2", "hybrid"):
+        state["ssm"] = zeros(L, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state, dtype=torch.float32)
+        state["conv"] = zeros(L, batch, cfg.conv_width - 1,
+                              cfg.d_inner + 2 * cfg.ssm_state)
+    state["pos"] = 0
+    return state
 
 
 @torch.inference_mode()
 def prefill(model: LM, cfg: ModelConfig, batch, cache: dict):
-    """Run the prompt through the model, writing its keys and values into
-    ``cache`` in place.  Returns (last-token logits [B, V], cache)."""
+    """Run the prompt through the model from a fresh state (an incoming
+    recurrent state is not read, as in the reference), writing every state
+    into ``cache`` in place.  A KV cache bounds the prompt's length; the
+    recurrent families have no bound.  Returns (last-token logits [B, V],
+    cache)."""
     dtype = cfg.compute_dtype
     x = _embed_inputs(model, cfg, batch, dtype)
-    if x.shape[1] > cache["k"].shape[2]:
+    if "k" in cache and x.shape[1] > cache["k"].shape[2]:
         raise ValueError(f"prefill of {x.shape[1]} positions into a cache "
                          f"of {cache['k'].shape[2]}")
-    x, _ = _dense_stack(model, cfg, x, _positions(x), "prefill", cache)
+    x, _ = _STACKS[cfg.family](model, cfg, x, _positions(x), "prefill",
+                               cache)
     logits = _head(model, cfg, x[:, -1:, :], dtype)
     return logits[:, 0], dict(cache, pos=cache["pos"] + x.shape[1])
 
 
 @torch.inference_mode()
 def decode_step(model: LM, cfg: ModelConfig, tokens, cache: dict):
-    """One decoding step at ``cache["pos"]`` (raises past the cache's
-    length).  tokens: [B, 1].  Returns (logits [B, V], cache)."""
+    """One decoding step at ``cache["pos"]`` (an attention block raises
+    past its cache's length).  tokens: [B, 1].  Returns (logits [B, V],
+    cache)."""
     dtype = cfg.compute_dtype
     x = _scale_embeds(cfg, embed_apply(model.embed, tokens, dtype), dtype)
-    x, _ = _dense_stack(model, cfg, x, None, "decode", cache)
+    x, _ = _STACKS[cfg.family](model, cfg, x, None, "decode", cache)
     logits = _head(model, cfg, x, dtype)
     return logits[:, 0], dict(cache, pos=cache["pos"] + 1)

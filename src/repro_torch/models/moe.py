@@ -17,12 +17,11 @@ launches the segmented-sum kernel K3.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, mlp_apply, param
+from repro_torch.models.layers import MLP, mlp_apply, param, silu
 
 
 class MoE(nn.Module):
@@ -93,7 +92,7 @@ def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
     # batched per-expert SwiGLU
     h = torch.einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
     g = torch.einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
-    out_buf = torch.einsum("ecf,efd->ecd", F.silu(g) * h, p.wo.to(dtype))
+    out_buf = torch.einsum("ecf,efd->ecd", silu(g) * h, p.wo.to(dtype))
     out_buf = out_buf.reshape(e * cap, d)
 
     # combine: gather each (token, choice) result, weight by gate

@@ -26,7 +26,7 @@ import torch
 import repro_torch.core as tcore
 import repro_torch.data.relational as trel
 import repro_torch.models as tm
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import freq_join as tfj
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import segment_sum as tss
@@ -981,6 +981,61 @@ def test_lm_load_stats_launches_k3(cuda):
     assert got.dtype == torch.int32
     assert np.array_equal(got.cpu().numpy(),
                           np.bincount(idx.ravel(), minlength=64))
+
+
+def _mixer_smoke(family: str):
+    base = "rwkv6-1.6b" if family == "rwkv6" else "zamba2-1.2b"
+    cfg = dataclasses.replace(get_smoke_config(base), dtype="float32")
+    if family == "mamba2":
+        cfg = dataclasses.replace(cfg, family="mamba2", name="mamba2-smoke")
+    return cfg
+
+
+# the JAX package's bound between a chunked form and its recurrence
+MIXER_RECURRENCE_TOL = 2e-4
+
+
+@pytest.mark.parametrize("family", ["rwkv6", "mamba2", "hybrid"])
+def test_lm_mixers_match_the_cpu_and_the_recurrence(cuda, family):
+    """Each recurrent family's smoke config in float32: prefill and three
+    decode steps on the card within ``LM_F32_TOL`` of the CPU; the chunked
+    prefill's states equal those of per-token ``decode_step`` from a fresh
+    state over the same prompt, on the card."""
+    cfg = _mixer_smoke(family)
+    assert cfg.family == family
+    model = tm.init_params(cfg, seed=0, device=cuda)
+    host = tm.LM(cfg, "cpu")
+    host.load_state_dict(model.state_dict())
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    plen = 17
+    states = {}
+    for m, dev in ((model, cuda), (host, "cpu")):
+        cache = tm.init_decode_state(cfg, 2, 20, dev)
+        logits, cache = tm.prefill(m, cfg, {"tokens": torch.as_tensor(
+            toks[:, :plen], device=dev)}, cache)
+        out = [logits.cpu().double()]
+        if dev == cuda:
+            states = {k: v.clone() for k, v in cache.items() if k != "pos"}
+        for t in range(plen, 20):
+            logits, cache = tm.decode_step(m, cfg, torch.as_tensor(
+                toks[:, t:t + 1], device=dev), cache)
+            out.append(logits.cpu().double())
+        if dev == cuda:
+            card = out
+    for i, (got, want) in enumerate(zip(card, out)):
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= LM_F32_TOL, i
+    rec = tm.init_decode_state(cfg, 2, 20, cuda)
+    for t in range(plen):
+        _, rec = tm.decode_step(model, cfg, torch.as_tensor(
+            toks[:, t:t + 1], device=cuda), rec)
+    recurrent = [k for k in states if k not in ("k", "v")]
+    assert recurrent
+    for k in recurrent:
+        torch.testing.assert_close(states[k], rec[k],
+                                   rtol=MIXER_RECURRENCE_TOL,
+                                   atol=MIXER_RECURRENCE_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,28 @@
 """The port's LM models against the JAX package's, on the CPU.
 
-For each of the eight dense/MoE architectures, its smoke config
-(``get_smoke_config``) in float32 and bfloat16: the JAX package's
-``init_params`` draws the weights, ``from_reference_params`` carries them
-into the port, and the same seeded numpy tokens (plus patch embeddings for
-pixtral's vision stub) go through ``forward``, ``prefill`` and three
-``decode_step``s of both packages.  The reference runs under ``jax.jit``,
-as its serving loop runs it, once per architecture and dtype
-(module-scoped fixtures).  Logits must agree within 1e-4 of their largest
-magnitude in float32 (two layers of float32 matmuls summed in different
-orders) and 2e-2 in bfloat16 (bfloat16 rounds at 2^-7, at other places in
-XLA and PyTorch); the MoE aux values within the same bounds.
+For each of the ten architectures, its smoke config (``get_smoke_config``)
+in float32 and bfloat16, plus two variants of zamba2's: the ``mamba2``
+family (the same widths without the shared block) and a hybrid of 5
+layers, whose last group is short (groups [2, 2, 1]), so that an
+off-by-one between the groups' cache slots cannot pass by chance (float32
+only: its bfloat16 prefill logits differ from the reference's by 2.0e-2,
+from float32 reductions summed in other orders — the forward is bitwise
+equal).  The JAX package's ``init_params`` draws the weights,
+``from_reference_params`` carries them into the port, and the same seeded
+numpy tokens (plus patch embeddings for pixtral's vision stub) go through
+``forward``, ``prefill`` and three ``decode_step``s of both packages.  The
+reference runs under ``jax.jit``, as its serving loop runs it, once per
+case and dtype (module-scoped fixtures).  Logits must agree within 1e-4 of
+their largest magnitude in float32 (a few layers of float32 matmuls summed
+in different orders) and 2e-2 in bfloat16 (bfloat16 rounds at 2^-8; the
+port rounds where XLA does, ``models/layers.py``); the MoE aux values
+within the same bounds, and the recurrent families return no aux.
 
-Also: the configs equal the JAX package's, the families not ported yet
-raise, ``from_reference_params`` refuses a tree that does not fit, and the
-LM modules import neither JAX nor the JAX package.
+Also: the configs equal the JAX package's, each family's weights are the
+reference's leaves at every width (on the meta device) and drawn as its
+initialiser draws them, an unknown family raises, ``from_reference_params``
+refuses a tree that does not fit, and the LM modules import neither JAX
+nor the JAX package.
 """
 
 import dataclasses
@@ -38,9 +46,15 @@ from repro_torch.models.convert import from_reference_params
 jax.config.update("jax_platform_name", "cpu")
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-DENSE_MOE = [a for a in jconfigs.ARCHS
-             if jconfigs.get_smoke_config(a).family in ("dense", "moe")]
-NOT_PORTED = [a for a in jconfigs.ARCHS if a not in DENSE_MOE]
+# variants of a smoke config: (architecture, fields replaced)
+VARIANTS = {
+    "mamba2-smoke": ("zamba2-1.2b", {"family": "mamba2",
+                                     "name": "mamba2-smoke"}),
+    "zamba2-short-group": ("zamba2-1.2b", {"n_layers": 5}),
+}
+CASES = [(a, dt) for a in (*jconfigs.ARCHS, *VARIANTS)
+         for dt in ("float32", "bfloat16")
+         if (a, dt) != ("zamba2-short-group", "bfloat16")]
 B, S, STEPS = 2, 16, 3
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -56,23 +70,30 @@ def _tcfg(cfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(cfg))
 
 
+def _smoke(name: str):
+    """The reference's smoke config of an architecture or a variant."""
+    if name in VARIANTS:
+        arch, over = VARIANTS[name]
+        return dataclasses.replace(jconfigs.get_smoke_config(arch), **over)
+    return jconfigs.get_smoke_config(name)
+
+
 @functools.lru_cache(maxsize=None)
-def _tree(arch):
-    """The JAX package's weights for ``arch``'s smoke config (seed 0), drawn
-    once for both dtypes."""
-    cfg = jconfigs.get_smoke_config(arch)
+def _tree(name):
+    """The JAX package's weights for ``name``'s smoke config (seed 0),
+    drawn once for both dtypes."""
+    cfg = _smoke(name)
     return jax.jit(lambda key: jm.init_params(key, cfg)[0])(
         jax.random.PRNGKey(0))
 
 
-@pytest.fixture(scope="module", params=[(a, dt) for a in DENSE_MOE
-                                        for dt in ("float32", "bfloat16")],
+@pytest.fixture(scope="module", params=CASES,
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def case(request):
-    """Both packages' outputs for one architecture and dtype."""
-    arch, dt = request.param
-    cfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype=dt)
-    params = _tree(arch)
+    """Both packages' outputs for one smoke config and dtype."""
+    name, dt = request.param
+    cfg = dataclasses.replace(_smoke(name), dtype=dt)
+    params = _tree(name)
     tcfg = _tcfg(cfg)
     model = from_reference_params(jax.tree.map(np.asarray, params), tcfg,
                                   "cpu")
@@ -122,6 +143,9 @@ def test_forward_logits(case):
 
 def test_forward_aux(case):
     cfg, got, want = case["cfg"], case["got"]["aux"], case["want"]["aux"]
+    if want is None:
+        assert cfg.family in ("rwkv6", "mamba2", "hybrid") and got is None
+        return
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == torch.float32
@@ -168,24 +192,96 @@ def test_registry_equals_the_reference():
         == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
 
 
-def _family_cfgs():
-    out = {a: tconfigs.get_smoke_config(a) for a in NOT_PORTED}
-    out["mamba2"] = dataclasses.replace(
-        tconfigs.get_smoke_config("zamba2-1.2b"), name="mamba2-smoke",
-        family="mamba2")
-    return out
-
-
-@pytest.mark.parametrize("name", list(_family_cfgs()))
-def test_unported_families_raise(name):
-    cfg = _family_cfgs()[name]
-    assert cfg.family in ("rwkv6", "mamba2", "hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_unknown_family_raises():
+    """As the reference's ``init_params`` and ``init_decode_state`` raise
+    ``ValueError(cfg.family)``."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("smollm-135m"),
+                              family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
         tm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="retnet"):
         from_reference_params({}, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="retnet"):
         tm.init_decode_state(cfg, 1, 8, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
+                                  "mamba2-smoke"])
+def test_full_width_weights_are_the_reference_leaves(arch):
+    """At the published widths and depth, on the meta device (no memory):
+    every weight of the port is a leaf of the reference's tree of the same
+    shape (``layers/...`` stacked over the layers), and no leaf is left
+    over."""
+    if arch in VARIANTS:
+        base, over = VARIANTS[arch]
+        jcfg = dataclasses.replace(jconfigs.get_config(base), **over)
+    else:
+        jcfg = jconfigs.get_config(arch)
+    shapes = jax.eval_shape(lambda key: jm.init_params(key, jcfg)[0],
+                            jax.random.PRNGKey(0))
+    want = {"/".join(k.key for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+    got = {}
+    for name, w in tm.LM(ModelConfig(**dataclasses.asdict(jcfg)),
+                         "meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            key = "/".join(["layers"] + parts[2:])
+            assert got.setdefault(key, (jcfg.n_layers, *w.shape)) \
+                == (jcfg.n_layers, *w.shape), name
+        else:
+            got["/".join(parts)] = tuple(w.shape)
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
+                                  "mamba2-smoke"])
+def test_init_params_draws_the_mixers_as_the_reference(arch):
+    """Each constant leaf (token-shift mixes 0.5, decay bias −6, bonus and
+    norms 0, A_log 0, D 1, dt_bias 0) equals the reference's; each drawn
+    leaf has the reference's scale (``ww`` a tenth of ``dense_init``)."""
+    cfg = ModelConfig(**dataclasses.asdict(_smoke(arch)))
+    model = tm.init_params(cfg, seed=1, device="cpu")
+    tree = jax.tree.map(np.asarray, _tree(arch))
+    consts = {"mu", "ffn_mu", "w_bias", "u", "norm_w", "ln1", "ln2",
+              "final_norm", "A_log", "D", "dt_bias"}
+    seen = set()
+    for name, w in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            ref = tree["layers"]
+            for k in parts[2:]:
+                ref = ref[k]
+            ref = ref[int(parts[1])]
+        else:
+            ref = tree
+            for k in parts:
+                ref = ref[k]
+        leaf = parts[-1]
+        if leaf in consts:
+            assert np.array_equal(w.numpy(), ref), name
+            seen.add(leaf)
+        else:
+            assert abs(float(w.std()) / float(ref.std()) - 1.0) < 0.1, name
+    family = {"rwkv6": {"mu", "ffn_mu", "w_bias", "u", "norm_w"},
+              "mamba2": {"A_log", "D", "dt_bias", "norm_w"}}
+    assert family["rwkv6" if cfg.family == "rwkv6" else "mamba2"] <= seen
+
+
+def test_from_reference_params_refuses_a_hybrid_tree_without_shared():
+    cfg = tconfigs.get_smoke_config("zamba2-1.2b")
+    tree = jax.tree.map(np.asarray, _tree("zamba2-1.2b"))
+    model = from_reference_params(tree, cfg, "cpu")
+    assert np.array_equal(model.shared.attn.wq.numpy(),
+                          tree["shared"]["attn"]["wq"])
+    assert np.array_equal(model.layers[3].mixer.conv_w.numpy(),
+                          tree["layers"]["mixer"]["conv_w"][3])
+    with pytest.raises(KeyError, match="shared/"):
+        from_reference_params({k: v for k, v in tree.items()
+                               if k != "shared"}, cfg, "cpu")
+    mamba = dataclasses.replace(cfg, family="mamba2")
+    with pytest.raises(KeyError, match="shared"):
+        from_reference_params(tree, mamba, "cpu")
 
 
 def test_forward_refuses_remat_until_the_training_slice():
@@ -272,6 +368,8 @@ def test_lm_modules_import_neither_jax_nor_the_reference():
     pat = re.compile(r"^\s*(import jax|from jax|import repro$|import repro\.|"
                      r"from repro(\.| ))", re.M)
     files = [f for d in LM_DIRS for f in sorted((SRC / d).glob("*.py"))]
-    assert len(files) >= 19
+    assert len(files) >= 21
+    assert {SRC / "models" / "rwkv6.py", SRC / "models" / "mamba2.py"} \
+        <= set(files)
     for f in files:
         assert not pat.search(f.read_text()), f

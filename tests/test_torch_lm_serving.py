@@ -4,9 +4,12 @@
 the same weights (the JAX package's draws carried across with
 ``from_reference_params``) and the same seeded numpy prompts, must emit the
 same tokens: one wave, several waves, prompts of unequal lengths (zero
-left-padding, whose positions both attend) and an EOS.  The port's greedy
-tokens also equal a rollout of its own ``forward`` (the reference's oracle
-in ``tests/test_serving.py``).  Then the deprecated ``repro_torch.serving``
+left-padding, whose positions both attend, and which the recurrent state
+ingests) and an EOS, for dense, MoE, rwkv6 and the zamba2 hybrid.  Prompts
+are at least ``conv_width - 1`` = 3 tokens long where the reference
+prefills a Mamba2 layer (``ROADMAP.md`` §3, R5).  The port's greedy tokens
+also equal a rollout of its own ``forward`` (the reference's oracle in
+``tests/test_serving.py``).  Then the deprecated ``repro_torch.serving``
 alias and ``python -m repro_torch.launch.serve --smoke --device cpu``.
 """
 
@@ -60,7 +63,7 @@ def _rollout(model, cfg, prompt, max_new):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "moonshot-v1-16b-a3b",
-                                  "gemma3-1b"])
+                                  "gemma3-1b", "rwkv6-1.6b", "zamba2-1.2b"])
 def test_greedy_generate_matches_the_reference_and_forward(arch):
     params, cfg, model, tcfg = _models(arch, 0)
     prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 8))
@@ -92,6 +95,28 @@ def test_wave_engine_one_wave_matches_the_reference():
     for rid, p in enumerate(prompts):
         solo = tserve.greedy_generate(model, tcfg, p[None, :], 5)
         assert got[rid] == solo[0].tolist()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_wave_engine_serves_the_mixers_as_the_reference(arch):
+    """One wave of prompts of unequal lengths (3 to 9 tokens, left-padded
+    to 9), then a second wave, token for token; each request's tokens
+    also equal ``greedy_generate``'s over its left-padded prompt."""
+    params, cfg, model, tcfg = _models(arch, 4)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 9, 5, 7, 4)]
+    want = _serve(jserve.ServeEngine(params, cfg, n_slots=3, max_len=32),
+                  prompts, max_tokens=5)
+    got = _serve(tserve.ServeEngine(model, tcfg, n_slots=3, max_len=32),
+                 prompts, max_tokens=5)
+    assert got == want
+    assert all(len(v) == 5 for v in got.values())
+    for rid, wave in ((0, prompts[:3]), (1, prompts[:3]), (3, prompts[3:])):
+        plen = max(len(p) for p in wave)
+        padded = np.zeros((1, plen), np.int32)
+        padded[0, plen - len(prompts[rid]):] = prompts[rid]
+        solo = tserve.greedy_generate(model, tcfg, padded, 5)
+        assert got[rid] == solo[0].tolist(), rid
 
 
 @pytest.mark.parametrize("lengths", [(4, 4, 4, 4, 4), (3, 7, 5, 2, 6)])
@@ -144,3 +169,16 @@ def test_launcher_serves_the_smoke_config_on_the_cpu():
     assert all("4 tokens" in ln for ln in lines[:3])
     assert lines[-1].startswith("[serve] 12 tokens in ")
     assert lines[-1].endswith("on cpu")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_launcher_serves_the_mixers_smoke_configs_on_the_cpu(arch):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--n-requests", "3", "--n-slots",
+         "2", "--prompt-len", "8", "--max-new", "4"],
+        capture_output=True, text=True, env=env, timeout=300, check=True)
+    lines = out.stdout.strip().splitlines()
+    assert all("4 tokens" in ln for ln in lines[:3])
+    assert lines[-1].startswith("[serve] 12 tokens in ")
