@@ -200,6 +200,23 @@ state over the same prompt, within ``LM_STATE_TOL``.  The kernels' counts
 are set to 0 just before the phase and read just after: no kernel of the
 port lies on these paths, and the ``kernels`` line's
 ``lm_mixers_launches`` (0 for each) say so.
+``lm_train``: the training path (``repro_torch.training``) at smollm-135m's
+full width and depth, float32 masters, bfloat16 compute, ``remat="full"``
+and one microbatch over the JAX launcher's traffic (``TokenPipeline``, 8 ×
+256 tokens, seed 1234): 20 steps over 4 cycled batches at ``base_lr``
+1e-3 and warmup 5, each synchronised and timed, the losses finite and the
+mean of the last four below the first; step ms, tokens/s, peak bytes; one
+more step under ``torch.cuda.set_sync_debug_mode("error")``
+(``host_syncs_in_step``: the step reads nothing back); one
+step under ``torch.profiler`` (kernels, device ms, idle share) and one
+under ``FlopCounterMode`` (FLOPs, achieved TFLOP/s beside the bf16 peak).
+``lm_train_check``: the same model in float32, two steps at 2 × 64
+tokens, each step's loss and every leaf's gradient on the card against a
+CPU copy (``LM_TRAIN_LOSS_TOL``, ``LM_TRAIN_GRAD_TOL``).
+``lm_train_family``: rwkv6-1.6b, zamba2-1.2b and Moonlight-16B-A3B at full
+width with 2 layers, three steps each at 4 × 256 tokens, losses finite,
+step ms and peak bytes.  Counts set to 0 before the phase and read after:
+the ``kernels`` line's ``lm_train_launches`` (0 for each, checked).
 
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
@@ -213,10 +230,11 @@ line ``{"kernels_x64": [...]}`` with the
 library time on the int32 main path and its launches in the ``mesh`` and
 ``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``), in
 the recurrent LM phase (``lm_mixers_launches``; K3's also with its other
-LM launches), the
+LM launches) and in the training phase (``lm_train_launches``), the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
-that line.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
+that line; so does a run without a card, or from a directory that does
+not hold the port's ``src/repro_torch`` beside the script.  Needs a CUDA GPU of compute capability 9.0 (sm_90a) and nvcc.
 """
 
 from __future__ import annotations
@@ -2392,6 +2410,223 @@ def lm_moe_lines(torch, ss, kernels, card, dev):
 # the mesh ring sweep (repro_torch.core.distributed) at world size 1
 # ---------------------------------------------------------------------------
 # (presort, dense_domain) of each DistributedExecutor the mesh phase runs
+# ---------------------------------------------------------------------------
+# the LM training path
+# ---------------------------------------------------------------------------
+# smollm-135m at full width and depth, the JAX launcher's defaults for its
+# traffic (src/repro/launch/train.py: 8 × 256 tokens, seed 1234, remat
+# "full", one microbatch); 20 steps over 4 cycled batches
+LM_TRAIN = {"arch": "smollm-135m", "global_batch": 8, "seq_len": 256,
+            "seed": 1234, "steps": 20, "batches": 4, "base_lr": 1e-3,
+            "warmup": 5, "microbatches": 1, "remat": "full"}
+# float32, card against CPU: each step's loss within LOSS_TOL relative and
+# each leaf's gradient within GRAD_TOL of its largest |g| (the CPU tests'
+# float32 bounds against the JAX package)
+LM_TRAIN_CHECK = {"steps": 2, "global_batch": 2, "seq_len": 64}
+LM_TRAIN_LOSS_TOL = 1e-5
+LM_TRAIN_GRAD_TOL = 1e-4
+# the other families at full width, depth cut to the layers given: rwkv6's
+# two RWKV blocks, zamba2's one group (the shared block and 2 Mamba2
+# layers), Moonlight's 2 of 48 layers as lm_moe takes them (29.3 GB of
+# float32 weights, gradients and moments)
+LM_TRAIN_FAMILIES = {"rwkv6-1.6b": 2, "zamba2-1.2b": 2,
+                     "moonshot-v1-16b-a3b": 2}
+LM_TRAIN_FAMILY = {"steps": 3, "global_batch": 4, "seq_len": 256}
+# the published dense bfloat16 rate of one H100 SXM at 700 W (TFLOP/s)
+BF16_PEAK_TFLOPS = 989.0
+
+
+def lm_train_steps(torch, step, state, batches, n: int):
+    """``n`` train steps over ``batches`` in turn, each synchronised and
+    timed on the host; its metrics read after the timing.  Returns (the
+    state, each step's ms, each step's loss and grad_norm)."""
+    ms, losses, norms = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    return state, ms, losses, norms
+
+
+def lm_train_step_unsynced(torch, step, state, batch):
+    """One more train step under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises on the synchronising calls it detects: the step reads
+    nothing back to the host."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return state
+
+
+def lm_train_line(torch, tm, tt, card, dev) -> list[dict]:
+    """smollm-135m at full width and depth, float32 masters and bfloat16
+    compute, trained for ``LM_TRAIN["steps"]`` steps: losses finite and
+    the mean of the last four below the first; step ms, tokens/s, peak
+    bytes; then one step profiled (kernels, device ms, idle share) and one
+    counted by ``FlopCounterMode`` (its matmul FLOPs, the recomputed
+    forward included) for the achieved TFLOP/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from torch.utils.flop_counter import FlopCounterMode
+    t = LM_TRAIN
+    cfg = get_config(t["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = tm.init_params(cfg, seed=LM_SEED, device=dev)
+    state = tt.init_train_state(model)
+    step = tt.build_train_step(
+        cfg, microbatches=t["microbatches"], base_lr=t["base_lr"],
+        warmup=t["warmup"], total_steps=t["steps"], remat=t["remat"])
+    pipe = TokenPipeline(cfg.vocab_size, t["seq_len"], t["global_batch"],
+                         seed=t["seed"])
+    batches = [pipe.torch_batch(i, dev) for i in range(t["batches"])]
+    state, ms, losses, norms = lm_train_steps(torch, step, state, batches,
+                                              t["steps"])
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"lm train: non-finite loss or grad_norm {losses} {norms}")
+    check(np.mean(losses[-4:]) < losses[0],
+          f"lm train: the last four losses {losses[-4:]} average no lower "
+          f"than the first {losses[0]}")
+    peak = torch.cuda.max_memory_allocated()
+    state = lm_train_step_unsynced(torch, step, state, batches[0])
+    steady = ms[1:]
+    tokens = t["global_batch"] * t["seq_len"]
+    med = statistics.median(steady)
+    wall_ms, rows, _ = profile_rows(
+        torch, lambda s: step(s, batches[0]), state)
+    busy = sum(r[1] for r in rows)
+    with FlopCounterMode(display=False) as fc:
+        step(state, batches[0])
+    flops = fc.get_total_flops()
+    n = sum(w.numel() for w in model.parameters())
+    lines = [{
+        "lm_train": cfg.name, "family": cfg.family, "params": n,
+        "state_bytes": 16 * n, "compute_dtype": cfg.dtype,
+        "traffic": {k: t[k] for k in ("global_batch", "seq_len", "seed",
+                                      "steps", "batches", "microbatches",
+                                      "remat", "base_lr", "warmup")},
+        "losses": losses, "grad_norms": norms,
+        "first_step_ms": ms[0], "step_ms_median": med,
+        "step_ms_p90": float(np.percentile(steady, 90)),
+        "tokens_per_s": tokens / (med / 1e3),
+        "peak_allocated_bytes": peak, "host_syncs_in_step": 0, **card}, {
+        "lm_train_profile": cfg.name, "profiled_wall_ms": wall_ms,
+        "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+        "kernels": sum(r[2] for r in rows),
+        "flops_per_step": flops,
+        "achieved_tflops": flops / (med / 1e3) / 1e12,
+        "bf16_peak_tflops": BF16_PEAK_TFLOPS,
+        "top": [[k[:80], kms, c] for k, kms, c in rows[:6]], **card}]
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return lines
+
+
+def lm_train_check_line(torch, tm, tt, dev) -> dict:
+    """The same model in float32 (TF32 stays off): for each of
+    ``LM_TRAIN_CHECK["steps"]`` steps, the loss and every leaf's gradient
+    on the card against a CPU copy, then the step on both."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    c, t = LM_TRAIN_CHECK, LM_TRAIN
+    cfg = dataclasses.replace(get_config(t["arch"]), dtype="float32")
+    model = tm.init_params(cfg, seed=LM_SEED, device=dev)
+    host = tm.LM(cfg, "cpu")
+    host.load_state_dict(model.state_dict())
+    pipe = TokenPipeline(cfg.vocab_size, c["seq_len"], c["global_batch"],
+                         seed=t["seed"])
+    sides = []
+    for m, d in ((model, dev), (host, "cpu")):
+        step = tt.build_train_step(cfg, base_lr=t["base_lr"], warmup=1,
+                                   total_steps=t["steps"], remat=t["remat"])
+        sides.append([tt.init_train_state(m), step, d])
+    loss_errs, grad_errs = [], []
+    for i in range(c["steps"]):
+        out = []
+        for side in sides:
+            state, step, d = side
+            batch = pipe.torch_batch(i, d)
+            loss, _ = tt.train_loss(state.model, cfg, batch, remat=t["remat"])
+            grads = torch.autograd.grad(loss, list(state.params.values()))
+            out.append((float(loss.detach()),
+                        [g.cpu().double() for g in grads]))
+            side[0], metrics = step(state, batch)
+            out[-1] += (float(metrics["loss"]),)
+        (lc, gc, sc), (lh, gh, sh) = out
+        loss_errs.append(max(abs(lc - lh) / abs(lh), abs(sc - sh) / abs(sh)))
+        grad_errs.append(max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(gc, gh) if b.abs().max() > 0))
+        check(loss_errs[-1] <= LM_TRAIN_LOSS_TOL,
+              f"lm train check step {i}: loss card vs CPU {loss_errs[-1]}")
+        check(grad_errs[-1] <= LM_TRAIN_GRAD_TOL,
+              f"lm train check step {i}: gradients card vs CPU "
+              f"{grad_errs[-1]}")
+    del sides, model, host
+    torch.cuda.empty_cache()
+    return {"lm_train_check": cfg.name, "dtype": "float32",
+            "batch": [c["global_batch"], c["seq_len"]],
+            "loss_tol": LM_TRAIN_LOSS_TOL, "grad_tol": LM_TRAIN_GRAD_TOL,
+            "loss_rel_err": loss_errs, "grad_rel_err": grad_errs}
+
+
+def lm_train_family_line(torch, tm, tt, arch: str, n_layers: int, card,
+                         dev) -> dict:
+    """``arch`` at its full published width with ``n_layers`` layers,
+    bfloat16 compute over float32 masters, ``remat="full"``: a few steps,
+    losses finite; step ms and peak bytes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    c = LM_TRAIN_FAMILY
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = tt.init_train_state(tm.init_params(cfg, seed=LM_SEED,
+                                               device=dev))
+    step = tt.build_train_step(cfg, base_lr=LM_TRAIN["base_lr"], warmup=1,
+                               total_steps=c["steps"], remat="full")
+    pipe = TokenPipeline(cfg.vocab_size, c["seq_len"], c["global_batch"],
+                         seed=LM_TRAIN["seed"])
+    batches = [pipe.torch_batch(i, dev) for i in range(c["steps"])]
+    state, ms, losses, norms = lm_train_steps(torch, step, state, batches,
+                                              c["steps"])
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"lm train {arch}: non-finite loss or grad_norm {losses} {norms}")
+    peak = torch.cuda.max_memory_allocated()
+    state = lm_train_step_unsynced(torch, step, state, batches[0])
+    n = sum(w.numel() for w in state.model.parameters())
+    line = {"lm_train_family": cfg.name, "family": cfg.family,
+            "n_layers": n_layers, "params": n, "state_bytes": 16 * n,
+            "batch": [c["global_batch"], c["seq_len"]], "losses": losses,
+            "grad_norms": norms, "step_ms": ms,
+            "peak_allocated_bytes": peak, "host_syncs_in_step": 0, **card}
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_lines(torch, card, dev) -> list[dict]:
+    """The ``lm_train`` phase: smollm-135m trained at full width
+    (``lm_train_line``), its float32 check against the CPU, then the other
+    families at full width and cut depth."""
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    lines = lm_train_line(torch, tm, tt, card, dev)
+    lines.append({**lm_train_check_line(torch, tm, tt, dev), **card})
+    for arch, n_layers in LM_TRAIN_FAMILIES.items():
+        lines.append(lm_train_family_line(torch, tm, tt, arch, n_layers,
+                                          card, dev))
+    return lines
+
+
 MESH_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
 MESH_REPS = 5
 MESH_STEP_SIZES = (2, 4, 8)
@@ -2861,7 +3096,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no port at {src / 'repro_torch'}: run the script "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
     from repro_torch import core as tc
     from repro_torch import data
     from repro_torch import service as tsvc
@@ -3144,6 +3384,21 @@ def main() -> int:
         f"kernel of the port launched ({mixers}), in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # -- the LM training path at full width, counted on its own -------------
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    for line in lm_train_lines(torch, card, dev):
+        log(json.dumps(line))
+    train = {name: k.launches for name, (_, _, k) in kernels.items()}
+    check(not any(train.values()),
+          f"the LM training phase launched a kernel of the port: {train}")
+    log(f"lm_train: {LM_TRAIN['arch']} trained at full width, its losses "
+        f"finite and falling, its float32 step equal to the CPU's within "
+        f"the stated bounds; {', '.join(LM_TRAIN_FAMILIES)} trained at full "
+        f"width and cut depth; no kernel of the port launched ({train}), "
+        f"in {time.perf_counter() - t0:.1f} s")
+
     rows = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -3159,7 +3414,8 @@ def main() -> int:
                      "calls_timed": calls_timed[name],
                      "mesh_launches": mesh_launches[name],
                      "serve_mesh_launches": serve_mesh_launches[name],
-                     "lm_mixers_launches": mixers[name]})
+                     "lm_mixers_launches": mixers[name],
+                     "lm_train_launches": train[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

@@ -1,3 +1,4 @@
+from repro_torch.data.lm_pipeline import TokenPipeline
 from repro_torch.data.relational import (
     make_graph_db,
     make_stats_db,
@@ -10,6 +11,7 @@ from repro_torch.data.relational import (
 )
 
 __all__ = [
+    "TokenPipeline",
     "make_graph_db",
     "make_stats_db",
     "make_tpch_db",

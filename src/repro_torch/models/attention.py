@@ -25,7 +25,14 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, param, rms_norm, rope
+from repro_torch.models.layers import (
+    apply_rope,
+    einsum,
+    matmul,
+    param,
+    rms_norm,
+    rope,
+)
 
 NEG_INF = -1e30
 
@@ -54,9 +61,9 @@ def _qkv(p: Attention, cfg: ModelConfig, x, pos, dtype):
     """Project + (qk-norm) + rope.  q [B,S,KV,G,hd], k and v [B,S,KV,hd]."""
     b, s = x.shape[:2]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p.wq.to(dtype)).reshape(b, s, h, hd)
-    k = (x @ p.wk.to(dtype)).reshape(b, s, kv, hd)
-    v = (x @ p.wv.to(dtype)).reshape(b, s, kv, hd)
+    q = matmul(x, p.wq.to(dtype)).reshape(b, s, h, hd)
+    k = matmul(x, p.wk.to(dtype)).reshape(b, s, kv, hd)
+    v = matmul(x, p.wv.to(dtype)).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -86,12 +93,13 @@ def attention_train(p: Attention, cfg: ModelConfig, x, pos, is_global: bool,
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, pos, dtype)
     mask = _mask(pos[0], pos[0], window_of(cfg), is_global)
-    scores = torch.einsum("bqhgk,bshk->bhgqs", q, k) \
+    scores = einsum("bqhgk,bshk->bhgqs", q, k) \
         / _sqrt_hd(cfg.d_head).to(dtype)
     scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
-    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo.to(dtype)
+    out = einsum("bhgqs,bshk->bqhgk", probs, v)
+    return matmul(out.reshape(b, s, cfg.n_heads * cfg.d_head),
+                  p.wo.to(dtype))
 
 
 def attention_prefill(p: Attention, cfg: ModelConfig, x, pos,
@@ -119,18 +127,18 @@ def attention_prefill(p: Attention, cfg: ModelConfig, x, pos,
         vc = v[:, idx * chunk:(idx + 1) * chunk]
         kp = qp[0] + idx * chunk + torch.arange(chunk, device=x.device)
         msk = _mask(qp, kp, window, is_global)
-        sc = torch.einsum("bqhgk,bshk->bhgqs", q, kc).to(f32) * scale
+        sc = einsum("bqhgk,bshk->bhgqs", q, kc).to(f32) * scale
         sc = torch.where(msk, sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         pexp = torch.exp(sc - m_new[..., None])
         l = l * alpha + pexp.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + einsum(
             "bhgqs,bshk->bhgqk", pexp.to(dtype), vc).to(f32)
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
     out = torch.movedim(out, 3, 1).reshape(b, s, cfg.n_heads * hd)
-    return out @ p.wo.to(dtype), k, v
+    return matmul(out, p.wo.to(dtype)), k, v
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
@@ -155,10 +163,9 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
     window = window_of(cfg)
     if window is not None and not is_global:
         valid = valid & ((pos - kp) < window)
-    sc = torch.einsum("bqhgk,bshk->bhgqs", q,
-                      cache_k.to(dtype)).to(torch.float32)
+    sc = einsum("bqhgk,bshk->bhgqs", q, cache_k.to(dtype)).to(torch.float32)
     sc = sc / _sqrt_hd(hd)
     sc = torch.where(valid, sc, NEG_INF)
     probs = torch.softmax(sc, dim=-1).to(dtype)
-    out = torch.einsum("bhgqs,bshk->bqhgk", probs, cache_v.to(dtype))
-    return out.reshape(b, 1, cfg.n_heads * hd) @ p.wo.to(dtype)
+    out = einsum("bhgqs,bshk->bqhgk", probs, cache_v.to(dtype))
+    return matmul(out.reshape(b, 1, cfg.n_heads * hd), p.wo.to(dtype))

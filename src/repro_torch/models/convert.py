@@ -1,4 +1,5 @@
-"""Weights carried across from the JAX package's parameter tree.
+"""Weights carried across between the JAX package's parameter tree and the
+port's model.
 
 ``from_reference_params(tree, cfg, device)`` takes the tree the JAX
 package's ``init_params`` returns, as nested dicts of numpy arrays, and
@@ -7,7 +8,9 @@ its weights by the tree's keys, so the map is mechanical: ``layers/<path>``
 is stacked ``[L, ...]`` and row ``i`` fills ``layers.<i>.<path>`` (for the
 recurrent families ``layers/mixer/<leaf>`` fills ``layers.<i>.mixer.<leaf>``);
 every other leaf, the hybrid's unstacked ``shared/...`` among them, fills
-the weight of its own path.
+the weight of its own path.  ``to_reference_params`` is the inverse: the
+reference's tree, stacked ``[L, ...]``, of the model's weights or of any
+tensors named as they are (their gradients, say).
 """
 
 from __future__ import annotations
@@ -59,3 +62,31 @@ def from_reference_params(tree, cfg: ModelConfig, device=None) -> LM:
     if extra:
         raise KeyError(f"reference leaves no weight takes: {extra}")
     return model
+
+
+def to_reference_params(model: LM, cfg: ModelConfig, tensors=None) -> dict:
+    """The reference's parameter tree (nested dicts of float32 numpy
+    arrays, ``layers/...`` stacked over the layers) of ``model``'s weights,
+    or of ``tensors``, a map from the model's weight names to tensors of
+    their shapes."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    tree: dict = {}
+    stacked: dict = {}
+    for name, w in model.named_parameters():
+        arr = tensors[name].detach().to("cpu", torch.float32).numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            stacked.setdefault(("layers",) + tuple(parts[2:]),
+                               [None] * cfg.n_layers)[int(parts[1])] = arr
+        else:
+            _put(tree, parts, arr)
+    for path, rows in stacked.items():
+        _put(tree, path, np.stack(rows))
+    return tree
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value

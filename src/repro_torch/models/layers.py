@@ -1,9 +1,10 @@
 """Shared neural layers: init helper, RMSNorm, RoPE, SwiGLU, embeddings.
 
-The port of the JAX package's ``models/layers.py``, plus the two places
-where the port follows how XLA rounds the reference's bfloat16 arithmetic
-on the CPU, so that a bfloat16 model computes what the reference computes
-(``silu``/``sigmoid``, ``add_rms_norm``).  Weights live in
+The port of the JAX package's ``models/layers.py``, plus the places where
+the port follows how XLA rounds the reference's bfloat16 arithmetic on the
+CPU, so that a bfloat16 model computes what the reference computes
+(``silu``/``sigmoid``, ``add_rms_norm``, and ``matmul``/``einsum``, through
+which every product of the models runs).  Weights live in
 ``nn.Module``s whose attribute names are the keys of the JAX package's
 parameter tree (``models.convert`` carries a tree across by those names);
 the functions take the module and compute op for op as the reference does.
@@ -22,7 +23,9 @@ from torch import nn
 
 def param(*shape: int, device) -> nn.Parameter:
     """An uninitialised float32 weight (``init_params`` or
-    ``from_reference_params`` fills it).  No autograd in this slice."""
+    ``from_reference_params`` fills it), frozen: a served model records no
+    gradients, and ``training.init_train_state`` makes a model's weights
+    require them."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
 
@@ -34,6 +37,31 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
     out = torch.randn(shape, generator=gen, dtype=torch.float32,
                       device=device)
     return out * (1.0 / math.sqrt(fan_in))
+
+
+def _cpu_bf16(t) -> bool:
+    return t.dtype == torch.bfloat16 and t.device.type == "cpu"
+
+
+def matmul(a, b):
+    """``a @ b``.  A bfloat16 product on the CPU is taken as a float32 one
+    rounded once to bfloat16, as XLA's CPU backend computes the reference's
+    bfloat16 dots: torch's CPU bfloat16 GEMM also rounds once, but sums in
+    another order, and a last-bit difference in one entry is amplified
+    through a few layers past the bfloat16 tests' bound.  On the card a
+    bfloat16 GEMM runs as it is (float32 accumulation, its own order)."""
+    if _cpu_bf16(a):
+        return (a.to(torch.float32) @ b.to(torch.float32)).to(a.dtype)
+    return a @ b
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum``, with bfloat16 operands on the CPU contracted in
+    float32 and rounded once, as ``matmul``."""
+    if _cpu_bf16(operands[0]):
+        return torch.einsum(equation, *(o.to(torch.float32)
+                                        for o in operands)).to(torch.bfloat16)
+    return torch.einsum(equation, *operands)
 
 
 def rms_norm(x, weight, eps: float, dtype=None):
@@ -100,9 +128,9 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x, dtype):
-    h = x @ p.wi.to(dtype)
-    g = x @ p.wg.to(dtype)
-    return (silu(g) * h) @ p.wo.to(dtype)
+    h = matmul(x, p.wi.to(dtype))
+    g = matmul(x, p.wg.to(dtype))
+    return matmul(silu(g) * h, p.wo.to(dtype))
 
 
 # --------------------------------------------------------------------------
@@ -125,7 +153,7 @@ def embed_apply(p: Embed, tokens, dtype):
 def unembed_apply(p: Embed, x, dtype, softcap: float = 0.0):
     """Logits in the compute dtype; the embedding's transpose when tied."""
     w = p.unembed if p.unembed is not None else p.embedding.T
-    logits = x @ w.to(dtype)
+    logits = matmul(x, w.to(dtype))
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import param, rms_norm, silu
+from repro_torch.models.layers import einsum, matmul, param, rms_norm, silu
 
 
 class Mamba2(nn.Module):
@@ -73,7 +73,9 @@ def _ssd_chunked(x, dA, B, C, chunk: int):
 
     The reference's ``einsum("bij,bijh,bjhp->bihp")`` runs as the scores
     times the decay matrix, [b,i,j,h], then one batched matmul over
-    (b, h): no [b,i,j,h,p] intermediate."""
+    (b, h): no [b,i,j,h,p] intermediate.  The decay matrix is formed in
+    place without autograd and out of place when autograd records
+    (``exp``'s backward reads its output), as in ``rwkv6._wkv_chunked``."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     idx = torch.arange(chunk, device=x.device)
@@ -85,17 +87,19 @@ def _ssd_chunked(x, dA, B, C, chunk: int):
         Bc, Cc = B[:, c0:c0 + chunk], C[:, c0:c0 + chunk]
         cs = torch.cumsum(Ac, dim=1)                         # [b,l,h]
         # intra-chunk decay L_ij = exp(cs_i - cs_j) for i ≥ j, else 0
-        seg = (cs[:, :, None, :] - cs[:, None, :, :]).masked_fill_(
-            masked, float("-inf"))                           # [b,i,j,h]
-        scores = torch.einsum("bin,bjn->bij", Cc, Bc)
-        y = torch.einsum("bijh,bjhp->bihp",
-                         seg.exp_().mul_(scores[..., None]), xc)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]          # [b,i,j,h]
+        scores = einsum("bin,bjn->bij", Cc, Bc)[..., None]
+        if torch.is_grad_enabled():
+            L = seg.masked_fill(masked, float("-inf")).exp() * scores
+        else:
+            L = seg.masked_fill_(masked, float("-inf")).exp_().mul_(scores)
+        y = einsum("bijh,bjhp->bihp", L, xc)
         # inter-chunk, from the carried state
-        y = y + torch.einsum("bin,bhpn->bihp", Cc, S) \
+        y = y + einsum("bin,bhpn->bihp", Cc, S) \
             * torch.exp(cs)[..., None]
         # state update
         decay_to_end = torch.exp(cs[:, -1:, :] - cs)         # [b,l,h]
-        S = S * torch.exp(cs[:, -1])[:, :, None, None] + torch.einsum(
+        S = S * torch.exp(cs[:, -1])[:, :, None, None] + einsum(
             "blhp,bln->bhpn", xc * decay_to_end[..., None], Bc)
         ys.append(y)
     return torch.cat(ys, dim=1), S
@@ -114,7 +118,7 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x, dtype):
     (y, (ssm state [b,h,p,n] float32, conv state [b, conv_width-1, c]))."""
     b, s, _ = x.shape
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ p.in_proj.to(dtype)
+    zxbcdt = matmul(x, p.in_proj.to(dtype))
     z, xbc_pre, dt = _split(cfg, zxbcdt)
     xbc = _causal_conv(xbc_pre, p.conv_w.to(dtype))
     xr, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
@@ -135,7 +139,7 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x, dtype):
     y = y[:, :s] + p.D.to(torch.float32)[:, None] * xs
     y = y.reshape(b, s, di).to(dtype)
     y = _gated_norm(p, cfg, y, z, dtype)
-    out = y @ p.out_proj.to(dtype)
+    out = matmul(y, p.out_proj.to(dtype))
     k1 = cfg.conv_width - 1
     if s < k1:
         xbc_pre = F.pad(xbc_pre, (0, 0, k1 - s, 0))
@@ -148,11 +152,11 @@ def mamba2_decode(p: Mamba2, cfg: ModelConfig, x, ssm_state, conv_state,
     [b, conv_width-1, c].  Returns (out, (ssm state, conv state))."""
     b = x.shape[0]
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ p.in_proj.to(dtype)
+    zxbcdt = matmul(x, p.in_proj.to(dtype))
     z, xbc, dt = _split(cfg, zxbcdt)
     # the causal conv over the rolling window
     window = torch.cat([conv_state, xbc], dim=1)              # [b,k,c]
-    conv_out = torch.einsum("bkc,kc->bc", window, p.conv_w.to(dtype))
+    conv_out = einsum("bkc,kc->bc", window, p.conv_w.to(dtype))
     xbc1 = silu(conv_out)
     xr, B, C = xbc1[:, :di], xbc1[:, di:di + n], xbc1[:, di + n:]
     dt1 = F.softplus(dt[:, 0].to(torch.float32) + p.dt_bias)  # [b,h]
@@ -162,9 +166,9 @@ def mamba2_decode(p: Mamba2, cfg: ModelConfig, x, ssm_state, conv_state,
     outer = (xs * dt1[..., None])[..., None] \
         * B.to(torch.float32)[:, None, None, :]               # [b,h,p,n]
     new_state = ssm_state * decay[..., None, None] + outer
-    y = torch.einsum("bhpn,bn->bhp", new_state, C.to(torch.float32))
+    y = einsum("bhpn,bn->bhp", new_state, C.to(torch.float32))
     y = y + p.D.to(torch.float32)[:, None] * xs
     y = y.reshape(b, 1, di).to(dtype)
     y = _gated_norm(p, cfg, y, z, dtype)
-    out = y @ p.out_proj.to(dtype)
+    out = matmul(y, p.out_proj.to(dtype))
     return out, (new_state, window[:, 1:, :])

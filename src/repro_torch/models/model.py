@@ -16,16 +16,28 @@ layer is a module in an ``nn.ModuleList`` and a Python loop runs them.
 The decode caches stay stacked over layers (or the shared block's
 applications) as the reference's are, and are written in place; their
 position is a host integer, so no step reads the device to learn it.
-``forward`` runs without rematerialisation only; the training slice brings
-``remat`` (``ROADMAP.md`` §1, item 2: training).
+
+``forward`` records gradients for the weights that require them (a model
+becomes trainable through ``training.init_train_state``), and takes the
+reference's three rematerialisation policies per block (``REMAT``): each
+transformer block, each application of the hybrid's shared block, each
+RWKV block and each Mamba2 layer is one ``torch.utils.checkpoint``.
+``prefill``, ``decode_step`` and ``init_decode_state`` run under
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
@@ -53,6 +65,28 @@ _CONSTANT_LEAVES = {
     "norm_w": 0.0, "mu": 0.5, "ffn_mu": 0.5, "w_bias": -6.0, "u": 0.0,
     "A_log": 0.0, "D": 1.0, "dt_bias": 0.0,
 }
+
+
+# the reference's policies (its ``REMAT_POLICIES``): "full" saves nothing of
+# a block and recomputes it in the backward, "dots" saves its matmuls'
+# outputs and recomputes the rest
+REMAT = ("none", "full", "dots")
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default}
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run(remat: str, fn, *args):
+    """``fn(*args)``, a block of ``forward``, under the policy ``remat``."""
+    if remat == "none":
+        return fn(*args)
+    extra = {} if remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_matmuls)}
+    return checkpoint(fn, *args, use_reentrant=False, **extra)
 
 
 def resolve_device(device) -> torch.device:
@@ -198,19 +232,22 @@ def _block(bp: Block, cfg: ModelConfig, x, pos, is_global: bool, mode: str,
     return x + mlp_apply(bp.mlp, h2, dtype), None
 
 
-def _dense_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
+def _dense_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,
+                 remat: str = "none"):
     """The blocks in order; "train" sums the MoE aux values over the
     layers.  Returns (x, aux)."""
     dtype = cfg.compute_dtype
     aux = _zero_aux(x.device)
     for i, (lp, ig) in enumerate(zip(model.layers, _is_global_pattern(cfg))):
-        x, layer_aux = _block(lp, cfg, x, pos, ig, mode, cache, i, dtype)
+        x, layer_aux = _run(remat, _block, lp, cfg, x, pos, ig, mode, cache,
+                            i, dtype)
         if mode == "train" and layer_aux is not None:
             aux = {n: aux[n] + layer_aux[n] for n in aux}
     return x, aux
 
 
-def _rwkv_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
+def _rwkv_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,
+                remat: str = "none"):
     """The RWKV blocks in order: "train" and "prefill" run the chunked form
     from a zero state (prefill writes each layer's final state into the
     cache), "decode" the recurrence from the cache.  Returns (x, None)."""
@@ -220,37 +257,45 @@ def _rwkv_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
             x, carry = rk.rwkv6_decode(lp.mixer, cfg, x, (
                 cache["wkv"][i], cache["tok"][i], cache["ffn"][i]), dtype)
         else:
-            x, carry = rk.rwkv6_apply(lp.mixer, cfg, x, dtype)
+            x, carry = _run(remat, rk.rwkv6_apply, lp.mixer, cfg, x, dtype)
         if mode != "train":
             for name, t in zip(("wkv", "tok", "ffn"), carry):
                 cache[name][i] = t
     return x, None
 
 
+def _mamba_block(lp: MambaLayer, cfg: ModelConfig, x, dtype):
+    """``x + mixer(LN1(x))`` over a whole sequence from a zero state.
+    Returns (x, (ssm state, conv state))."""
+    y, states = m2.mamba2_apply(lp.mixer, cfg,
+                                rms_norm(x, lp.ln1, cfg.norm_eps), dtype)
+    return x + y, states
+
+
 def _mamba_layers(model: LM, cfg: ModelConfig, x, mode: str, cache,
-                  layers: range):
+                  layers: range, remat: str = "none"):
     """Mamba2 layers ``layers`` in order, each ``x + mixer(LN1(x))``; the
     ssm and conv states as ``_rwkv_stack`` treats the RWKV ones."""
     dtype = cfg.compute_dtype
     for i in layers:
         lp = model.layers[i]
-        h = rms_norm(x, lp.ln1, cfg.norm_eps)
         if mode == "decode":
-            y, (ssm, conv) = m2.mamba2_decode(lp.mixer, cfg, h,
-                                              cache["ssm"][i],
-                                              cache["conv"][i], dtype)
+            y, (ssm, conv) = m2.mamba2_decode(
+                lp.mixer, cfg, rms_norm(x, lp.ln1, cfg.norm_eps),
+                cache["ssm"][i], cache["conv"][i], dtype)
+            x = x + y
         else:
-            y, (ssm, conv) = m2.mamba2_apply(lp.mixer, cfg, h, dtype)
+            x, (ssm, conv) = _run(remat, _mamba_block, lp, cfg, x, dtype)
         if mode != "train":
             cache["ssm"][i] = ssm
             cache["conv"][i] = conv
-        x = x + y
     return x
 
 
-def _mamba_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
-    return _mamba_layers(model, cfg, x, mode, cache,
-                         range(cfg.n_layers)), None
+def _mamba_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,
+                 remat: str = "none"):
+    return _mamba_layers(model, cfg, x, mode, cache, range(cfg.n_layers),
+                         remat), None
 
 
 def _hybrid_groups(cfg: ModelConfig) -> list[int]:
@@ -261,15 +306,17 @@ def _hybrid_groups(cfg: ModelConfig) -> list[int]:
     return [min(every, n - off) for off in range(0, n, every)]
 
 
-def _hybrid_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache):
+def _hybrid_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,
+                  remat: str = "none"):
     """For each group: the shared block (global attention; application
     ``gi`` keeps its own KV cache slot ``gi``), then the group's Mamba2
     layers ``off .. off + size``.  Returns (x, None)."""
     off = 0
     for gi, size in enumerate(_hybrid_groups(cfg)):
-        x, _ = _block(model.shared, cfg, x, pos, True, mode, cache, gi,
-                      cfg.compute_dtype)
-        x = _mamba_layers(model, cfg, x, mode, cache, range(off, off + size))
+        x, _ = _run(remat, _block, model.shared, cfg, x, pos, True, mode,
+                    cache, gi, cfg.compute_dtype)
+        x = _mamba_layers(model, cfg, x, mode, cache, range(off, off + size),
+                          remat)
         off += size
     return x, None
 
@@ -291,18 +338,19 @@ def _positions(x):
 # ==========================================================================
 # public API
 # ==========================================================================
-@torch.inference_mode()
 def forward(model: LM, cfg: ModelConfig, batch, *, remat: str = "none"):
-    """Full-sequence forward (dense attention in the attention blocks).
-    Returns (logits, aux): the MoE aux values summed over the layers, zeros
-    for a dense model, None for the rwkv6, mamba2 and hybrid families."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: rematerialisation comes with the training "
-            "slice (ROADMAP.md §1, item 2: training)")
+    """Full-sequence forward (dense attention in the attention blocks),
+    recording gradients for the weights that require them, each block
+    under the rematerialisation policy ``remat`` (``REMAT``; all three
+    give the same values and gradients).  Returns (logits, aux): the MoE
+    aux values summed over the layers, zeros for a dense model, None for
+    the rwkv6, mamba2 and hybrid families."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: one of {REMAT}")
     dtype = cfg.compute_dtype
     x = _embed_inputs(model, cfg, batch, dtype)
-    x, aux = _STACKS[cfg.family](model, cfg, x, _positions(x), "train", None)
+    x, aux = _STACKS[cfg.family](model, cfg, x, _positions(x), "train", None,
+                                 remat)
     return _head(model, cfg, x, dtype), aux
 
 

@@ -21,7 +21,14 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, mlp_apply, param, silu
+from repro_torch.models.layers import (
+    MLP,
+    einsum,
+    matmul,
+    mlp_apply,
+    param,
+    silu,
+)
 
 
 class MoE(nn.Module):
@@ -52,7 +59,7 @@ def route(p: MoE, cfg: ModelConfig, xt, dtype):
     lower expert index, as ``jax.lax.top_k`` breaks them: a stable
     descending sort keeps equal probabilities in index order, where
     ``torch.topk`` promises no order."""
-    logits = (xt @ p.router.to(dtype)).to(torch.float32)
+    logits = matmul(xt, p.router.to(dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate = top.values[:, :cfg.top_k]
@@ -90,9 +97,9 @@ def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
     buf = buf.reshape(e, cap + 1, d)[:, :cap]
 
     # batched per-expert SwiGLU
-    h = torch.einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
-    g = torch.einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
-    out_buf = torch.einsum("ecf,efd->ecd", silu(g) * h, p.wo.to(dtype))
+    h = einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
+    g = einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
+    out_buf = einsum("ecf,efd->ecd", silu(g) * h, p.wo.to(dtype))
     out_buf = out_buf.reshape(e * cap, d)
 
     # combine: gather each (token, choice) result, weight by gate
@@ -104,7 +111,11 @@ def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
         out = out + mlp_apply(p.shared, xt, dtype)
 
     # aux losses (Switch-style load balance + router z-loss)
-    density = torch.bincount(flat_e, minlength=e).to(torch.float32) / t
+    # counts by index_add_, as the reference's scatter-add: bincount on the
+    # card reads its input's maximum back to the host
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+        0, flat_e, torch.ones(n_assign, dtype=torch.float32, device=x.device))
+    density = counts / t
     aux = {
         "load_balance": e * torch.sum(density * probs.mean(dim=0)),
         "router_z": torch.mean(torch.square(torch.logsumexp(logits, -1))),

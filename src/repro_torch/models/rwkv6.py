@@ -25,6 +25,8 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     add_rms_norm,
+    einsum,
+    matmul,
     param,
     rms_norm,
     sigmoid,
@@ -69,8 +71,12 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int, state0):
     state [b,h,K,V]).
 
     Per chunk, the decay tensor ``exp(W_{i-1} - W_j)`` [b,i,j,h,K] is the
-    largest intermediate, and it is reused in place for the products with
-    r and k before the sum over K (the reference's three-operand einsum)."""
+    largest intermediate.  Without autograd (serving) it is reused in place
+    for the products with r and k before the sum over K (the reference's
+    three-operand einsum); when autograd records (``torch.is_grad_enabled``)
+    the same products run out of place, since ``exp``'s backward reads its
+    output.  The masked exponents are ``-inf`` before ``exp`` either way, so
+    no ``inf·0`` reaches a backward."""
     s = r.shape[1]
     idx = torch.arange(chunk, device=r.device)
     masked = (idx[:, None] <= idx[None, :])[None, :, :, None, None]
@@ -81,18 +87,22 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int, state0):
         W = torch.cumsum(lwc, dim=1)                 # inclusive, ≤ 0 slope
         Wi = W - lwc                                 # exclusive (W_{i-1})
         # intra-chunk: pairwise decay differences are ≤ 0 where kept
-        dec = (Wi[:, :, None] - W[:, None, :]).masked_fill_(masked,
-                                                            float("-inf"))
-        att = dec.exp_().mul_(rc[:, :, None]).mul_(kc[:, None]).sum(-1)
-        o = torch.einsum("bijh,bjhv->bihv", att, vc)
+        dec = Wi[:, :, None] - W[:, None, :]
+        if torch.is_grad_enabled():
+            att = (dec.masked_fill(masked, float("-inf")).exp()
+                   * rc[:, :, None] * kc[:, None]).sum(-1)
+        else:
+            att = dec.masked_fill_(masked, float("-inf")).exp_() \
+                .mul_(rc[:, :, None]).mul_(kc[:, None]).sum(-1)
+        o = einsum("bijh,bjhv->bihv", att, vc)
         diag = (rc * u * kc).sum(-1)                 # [b,i,h]
         o = o + diag[..., None] * vc
         # inter-chunk, from the carried state
-        o = o + torch.einsum("bihk,bhkv->bihv", rc * torch.exp(Wi), S)
+        o = o + einsum("bihk,bhkv->bihv", rc * torch.exp(Wi), S)
         # state update (every exponent ≤ 0)
         k_dec = kc * torch.exp(W[:, -1:] - W)
         S = S * torch.exp(W[:, -1])[..., None] \
-            + torch.einsum("bjhk,bjhv->bhkv", k_dec, vc)
+            + einsum("bjhk,bjhv->bhkv", k_dec, vc)
         outs.append(o)
     return torch.cat(outs, dim=1), S
 
@@ -102,11 +112,12 @@ def _mixes(p: RWKV6, xn, sx, dtype):
     ≤ 0) and g."""
     mu = p.mu.to(dtype)
     xm = [xn + mu[i] * (sx - xn) for i in range(5)]
-    r = xm[0] @ p.wr.to(dtype)
-    k = xm[1] @ p.wk.to(dtype)
-    v = xm[2] @ p.wv.to(dtype)
-    wlog = -torch.exp((xm[3] @ p.ww.to(dtype)).to(torch.float32) + p.w_bias)
-    g = xm[4] @ p.wg.to(dtype)
+    r = matmul(xm[0], p.wr.to(dtype))
+    k = matmul(xm[1], p.wk.to(dtype))
+    v = matmul(xm[2], p.wv.to(dtype))
+    wlog = -torch.exp(matmul(xm[3], p.ww.to(dtype)).to(torch.float32)
+                      + p.w_bias)
+    g = matmul(xm[4], p.wg.to(dtype))
     return r, k, v, wlog, g
 
 
@@ -118,9 +129,9 @@ def _channel_mix(p: RWKV6, cfg: ModelConfig, x, y, prev_ffn, dtype):
     fmu = p.ffn_mu.to(dtype)
     xr = x1n + fmu[0] * (sx2 - x1n)
     xk = x1n + fmu[1] * (sx2 - x1n)
-    rr = sigmoid(xr @ p.ffn_wr.to(dtype))
-    kk = torch.square(torch.relu(xk @ p.ffn_wk.to(dtype)))
-    return x1 + rr * (kk @ p.ffn_wv.to(dtype)), x1n
+    rr = sigmoid(matmul(xr, p.ffn_wr.to(dtype)))
+    kk = torch.square(torch.relu(matmul(xk, p.ffn_wk.to(dtype))))
+    return x1 + rr * matmul(kk, p.ffn_wv.to(dtype)), x1n
 
 
 def rwkv6_apply(p: RWKV6, cfg: ModelConfig, x, dtype):
@@ -154,7 +165,8 @@ def rwkv6_apply(p: RWKV6, cfg: ModelConfig, x, dtype):
                           p.u.to(torch.float32), chunk, wkv0)
     o = o.reshape(b, sp, d)[:, :s].to(dtype)
     o = rms_norm(o, p.norm_w, cfg.norm_eps) * silu(g)
-    out, x1n = _channel_mix(p, cfg, x, o @ p.wo.to(dtype), prev_ffn, dtype)
+    out, x1n = _channel_mix(p, cfg, x, matmul(o, p.wo.to(dtype)), prev_ffn,
+                            dtype)
     return out, (wkv, xn[:, -1, :], x1n[:, -1, :])
 
 
@@ -174,9 +186,10 @@ def rwkv6_decode(p: RWKV6, cfg: ModelConfig, x, state, dtype):
     wh = torch.exp(wlog.reshape(b, h, hd))
     kv = kh[..., :, None] * vh[..., None, :]              # [b,h,K,V]
     u = p.u.to(torch.float32)
-    o = torch.einsum("bhk,bhkv->bhv", rh, wkv + u[None, :, :, None] * kv)
+    o = einsum("bhk,bhkv->bhv", rh, wkv + u[None, :, :, None] * kv)
     wkv_new = wkv * wh[..., None] + kv
     o = o.reshape(b, 1, d).to(dtype)
     o = rms_norm(o, p.norm_w, cfg.norm_eps) * silu(g)
-    out, x1n = _channel_mix(p, cfg, x, o @ p.wo.to(dtype), prev_ffn, dtype)
+    out, x1n = _channel_mix(p, cfg, x, matmul(o, p.wo.to(dtype)), prev_ffn,
+                            dtype)
     return out, (wkv_new, xn[:, 0, :], x1n[:, 0, :])

@@ -13,7 +13,9 @@ ones, the JAX package's x64 setting).  The slice's queries on the GPU are
 held against the same queries on the CPU, the materialising Ref/Opt joins
 and 64-bit frequencies included.  The LM slice: SmolLM-135M at its full
 width in float32 on the card against the same weights on the CPU, and MoE
-expert load (``load_stats``) through K3 against ``bincount``.
+expert load (``load_stats``) through K3 against ``bincount``.  The training
+slice: a float32 train step of the dense, MoE, rwkv6 and hybrid smoke
+configs on the card against the same step on the CPU.
 """
 
 import dataclasses
@@ -26,7 +28,9 @@ import torch
 import repro_torch.core as tcore
 import repro_torch.data.relational as trel
 import repro_torch.models as tm
+import repro_torch.training as ttr
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data import TokenPipeline
 from repro_torch.kernels import freq_join as tfj
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import segment_sum as tss
@@ -1036,6 +1040,72 @@ def test_lm_mixers_match_the_cpu_and_the_recurrence(cuda, family):
         torch.testing.assert_close(states[k], rec[k],
                                    rtol=MIXER_RECURRENCE_TOL,
                                    atol=MIXER_RECURRENCE_TOL)
+
+
+# float32 training, card against CPU: the CPU tests' bounds against the JAX
+# package (the loss relative, each leaf's gradient against its largest |g|)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+
+
+def _train_grads(model, cfg, batch, remat):
+    state = ttr.init_train_state(model)
+    loss, _ = ttr.train_loss(model, cfg, batch, remat=remat)
+    grads = torch.autograd.grad(loss, list(state.params.values()))
+    return float(loss.detach()), [g.cpu().double() for g in grads]
+
+
+def _without_sync(fn, *args):
+    """``fn(*args)`` on the card under ``torch.cuda.set_sync_debug_mode``
+    "error", which raises on the synchronising calls (reads back to the
+    host) it detects."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _grad_gap(got, want) -> float:
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want) if b.abs().max() > 0)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mixtral-8x22b",
+                                  "rwkv6-1.6b", "zamba2-1.2b"])
+def test_lm_train_step_matches_the_cpu(cuda, arch):
+    """A float32 smoke config (dense, MoE, rwkv6, hybrid): the loss and
+    gradients under ``remat="full"`` on the card within the bounds of the
+    CPU's, ``"full"`` within them of ``"none"`` and ``"dots"`` on the
+    card, and one train step's loss and ``grad_norm`` on both, the card's
+    step with no synchronising call."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = tm.init_params(cfg, seed=0, device=cuda)
+    host = tm.LM(cfg, "cpu")
+    host.load_state_dict(model.state_dict())
+    pipe = TokenPipeline(cfg.vocab_size, 16, 4, seed=5)
+    bc, bh = pipe.torch_batch(0, cuda), pipe.torch_batch(0, "cpu")
+    lc, gc = _train_grads(model, cfg, bc, "full")
+    lh, gh = _train_grads(host, cfg, bh, "full")
+    assert abs(lc - lh) <= TRAIN_LOSS_TOL * abs(lh)
+    assert _grad_gap(gc, gh) <= TRAIN_GRAD_TOL
+    for remat in ("none", "dots"):
+        ln, gn = _train_grads(model, cfg, bc, remat)
+        assert abs(lc - ln) <= TRAIN_LOSS_TOL * abs(ln), remat
+        assert _grad_gap(gc, gn) <= TRAIN_GRAD_TOL, remat
+    out = []
+    for m, b in ((model, bc), (host, bh)):
+        step = ttr.build_train_step(cfg, base_lr=1e-2, warmup=1,
+                                    total_steps=4, remat="full")
+        state = ttr.init_train_state(m)
+        state, metrics = (_without_sync(step, state, b)
+                          if b["tokens"].is_cuda else step(state, b))
+        assert metrics["loss"].device == b["tokens"].device
+        assert int(state.step) == 1
+        out.append({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+    for k in out[1]:
+        assert abs(out[0][k] - out[1][k]) <= TRAIN_LOSS_TOL * abs(out[1][k])
 
 
 # ---------------------------------------------------------------------------
