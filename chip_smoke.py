@@ -217,6 +217,26 @@ CPU copy (``LM_TRAIN_LOSS_TOL``, ``LM_TRAIN_GRAD_TOL``).
 width with 2 layers, three steps each at 4 × 256 tokens, losses finite,
 step ms and peak bytes.  Counts set to 0 before the phase and read after:
 the ``kernels`` line's ``lm_train_launches`` (0 for each, checked).
+``lm_ckpt``: resumable training through the checkpointer
+(``repro_torch.checkpoint``) and the launcher, all in a temporary
+directory in the checkout that the phase removes.  ``lm_ckpt_io``, in
+this process, the launcher's model and traffic: step ms without a write,
+the first ``save`` (which allocates the pinned host buffers) and its
+background write alone (seconds, GB/s, bytes a checkpoint), then
+``LM_CKPT_IO_SAVES`` saves' blocking ms, each followed by
+``LM_CKPT_IO_AFTER`` steps timed while its write is in flight, then
+``restore`` seconds; the restored state is held bitwise against a device
+copy taken just before the last save.
+``lm_ckpt_launcher``: ``python -m repro_torch.launch.train --steps 6
+--ckpt-every 3`` (smollm-135m at full width and depth, its defaults)
+runs twice uninterrupted (``a``, ``a2``), then once SIGKILLed as soon as
+``step_3`` exists and started again with the same arguments, whose log
+must say it resumed from step 3; its final checkpoint is held against
+``a``'s bitwise wherever ``a2``'s is bitwise, elsewhere within that leaf's
+``a``-``a2`` gap (both gaps printed).  Counts set to 0 before the phase
+and read after: the ``kernels`` line's ``lm_ckpt_launches`` (0 for each,
+checked; the launcher's own processes run the same step and checkpointer
+code and are not counted).
 
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
@@ -230,7 +250,8 @@ line ``{"kernels_x64": [...]}`` with the
 library time on the int32 main path and its launches in the ``mesh`` and
 ``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``), in
 the recurrent LM phase (``lm_mixers_launches``; K3's also with its other
-LM launches) and in the training phase (``lm_train_launches``), the
+LM launches), in the training phase (``lm_train_launches``) and in the
+checkpoint phase (``lm_ckpt_launches``), the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line; so does a run without a card, or from a directory that does
@@ -2627,6 +2648,239 @@ def lm_train_lines(torch, card, dev) -> list[dict]:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# resumable LM training: the checkpointer and the launcher
+# ---------------------------------------------------------------------------
+# python -m repro_torch.launch.train at its defaults (smollm-135m at full
+# width and depth, 8 × 256 tokens, seed 1234, remat "full", bfloat16
+# compute over float32 masters), 6 steps, a checkpoint every 3; the crashed
+# run is SIGKILLed as soon as step_3 exists, then started again
+LM_CKPT_ARGS = ("--steps", "6", "--ckpt-every", "3")
+LM_CKPT_KILL_AT = 3
+LM_CKPT_FINAL = "step_6"
+LM_CKPT_RUN_S = 300          # the longest one launcher run may take
+# in-process, the launcher's model, traffic and Checkpointer: steps timed
+# without a write, then saves each followed by steps timed while its write
+# is in flight (a write of ~2 GB outlasts about one step)
+LM_CKPT_IO_STEPS = 4
+LM_CKPT_IO_SAVES = 3
+LM_CKPT_IO_AFTER = 2
+
+
+def lm_state_tensors(state) -> list:
+    """A TrainState's tensors in a fixed order: the parameters, AdamW's
+    step and moments, the step."""
+    return [*state.model.parameters(), state.opt.step, *state.opt.m.values(),
+            *state.opt.v.values(), state.step]
+
+
+def lm_bitwise(torch, a, b) -> bool:
+    """``a`` and ``b`` of one dtype and shape hold the same bits."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        a, b = (t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+                for t in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def lm_ckpt_io_line(torch, tm, tt, tmp: Path, card, dev) -> dict:
+    """The launcher's model and traffic in this process: steps timed
+    without a write, the first ``save`` (it allocates the pinned host
+    buffers) and its background write alone, then ``LM_CKPT_IO_SAVES``
+    saves, each followed by ``LM_CKPT_IO_AFTER`` steps timed while its
+    write is in flight and a ``wait``, then ``restore`` of the last,
+    held bitwise against a device copy of the state taken just before that
+    save (the steps after it update the state in place and must not reach
+    the files)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    t = LM_TRAIN
+    cfg = get_config(t["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = tt.init_train_state(tm.init_params(cfg, seed=LM_SEED,
+                                               device=dev))
+    step = tt.build_train_step(cfg, base_lr=t["base_lr"], warmup=t["warmup"],
+                               total_steps=t["steps"], remat=t["remat"])
+    pipe = TokenPipeline(cfg.vocab_size, t["seq_len"], t["global_batch"],
+                         seed=t["seed"])
+    batches = [pipe.torch_batch(i, dev) for i in range(t["batches"])]
+    state, _, _, _ = lm_train_steps(torch, step, state, batches, 2)
+    state, plain_ms, _, _ = lm_train_steps(torch, step, state, batches,
+                                           LM_CKPT_IO_STEPS)
+    ck = Checkpointer(tmp / "io")
+    t0 = time.perf_counter()
+    ck.save(1, state, async_=True)
+    t1 = time.perf_counter()
+    ck.wait()
+    write_s = time.perf_counter() - t1
+    first_save_ms = (t1 - t0) * 1e3
+    nbytes = sum(f.stat().st_size for f in (tmp / "io" / "step_1").iterdir())
+    save_ms, after_ms, tail_s = [], [], []
+    for i in range(LM_CKPT_IO_SAVES):
+        snap = [x.detach().clone() for x in lm_state_tensors(state)]
+        t0 = time.perf_counter()
+        ck.save(2 + i, state, async_=True)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        state, ms, losses, _ = lm_train_steps(torch, step, state, batches,
+                                              LM_CKPT_IO_AFTER)
+        after_ms.append(ms)
+        check(all(np.isfinite(losses)), f"lm ckpt: non-finite loss {losses}")
+        t0 = time.perf_counter()
+        ck.wait()
+        tail_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ck.restore(like=state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = lm_state_tensors(restored)
+    check(int(restored.step) == int(snap[-1]) and len(got) == len(snap)
+          and all(lm_bitwise(torch, a, b) for a, b in zip(got, snap)),
+          "lm ckpt: the restored state is not the state saved (the steps "
+          "after an async save reached its files?)")
+    check(restored.model is not state.model and all(
+        w.device == snap[0].device for w in got), "lm ckpt: restore placed "
+        "the state elsewhere")
+    peak = torch.cuda.max_memory_allocated()
+    del state, restored, snap, got, step, batches
+    torch.cuda.empty_cache()
+    firsts = [ms[0] for ms in after_ms]
+    return {
+        "lm_ckpt_io": cfg.name, "checkpoint_bytes": nbytes,
+        "first_save_ms": first_save_ms, "save_ms": save_ms,
+        "write_s": write_s, "write_gb_per_s": nbytes / write_s / 1e9,
+        "step_ms_no_write": plain_ms, "step_ms_after_save": after_ms,
+        "step_ms_median_no_write": statistics.median(plain_ms),
+        "step_ms_median_first_after_save": statistics.median(firsts),
+        "wait_after_steps_s": tail_s, "restore_s": restore_s,
+        "peak_allocated_bytes": peak, **card}
+
+
+def lm_ckpt_launch(ckpt_dir: Path, log: Path, kill_at: int | None = None
+                   ) -> tuple[int, str, float]:
+    """``python -m repro_torch.launch.train`` over ``ckpt_dir`` from the
+    checkout, its output into ``log``; with ``kill_at``, SIGKILLed as soon
+    as ``step_<kill_at>`` exists.  Returns (exit code, output, seconds)."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(root / "src"), os.environ.get("PYTHONPATH")))))
+    cmd = [sys.executable, "-u", "-m", "repro_torch.launch.train",
+           *LM_CKPT_ARGS, "--ckpt-dir", str(ckpt_dir)]
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            if kill_at is None:
+                rc = proc.wait(timeout=LM_CKPT_RUN_S)
+            else:
+                mark = ckpt_dir / f"step_{kill_at}"
+                while not mark.exists() and proc.poll() is None \
+                        and time.perf_counter() - t0 < LM_CKPT_RUN_S:
+                    time.sleep(0.01)
+                proc.kill()
+                rc = proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rc, log.read_text(), time.perf_counter() - t0
+
+
+def lm_ckpt_leaves(d: Path) -> dict:
+    """The checkpoint in ``d`` as numpy arrays by key (the launcher's
+    state: float32 and int32 leaves, their dtypes checked against the
+    manifest's)."""
+    leaves = json.loads((d / "manifest.json").read_text())["leaves"]
+    out = {}
+    for k, e in leaves.items():
+        arr = np.load(d / e["file"])
+        check(e["dtype"] in ("float32", "int32") and str(arr.dtype) ==
+              e["dtype"] and list(arr.shape) == e["shape"],
+              f"lm ckpt: {d.name} {k}: {arr.dtype}{list(arr.shape)} for "
+              f"{e['dtype']}{e['shape']}")
+        out[k] = arr
+    return out
+
+
+def lm_ckpt_gaps(a: dict, b: dict) -> dict:
+    """Per key, None where ``a`` and ``b`` hold the same bits, else the
+    largest |a - b|."""
+    check(set(a) == set(b), "lm ckpt: two checkpoints of other keys")
+    return {k: None if np.array_equal(a[k].view(np.int32), b[k].view(
+        np.int32)) else float(np.abs(a[k].astype(np.float64) - b[k]).max())
+            for k in a}
+
+
+def lm_ckpt_lines(torch, card, dev) -> list[dict]:
+    """The ``lm_ckpt`` phase: the checkpoint I/O in this process
+    (``lm_ckpt_io_line``), then the launcher: two uninterrupted runs (``a``,
+    ``a2``) and one (``b``) SIGKILLed once ``step_3`` exists and started
+    again with the same arguments, which must resume from step 3.  ``b``'s
+    final checkpoint is held against ``a``'s bitwise wherever ``a2``'s is
+    bitwise equal to ``a``'s, and elsewhere within that leaf's gap between
+    ``a`` and ``a2``.  Everything lives in a temporary directory in the
+    checkout, removed at the end."""
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="lm-ckpt-", dir=root) as tmp:
+        tmp = Path(tmp)
+        free = shutil.disk_usage(tmp).free
+        lines = [{**lm_ckpt_io_line(torch, tm, tt, tmp, card, dev),
+                  "disk_free_bytes": free}]
+        shutil.rmtree(tmp / "io")
+        runs = {}
+        for name in ("a", "a2"):
+            rc, out, sec = lm_ckpt_launch(tmp / name, tmp / f"{name}.log")
+            check(rc == 0 and "resumed" not in out,
+                  f"lm ckpt: run {name} exited {rc}:\n{out[-3000:]}")
+            runs[name] = sec
+            shutil.rmtree(tmp / name / f"step_{LM_CKPT_KILL_AT}")
+        rc, out, sec = lm_ckpt_launch(tmp / "b", tmp / "b.log",
+                                      kill_at=LM_CKPT_KILL_AT)
+        left = sorted(p.name for p in (tmp / "b").iterdir())
+        check(rc == -signal.SIGKILL and LM_CKPT_FINAL not in left,
+              f"lm ckpt: the run to crash exited {rc} with {left} before "
+              f"it was killed:\n{out[-3000:]}")
+        runs["b_killed"] = sec
+        rc, out, sec = lm_ckpt_launch(tmp / "b", tmp / "b2.log")
+        resumed = f"[train] resumed from step {LM_CKPT_KILL_AT}"
+        check(rc == 0 and resumed in out,
+              f"lm ckpt: the restarted run exited {rc} without "
+              f"{resumed!r}:\n{out[-3000:]}")
+        runs["b_resumed"] = sec
+        a, a2, b = (lm_ckpt_leaves(tmp / n / LM_CKPT_FINAL)
+                    for n in ("a", "a2", "b"))
+        repeat, resume = lm_ckpt_gaps(a, a2), lm_ckpt_gaps(a, b)
+        bad = sorted(k for k in a if resume[k] is not None and (
+            repeat[k] is None or resume[k] > repeat[k]))
+        check(not bad, "lm ckpt: the resumed run's final checkpoint is off "
+              "the uninterrupted run's beyond the run-to-run gap at "
+              + ", ".join(f"{k} {resume[k]} (a vs a2 {repeat[k]})"
+                          for k in bad[:8]))
+        lines.append({
+            "lm_ckpt_launcher": "smollm-135m",
+            "command": "python -m repro_torch.launch.train "
+                       + " ".join(LM_CKPT_ARGS) + " --ckpt-dir DIR",
+            "run_s": runs, "left_after_kill": left,
+            "leaves": len(a),
+            "repeat_not_bitwise": {k: g for k, g in repeat.items()
+                                   if g is not None},
+            "resume_not_bitwise": {k: g for k, g in resume.items()
+                                   if g is not None},
+            "resumed_log": [ln for ln in out.splitlines()
+                            if ln.startswith("[train]")], **card})
+    return lines
+
+
 MESH_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
 MESH_REPS = 5
 MESH_STEP_SIZES = (2, 4, 8)
@@ -3399,6 +3653,21 @@ def main() -> int:
         f"width and cut depth; no kernel of the port launched ({train}), "
         f"in {time.perf_counter() - t0:.1f} s")
 
+    # -- resumable LM training: the checkpointer and the launcher ----------
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    for line in lm_ckpt_lines(torch, card, dev):
+        log(json.dumps(line))
+    ckpt = {name: k.launches for name, (_, _, k) in kernels.items()}
+    check(not any(ckpt.values()),
+          f"the LM checkpoint phase launched a kernel of the port: {ckpt}")
+    log(f"lm_ckpt: smollm-135m saved and restored bitwise at full width; "
+        f"python -m repro_torch.launch.train killed after step "
+        f"{LM_CKPT_KILL_AT} resumed to the uninterrupted run's final "
+        f"checkpoint; no kernel of the port launched ({ckpt}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     rows = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -3415,7 +3684,8 @@ def main() -> int:
                      "mesh_launches": mesh_launches[name],
                      "serve_mesh_launches": serve_mesh_launches[name],
                      "lm_mixers_launches": mixers[name],
-                     "lm_train_launches": train[name]})
+                     "lm_train_launches": train[name],
+                     "lm_ckpt_launches": ckpt[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

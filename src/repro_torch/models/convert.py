@@ -11,6 +11,10 @@ every other leaf, the hybrid's unstacked ``shared/...`` among them, fills
 the weight of its own path.  ``to_reference_params`` is the inverse: the
 reference's tree, stacked ``[L, ...]``, of the model's weights or of any
 tensors named as they are (their gradients, say).
+
+``reference_rows`` and ``split_reference`` are the same map on tensors of
+any dtype, kept as they are: the checkpointer writes a ``TrainState``'s
+parameters and AdamW moments through them in the reference's layout.
 """
 
 from __future__ import annotations
@@ -30,37 +34,69 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), np.asarray(val)
 
 
+def reference_rows(model: LM, cfg: ModelConfig, tensors=None) -> dict:
+    """The leaves of the reference's parameter tree, by path, of
+    ``model``'s weights or of ``tensors`` (a map from the model's weight
+    names to tensors of their shapes): a ``layers/...`` leaf as the list
+    of its rows, layer 0 first, every other leaf as its tensor, each in
+    its own dtype on its own device."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    out: dict = {}
+    for name, _ in model.named_parameters():
+        parts = tuple(name.split("."))
+        if parts[0] == "layers":
+            out.setdefault(("layers",) + parts[2:],
+                           [None] * cfg.n_layers)[int(parts[1])] = \
+                tensors[name]
+        else:
+            out[parts] = tensors[name]
+    return out
+
+
+def split_reference(leaves: dict, model: LM, cfg: ModelConfig) -> dict:
+    """The inverse of ``reference_rows``: from the reference tree's leaves
+    by path (numpy arrays or tensors, ``layers/...`` stacked over the
+    layers), each of ``model``'s weight names with its leaf or row, in the
+    leaf's own dtype.  Raises ``KeyError`` on a weight the leaves lack or a
+    leaf no weight takes, and ``ValueError`` on a leaf of another shape."""
+    out, used = {}, set()
+    for name, w in model.named_parameters():
+        parts = tuple(name.split("."))
+        if parts[0] == "layers":
+            path, row = ("layers",) + parts[2:], int(parts[1])
+        else:
+            path, row = parts, None
+        if path not in leaves:
+            raise KeyError(f"the reference tree has no leaf "
+                           f"{'/'.join(path)} for {name}")
+        arr = leaves[path]
+        if row is not None:
+            if tuple(arr.shape[:1]) != (cfg.n_layers,):
+                raise ValueError(f"{'/'.join(path)}: {tuple(arr.shape)} is "
+                                 f"not stacked over {cfg.n_layers} layers")
+            arr = arr[row]
+        if tuple(arr.shape) != tuple(w.shape):
+            raise ValueError(f"{'/'.join(path)}: {tuple(arr.shape)} for "
+                             f"{name} of {tuple(w.shape)}")
+        out[name] = arr
+        used.add(path)
+    extra = sorted("/".join(p) for p in set(leaves) - used)
+    if extra:
+        raise KeyError(f"reference leaves no weight takes: {extra}")
+    return out
+
+
 def from_reference_params(tree, cfg: ModelConfig, device=None) -> LM:
     """The port's model with the weights of ``tree``.  Raises ``KeyError``
     on a weight the tree lacks or a leaf no weight takes, and
     ``ValueError`` on a leaf of another shape."""
-    leaves = dict(_leaves(tree))
     model = LM(cfg, device)
-    used = set()
+    named = split_reference(dict(_leaves(tree)), model, cfg)
     with torch.no_grad():
         for name, w in model.named_parameters():
-            parts = tuple(name.split("."))
-            if parts[0] == "layers":
-                path, row = ("layers",) + parts[2:], int(parts[1])
-            else:
-                path, row = parts, None
-            if path not in leaves:
-                raise KeyError(f"the reference tree has no leaf "
-                               f"{'/'.join(path)} for {name}")
-            arr = leaves[path]
-            if row is not None:
-                if arr.shape[:1] != (cfg.n_layers,):
-                    raise ValueError(f"{'/'.join(path)}: {arr.shape} is not "
-                                     f"stacked over {cfg.n_layers} layers")
-                arr = arr[row]
-            if arr.shape != tuple(w.shape):
-                raise ValueError(f"{'/'.join(path)}: {arr.shape} for {name} "
-                                 f"of {tuple(w.shape)}")
-            w.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-            used.add(path)
-    extra = sorted("/".join(p) for p in set(leaves) - used)
-    if extra:
-        raise KeyError(f"reference leaves no weight takes: {extra}")
+            w.copy_(torch.from_numpy(np.array(named[name],
+                                              dtype=np.float32)))
     return model
 
 
@@ -69,20 +105,13 @@ def to_reference_params(model: LM, cfg: ModelConfig, tensors=None) -> dict:
     arrays, ``layers/...`` stacked over the layers) of ``model``'s weights,
     or of ``tensors``, a map from the model's weight names to tensors of
     their shapes."""
-    if tensors is None:
-        tensors = dict(model.named_parameters())
     tree: dict = {}
-    stacked: dict = {}
-    for name, w in model.named_parameters():
-        arr = tensors[name].detach().to("cpu", torch.float32).numpy()
-        parts = name.split(".")
-        if parts[0] == "layers":
-            stacked.setdefault(("layers",) + tuple(parts[2:]),
-                               [None] * cfg.n_layers)[int(parts[1])] = arr
-        else:
-            _put(tree, parts, arr)
-    for path, rows in stacked.items():
-        _put(tree, path, np.stack(rows))
+    for path, leaf in reference_rows(model, cfg, tensors).items():
+        rows = leaf if isinstance(leaf, list) else [leaf]
+        arrs = [r.detach().to("cpu", torch.float32, copy=True).numpy()
+                for r in rows]
+        _put(tree, path, np.stack(arrs) if isinstance(leaf, list)
+             else arrs[0])
     return tree
 
 

@@ -146,8 +146,12 @@ class Embed(nn.Module):
 def embed_apply(p: Embed, tokens, dtype):
     """The rows are gathered before the cast, which the reference does after
     (``take`` of the cast table): the cast is elementwise, so the bits are
-    the same, and only the gathered rows are cast."""
-    return p.embedding[tokens].to(dtype)
+    the same, and only the gathered rows are cast.  The gather is
+    ``F.embedding``, whose backward sums each row's gradients in a fixed
+    order on the CPU as on the card: an indexing gather's backward (an
+    accumulating ``index_put_``) adds with atomics across CPU threads, and
+    a train step was not bitwise repeatable."""
+    return nn.functional.embedding(tokens, p.embedding).to(dtype)
 
 
 def unembed_apply(p: Embed, x, dtype, softcap: float = 0.0):

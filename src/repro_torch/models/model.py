@@ -132,13 +132,15 @@ _LAYERS = {"dense": Block, "moe": Block, "rwkv6": RWKVLayer,
 class LM(nn.Module):
     """Uninitialised weights of one model, named as the JAX package's
     parameter tree (``layers.3.attn.wq`` is ``layers/attn/wq``'s row 3;
-    the hybrid's unstacked ``shared/attn/wq`` is ``shared.attn.wq``)."""
+    the hybrid's unstacked ``shared/attn/wq`` is ``shared.attn.wq``), and
+    the config they were made for (``cfg``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         if cfg.family not in _LAYERS:
             raise ValueError(cfg.family)
         device = resolve_device(device)
+        self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                            device)
         self.final_norm = param(cfg.d_model, device=device)

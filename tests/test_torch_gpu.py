@@ -15,7 +15,9 @@ and 64-bit frequencies included.  The LM slice: SmolLM-135M at its full
 width in float32 on the card against the same weights on the CPU, and MoE
 expert load (``load_stats``) through K3 against ``bincount``.  The training
 slice: a float32 train step of the dense, MoE, rwkv6 and hybrid smoke
-configs on the card against the same step on the CPU.
+configs on the card against the same step on the CPU.  The checkpoint
+slice: a train state on the card saved, stepped in place while the write
+is in flight, and restored onto the card and the CPU, bitwise.
 """
 
 import dataclasses
@@ -1106,6 +1108,47 @@ def test_lm_train_step_matches_the_cpu(cuda, arch):
         out.append({k: float(metrics[k]) for k in ("loss", "grad_norm")})
     for k in out[1]:
         assert abs(out[0][k] - out[1][k]) <= TRAIN_LOSS_TOL * abs(out[1][k])
+
+
+def _state_tensors(state):
+    return [*state.model.parameters(), state.opt.step,
+            *state.opt.m.values(), *state.opt.v.values(), state.step]
+
+
+def _same_bits(a, b):
+    a, b = a.cpu(), b.cpu()
+    if a.dtype.is_floating_point:
+        a, b = (t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+                for t in (a, b))
+    return torch.equal(a, b)
+
+
+def test_checkpoint_of_a_cuda_state_round_trips(cuda, tmp_path):
+    """A train state on the card (bfloat16 moments) saved asynchronously,
+    stepped in place while the write is in flight, then restored onto the
+    card and onto the CPU: each time bitwise the state as saved."""
+    from repro_torch.checkpoint import Checkpointer
+    cfg = get_smoke_config("smollm-135m")
+    state = ttr.init_train_state(tm.init_params(cfg, seed=0, device=cuda),
+                                 opt_state_dtype=torch.bfloat16)
+    step = ttr.build_train_step(cfg, base_lr=1e-2, warmup=2, total_steps=10,
+                                remat="full")
+    pipe = TokenPipeline(cfg.vocab_size, 16, 4, seed=11)
+    for i in range(2):
+        state, _ = step(state, pipe.torch_batch(i, cuda))
+    want = [t.detach().clone() for t in _state_tensors(state)]
+    ckpt = Checkpointer(tmp_path)
+    ckpt.save(2, state, async_=True)
+    state, _ = step(state, pipe.torch_batch(2, cuda))
+    ckpt.wait()
+    assert ckpt.latest_step() == 2
+    for device in (cuda, torch.device("cpu")):
+        got = _state_tensors(ckpt.restore(like=state, shardings=device))
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.device.type == device.type and a.dtype == b.dtype
+            assert _same_bits(a, b)
+    assert next(ckpt.restore(like=state).model.parameters()).is_cuda
 
 
 # ---------------------------------------------------------------------------
