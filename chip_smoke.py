@@ -237,6 +237,22 @@ must say it resumed from step 3; its final checkpoint is held against
 and read after: the ``kernels`` line's ``lm_ckpt_launches`` (0 for each,
 checked; the launcher's own processes run the same step and checkpointer
 code and are not counted).
+``lm_dist``: distributed training.  ``lm_dist_step``, inside a one-rank
+NCCL group: smollm-135m at full width and depth, the launcher's traffic
+(``LM_DIST``), its state placed on the (1, 1) host mesh by the logical
+rules and trained through the mesh step (``build_train_step`` under
+``use_mesh``), then the same steps on one device from the same weights;
+every tensor of the two states and every loss bitwise equal; step ms
+(median, p90) mesh against local, peak bytes and the placed state's
+bytes per rank.  ``lm_dist_launcher``: the launcher as rank 0 of 1 under
+``COORDINATOR_ADDRESS`` (a ``file://`` rendezvous) once uninterrupted,
+once SIGKILLed when ``step_3`` appears and restarted; the resumed run's
+final checkpoint bitwise the uninterrupted one's.  ``lm_dist_multi``:
+with ``LM_DIST_MULTI["ranks"]`` cards, that many NCCL ranks on a (2, 2)
+data × model mesh, float32, against one rank within
+``tests/helpers/distributed_lm_check.py``'s bounds, with step ms; with
+fewer cards a line saying it did not run and why.  Counts set to 0
+before the phase and read after: ``lm_dist_launches`` (0, checked).
 
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
@@ -250,8 +266,9 @@ line ``{"kernels_x64": [...]}`` with the
 library time on the int32 main path and its launches in the ``mesh`` and
 ``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``), in
 the recurrent LM phase (``lm_mixers_launches``; K3's also with its other
-LM launches), in the training phase (``lm_train_launches``) and in the
-checkpoint phase (``lm_ckpt_launches``), the
+LM launches), in the training phase (``lm_train_launches``), in the
+checkpoint phase (``lm_ckpt_launches``) and in the distributed training
+phase (``lm_dist_launches``), the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line; so does a run without a card, or from a directory that does
@@ -2759,15 +2776,17 @@ def lm_ckpt_io_line(torch, tm, tt, tmp: Path, card, dev) -> dict:
         "peak_allocated_bytes": peak, **card}
 
 
-def lm_ckpt_launch(ckpt_dir: Path, log: Path, kill_at: int | None = None
-                   ) -> tuple[int, str, float]:
+def lm_ckpt_launch(ckpt_dir: Path, log: Path, kill_at: int | None = None,
+                   extra_env: dict | None = None) -> tuple[int, str, float]:
     """``python -m repro_torch.launch.train`` over ``ckpt_dir`` from the
-    checkout, its output into ``log``; with ``kill_at``, SIGKILLed as soon
-    as ``step_<kill_at>`` exists.  Returns (exit code, output, seconds)."""
+    checkout, its output into ``log``, ``extra_env`` added to its
+    environment; with ``kill_at``, SIGKILLed as soon as ``step_<kill_at>``
+    exists.  Returns (exit code, output, seconds)."""
     import os
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
-        str(root / "src"), os.environ.get("PYTHONPATH")))))
+        str(root / "src"), os.environ.get("PYTHONPATH")))),
+        **(extra_env or {}))
     cmd = [sys.executable, "-u", "-m", "repro_torch.launch.train",
            *LM_CKPT_ARGS, "--ckpt-dir", str(ckpt_dir)]
     t0 = time.perf_counter()
@@ -2879,6 +2898,259 @@ def lm_ckpt_lines(torch, card, dev) -> list[dict]:
             "resumed_log": [ln for ln in out.splitlines()
                             if ln.startswith("[train]")], **card})
     return lines
+
+
+# ---------------------------------------------------------------------------
+# distributed LM training: the launcher's model and traffic (smollm-135m at
+# full width and depth, 8 × 256 tokens, seed 1234, remat "full", lr 3e-4,
+# warmup 6 of 6 steps) through the mesh step on a one-rank NCCL (1, 1) host
+# mesh, bitwise the one-device step; then the launcher under
+# COORDINATOR_ADDRESS at world size 1, killed after step_3 and resumed,
+# bitwise an uninterrupted mesh run; with 4 cards, 4 NCCL ranks on a (2, 2)
+# data × model mesh in float32 against one rank, within the JAX package's
+# distributed_lm_check.py bounds
+LM_DIST = {"arch": "smollm-135m", "global_batch": 8, "seq_len": 256,
+           "seed": 1234, "steps": 6, "base_lr": 3e-4, "warmup": 6,
+           "microbatches": 1, "remat": "full"}
+LM_DIST_MULTI = {"ranks": 4, "mesh": (2, 2), "axes": ("data", "model"),
+                 "steps": 3, "timeout_s": 300}
+LM_DIST_LOSS_RTOL = 1e-4
+LM_DIST_PARAM_RTOL, LM_DIST_PARAM_ATOL = 2e-3, 2e-4
+
+
+def lm_dist_setup(torch, tm, tt, cfg, dev, t=LM_DIST):
+    """The launcher's train step for ``cfg``, its batches on ``dev`` and a
+    fresh whole state of seed-``LM_SEED`` weights."""
+    from repro_torch.data import TokenPipeline
+    step = tt.build_train_step(
+        cfg, microbatches=t["microbatches"], base_lr=t["base_lr"],
+        warmup=t["warmup"], total_steps=t["steps"], remat=t["remat"])
+    pipe = TokenPipeline(cfg.vocab_size, t["seq_len"], t["global_batch"],
+                         seed=t["seed"])
+    batches = [pipe.torch_batch(i, dev) for i in range(t["steps"])]
+    state = tt.init_train_state(tm.init_params(cfg, seed=LM_SEED,
+                                               device=dev))
+    return step, batches, state
+
+
+def lm_whole(t):
+    """A DTensor gathered whole; any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def lm_dist_step_line(torch, card, dev) -> dict:
+    """The mesh step at world size 1 (inside ``nccl_world``): the state
+    placed on the (1, 1) host mesh by the logical rules, ``LM_DIST``'s
+    steps timed, then the same steps on one device from the same weights;
+    every tensor of the two final states bitwise equal."""
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import mesh_sizes
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    t = LM_DIST
+    cfg = get_config(t["arch"])
+    mesh = make_host_mesh()
+    step, batches, whole = lm_dist_setup(torch, tm, tt, cfg, dev)
+    placed = tt.place_train_state(whole, state_shardings(cfg, mesh))
+    del whole
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def mesh_step(state, batch):
+        with use_mesh(mesh):
+            return step(state, batch)
+
+    placed, mesh_ms, mesh_losses, _ = lm_train_steps(
+        torch, mesh_step, placed, batches, t["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    blocks = [x.to_local() if hasattr(x, "to_local") else x
+              for x in lm_state_tensors(placed)]
+    placed_bytes = sum(x.numel() * x.element_size() for x in blocks)
+    _, _, local = lm_dist_setup(torch, tm, tt, cfg, dev)
+    local, local_ms, local_losses, _ = lm_train_steps(
+        torch, step, local, batches, t["steps"])
+    got, want = lm_state_tensors(placed), lm_state_tensors(local)
+    check(len(got) == len(want) and all(
+        lm_bitwise(torch, lm_whole(a), b) for a, b in zip(got, want)),
+        "lm dist: the mesh step at world size 1 is not bitwise the "
+        "one-device step")
+    check(mesh_losses == local_losses, f"lm dist: losses {mesh_losses} on "
+          f"the mesh, {local_losses} on one device")
+    del placed, local, blocks, got, want, step, batches
+    torch.cuda.empty_cache()
+    return {
+        "lm_dist_step": cfg.name, "mesh": mesh_sizes(mesh), "world_size": 1,
+        "backend": "nccl", "traffic": t, "losses": mesh_losses,
+        "mesh_step_ms": mesh_ms, "local_step_ms": local_ms,
+        "mesh_step_ms_median": statistics.median(mesh_ms[1:]),
+        "mesh_step_ms_p90": float(np.percentile(mesh_ms[1:], 90)),
+        "local_step_ms_median": statistics.median(local_ms[1:]),
+        "local_step_ms_p90": float(np.percentile(local_ms[1:], 90)),
+        "peak_allocated_bytes_per_rank": peak,
+        "placed_state_bytes_per_rank": placed_bytes,
+        "bitwise_vs_one_device": True, **card}
+
+
+def lm_dist_launcher_line(card) -> dict:
+    """``python -m repro_torch.launch.train --steps 6 --ckpt-every 3`` as
+    rank 0 of 1 under ``COORDINATOR_ADDRESS`` (a ``file://`` rendezvous,
+    NCCL): once uninterrupted (``a``), once SIGKILLed when ``step_3``
+    appears and started again (``b``); ``b``'s final checkpoint bitwise
+    ``a``'s."""
+    import signal
+    import tempfile
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="lm-dist-", dir=root) as tmp:
+        tmp = Path(tmp)
+
+        def rank0(tag):
+            return {"COORDINATOR_ADDRESS": f"file://{tmp}/rdv-{tag}",
+                    "RANK": "0", "WORLD_SIZE": "1"}
+
+        runs = {}
+        rc, out, runs["a"] = lm_ckpt_launch(tmp / "a", tmp / "a.log",
+                                            extra_env=rank0("a"))
+        on_mesh = "on mesh {'data': 1, 'model': 1} (cuda, world size 1)"
+        check(rc == 0 and on_mesh in out and "resumed" not in out,
+              f"lm dist: the mesh launcher exited {rc}:\n{out[-3000:]}")
+        rc, out, runs["b_killed"] = lm_ckpt_launch(
+            tmp / "b", tmp / "b.log", kill_at=LM_CKPT_KILL_AT,
+            extra_env=rank0("b"))
+        left = sorted(p.name for p in (tmp / "b").iterdir())
+        check(rc == -signal.SIGKILL and LM_CKPT_FINAL not in left,
+              f"lm dist: the run to crash exited {rc} with {left}:\n"
+              f"{out[-3000:]}")
+        rc, out, runs["b_resumed"] = lm_ckpt_launch(
+            tmp / "b", tmp / "b2.log", extra_env=rank0("b2"))
+        resumed = f"[train] resumed from step {LM_CKPT_KILL_AT}"
+        check(rc == 0 and resumed in out and on_mesh in out,
+              f"lm dist: the restarted mesh run exited {rc} without "
+              f"{resumed!r}:\n{out[-3000:]}")
+        a, b = (lm_ckpt_leaves(tmp / n / LM_CKPT_FINAL) for n in ("a", "b"))
+        gaps = {k: g for k, g in lm_ckpt_gaps(a, b).items() if g is not None}
+        check(not gaps, f"lm dist: the resumed mesh run's final checkpoint "
+              f"is not bitwise the uninterrupted one's: {gaps}")
+        return {"lm_dist_launcher": "smollm-135m",
+                "command": "COORDINATOR_ADDRESS=file://... RANK=0 "
+                           "WORLD_SIZE=1 python -m repro_torch.launch.train "
+                           + " ".join(LM_CKPT_ARGS) + " --ckpt-dir DIR",
+                "run_s": runs, "left_after_kill": left, "leaves": len(a),
+                "resume_bitwise": True,
+                "resumed_log": [ln for ln in out.splitlines()
+                                if ln.startswith("[train]")], **card}
+
+
+def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
+    """One of ``LM_DIST_MULTI["ranks"]`` NCCL ranks (card ``rank``): the
+    float32 launcher's model placed on the (2, 2) data × model mesh,
+    ``LM_DIST_MULTI["steps"]`` steps timed; rank 0 writes the losses, the
+    step ms and the whole parameters to ``out``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_auto_mesh
+    t = LM_DIST_MULTI
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, t["ranks"]),
+                            rank=rank, world_size=t["ranks"])
+    try:
+        cfg = dataclasses.replace(get_config(LM_DIST["arch"]),
+                                  dtype="float32")
+        mesh = make_auto_mesh(t["mesh"], t["axes"])
+        step, batches, whole = lm_dist_setup(torch, tm, tt, cfg, "cuda")
+        state = tt.place_train_state(whole, state_shardings(cfg, mesh))
+        del whole
+        ms, losses = [], []
+        for i in range(t["steps"]):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(mesh):
+                state, metrics = step(state, batches[i])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        params = {n: lm_whole(p).detach().cpu().numpy()
+                  for n, p in state.params.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            np.savez(out, losses=np.asarray(losses), ms=np.asarray(ms),
+                     peak=np.asarray(peak),
+                     **{f"param|{n}": v for n, v in params.items()})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_dist_multi_line(torch, card) -> dict:
+    """With ``LM_DIST_MULTI["ranks"]`` cards: the (2, 2) mesh run against
+    the same float32 steps on one card, the loss within
+    ``LM_DIST_LOSS_RTOL`` and every parameter within the helper's bounds;
+    with fewer, a line saying it did not run."""
+    import dataclasses
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t = LM_DIST_MULTI
+    n = torch.cuda.device_count()
+    if n < t["ranks"]:
+        return {"lm_dist_multi": "not run",
+                "why": f"{n} CUDA device(s) here; the {t['mesh']} mesh of "
+                       f"NCCL ranks needs {t['ranks']}", **card}
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_DIST["arch"]), dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rank0.npz"
+        ctx = mp.start_processes(
+            lm_dist_multi_rank, args=(str(Path(tmp) / "store"), str(out)),
+            nprocs=t["ranks"], join=False, start_method="spawn")
+        deadline = time.perf_counter() + t["timeout_s"]
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                check(False, f"lm dist: the {t['ranks']}-rank mesh run "
+                      f"timed out")
+        with np.load(out) as z:
+            got = {k: z[k] for k in z.files}
+    step, batches, state = lm_dist_setup(torch, tm, tt, cfg, "cuda")
+    losses = []
+    for i in range(t["steps"]):
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))
+    worst = 0.0
+    for name, p in state.params.items():
+        want = p.detach().cpu().numpy()
+        mesh_p = got[f"param|{name}"]
+        check(np.allclose(mesh_p, want, rtol=LM_DIST_PARAM_RTOL,
+                          atol=LM_DIST_PARAM_ATOL),
+              f"lm dist: {name} on the {t['mesh']} mesh is off the "
+              f"one-rank run by {np.abs(mesh_p - want).max()}")
+        worst = max(worst, float(np.abs(mesh_p - want).max()))
+    rel = abs(got["losses"][-1] - losses[-1]) / abs(losses[-1])
+    check(rel <= LM_DIST_LOSS_RTOL, f"lm dist: loss {got['losses']} on the "
+          f"mesh, {losses} on one rank")
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return {"lm_dist_multi": LM_DIST["arch"], "dtype": "float32",
+            "mesh": dict(zip(t["axes"], t["mesh"])), "ranks": t["ranks"],
+            "backend": "nccl", "losses": got["losses"].tolist(),
+            "one_rank_losses": losses, "loss_rel_gap": rel,
+            "param_max_abs_gap": worst, "step_ms": got["ms"].tolist(),
+            "step_ms_median": float(np.median(got["ms"][1:])),
+            "peak_allocated_bytes_rank0": int(got["peak"]), **card}
 
 
 MESH_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
@@ -3668,6 +3940,23 @@ def main() -> int:
         f"checkpoint; no kernel of the port launched ({ckpt}), in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # -- distributed LM training: the mesh step, the launcher on a mesh ----
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    with nccl_world(torch):
+        log(json.dumps(lm_dist_step_line(torch, card, dev)))
+    log(json.dumps(lm_dist_launcher_line(card)))
+    log(json.dumps(lm_dist_multi_line(torch, card)))
+    dist_k = {name: k.launches for name, (_, _, k) in kernels.items()}
+    check(not any(dist_k.values()),
+          f"the distributed LM phase launched a kernel of the port: {dist_k}")
+    log(f"lm_dist: {LM_DIST['arch']}'s mesh step on a one-rank NCCL (1, 1) "
+        f"mesh bitwise the one-device step; the launcher under "
+        f"COORDINATOR_ADDRESS killed after step {LM_CKPT_KILL_AT} resumed "
+        f"bitwise; no kernel of the port launched ({dist_k}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     rows = []
     for name in kernels:
         source, replaces = KERNEL_META[name]
@@ -3685,7 +3974,8 @@ def main() -> int:
                      "serve_mesh_launches": serve_mesh_launches[name],
                      "lm_mixers_launches": mixers[name],
                      "lm_train_launches": train[name],
-                     "lm_ckpt_launches": ckpt[name]})
+                     "lm_ckpt_launches": ckpt[name],
+                     "lm_dist_launches": dist_k[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

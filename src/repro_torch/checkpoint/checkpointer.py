@@ -27,6 +27,14 @@ never reaches the files.  Only the file writing runs on the background
 thread.  A save lands in ``step_<N>.tmp`` and is renamed once its
 manifest is written, so ``latest_step`` never sees a torn one.  ``save``
 and ``restore`` first join the write in flight, and re-raise its error.
+
+On a mesh (a state of DTensors, ``training.place_train_state``) ``save``
+is a collective: every rank calls it and gathers each leaf whole, and rank
+0 alone writes the same files; ``wait`` (and so the next ``save`` and
+``restore``) is then a barrier of the default process group, after which
+every rank sees the files.  ``restore(shardings=...)`` takes the tree of
+``NamedSharding``s that ``launch.inputs.state_shardings`` gives and hands
+each rank its own blocks, whatever mesh the checkpoint was written from.
 """
 
 from __future__ import annotations
@@ -42,11 +50,18 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import NamedSharding, mesh_device
 from repro_torch.models.convert import reference_rows, split_reference
 from repro_torch.models.model import LM
 from repro_torch.training.optimizer import AdamWState
-from repro_torch.training.step import TrainState
+from repro_torch.training.step import (
+    TrainState,
+    param_shardings,
+    placed_model,
+)
 
 # the .npy descriptor numpy writes for ml_dtypes' bfloat16, as the JAX
 # package saves it
@@ -136,16 +151,20 @@ def _subtree(leaves: dict, prefix: str) -> dict:
             if k.startswith(head)}
 
 
-def _rebuild(like, leaves: dict, prefix: str, device):
+def _rebuild(like, leaves: dict, prefix: str, device, shardings=None):
     """A tree of ``like``'s structure holding ``leaves`` (host tensors by
     key), each copied to ``device`` or, where that is None, to the device
-    of ``like``'s leaf."""
+    of ``like``'s leaf; with ``shardings`` (a tree of ``like``'s structure
+    whose leaves are ``NamedSharding``s), each rank's blocks instead."""
     if isinstance(like, torch.Tensor):
+        if shardings is not None:
+            return shardings.distribute(leaves[prefix])
         return leaves[prefix].to(like.device if device is None else device,
                                  copy=True)
     if isinstance(like, TrainState):
-        return _rebuild_state(like, leaves, prefix, device)
-    kids = {part: _rebuild(child, leaves, _key(prefix, part), device)
+        return _rebuild_state(like, leaves, prefix, device, shardings)
+    kids = {part: _rebuild(child, leaves, _key(prefix, part), device,
+                           None if shardings is None else shardings[part])
             for part, child in _children(like)}
     if isinstance(like, dict):
         return kids
@@ -155,27 +174,61 @@ def _rebuild(like, leaves: dict, prefix: str, device):
         f.name: kids[i] for i, f in enumerate(dataclasses.fields(like))})
 
 
-def _rebuild_state(like: TrainState, leaves: dict, prefix: str, device):
+def _rebuild_state(like: TrainState, leaves: dict, prefix: str, device,
+                   shardings=None):
     """A new ``TrainState`` (its own ``LM`` and tensors) of ``like``'s
-    config, each weight requiring gradients as ``like``'s does."""
+    config, each weight requiring gradients as ``like``'s does; with
+    ``shardings`` (``launch.inputs.state_shardings``' tree), the weights
+    and moments as DTensors of this rank's blocks by the parameters'
+    shardings, the step counters on the mesh's device."""
     cfg = like.model.cfg
-    if device is None:
-        device = next(like.model.parameters()).device
     model = LM(cfg, "meta")
+    by_name = None
+    if shardings is not None:
+        by_name = param_shardings(model, shardings[0])
+        device = mesh_device(next(iter(by_name.values())).mesh)
+    elif device is None:
+        device = next(like.model.parameters()).device
 
     def named(sub):
         rows = split_reference(_subtree(leaves, _key(prefix, sub)), model,
                                cfg)
+        if by_name is not None:
+            return {n: by_name[n].distribute(t) for n, t in rows.items()}
         return {n: t.to(device, copy=True) for n, t in rows.items()}
 
-    model.load_state_dict(named(_PARAMS), assign=True)
-    for w, w0 in zip(model.parameters(), like.model.parameters()):
-        w.requires_grad_(w0.requires_grad)
     opt = AdamWState(
         leaves[_key(prefix, _OPT_STEP)].to(device, copy=True),
         named(_M), named(_V))
-    return TrainState(model, opt,
-                      leaves[_key(prefix, _STEP)].to(device, copy=True))
+    return TrainState(placed_model(cfg, named(_PARAMS), like.model), opt,
+                      leaves[_key(prefix, _STEP)].to(device, copy=True),
+                      by_name)
+
+
+def _sharding_keys(tree, prefix: str = "") -> set:
+    """The keys of a tree of ``NamedSharding``s (dicts, lists, tuples);
+    ``TypeError`` on any other leaf."""
+    if isinstance(tree, NamedSharding):
+        return {prefix}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif type(tree) in (list, tuple):
+        items = enumerate(tree)
+    else:
+        raise TypeError(f"shardings must be a torch.device for every leaf "
+                        f"or a tree of NamedShardings "
+                        f"(launch.inputs.state_shardings), not a "
+                        f"{type(tree).__name__} at {prefix or 'the root'}")
+    return {k for part, child in items
+            for k in _sharding_keys(child, _key(prefix, part))}
+
+
+def _whole(leaf):
+    """A leaf (or a list of rows) with every DTensor gathered whole: a
+    collective for each DTensor."""
+    if isinstance(leaf, list):
+        return [_whole(r) for r in leaf]
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
 
 
 class Checkpointer:
@@ -188,14 +241,27 @@ class Checkpointer:
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
         self._host: dict[str, torch.Tensor] = {}
+        self._barrier = False      # the last save was a mesh's
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, *, async_: bool = True):
         """Snapshot ``tree`` at ``step``: every leaf is on the host when
         this returns; with ``async_`` the files are written by a
-        background thread (``wait`` joins it)."""
+        background thread (``wait`` joins it).  A tree holding DTensors is
+        gathered on every rank and written by rank 0 (the module's
+        docstring)."""
         self.wait()
-        host = self._snapshot(_flatten(tree))
+        flat = _flatten(tree)
+        self._barrier = any(isinstance(r, DTensor) for v in flat.values()
+                            for r in (v if isinstance(v, list) else [v]))
+        if self._barrier:
+            with torch.no_grad():
+                flat = {k: _whole(v) for k, v in flat.items()}
+            if dist.get_rank() != 0:
+                if not async_:
+                    self.wait()
+                return
+        host = self._snapshot(flat)
 
         def write():
             tmp = self.dir / f"step_{step}.tmp"
@@ -224,6 +290,9 @@ class Checkpointer:
         if async_:
             self._thread = threading.Thread(target=run, daemon=True)
             self._thread.start()
+        elif self._barrier:
+            run()
+            self.wait()
         else:
             write()
 
@@ -249,10 +318,14 @@ class Checkpointer:
         return host
 
     def wait(self):
-        """Joins the write in flight; raises its error, if it failed."""
+        """Joins the write in flight, then, after a mesh's save, waits for
+        every rank; raises the write's error, if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         err, self._error = self._error, None
         if err is not None:
             raise err
@@ -267,15 +340,16 @@ class Checkpointer:
                 shardings: Any = None) -> Any:
         """A new tree of ``like``'s structure from the checkpoint at
         ``step`` (the latest by default); ``like`` is left as it is.  Each
-        leaf lands on ``like``'s device, or on ``shardings``, one
-        ``torch.device`` for every leaf (sharded placements come with
-        ``distributed/sharding.py``)."""
+        leaf lands on ``like``'s device, or on ``shardings``: one
+        ``torch.device`` for every leaf, or a tree of ``like``'s structure
+        of ``NamedSharding``s (``launch.inputs.state_shardings`` for a
+        ``TrainState``), each rank then holding its own blocks."""
         self.wait()
-        if shardings is not None:
-            if not isinstance(shardings, (torch.device, str)):
-                raise TypeError(f"shardings must be a torch.device for "
-                                f"every leaf, not {type(shardings).__name__}")
-            shardings = torch.device(shardings)
+        device, placed = None, None
+        if isinstance(shardings, (torch.device, str)):
+            device = torch.device(shardings)
+        elif shardings is not None:
+            placed = _sharding_keys(shardings)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -289,6 +363,12 @@ class Checkpointer:
                 f"checkpoint/model structure mismatch: not in the "
                 f"checkpoint {sorted(keys - set(manifest))}, not in the "
                 f"model {sorted(set(manifest) - keys)}")
+        if placed is not None and placed != keys:
+            raise ValueError(
+                f"shardings/model structure mismatch: no sharding for "
+                f"{sorted(keys - placed)}, no leaf for "
+                f"{sorted(placed - keys)}")
         leaves = {k: _read_npy(d / manifest[k]["file"], manifest[k])
                   for k in keys}
-        return _rebuild(like, leaves, "", shardings)
+        return _rebuild(like, leaves, "", device,
+                        None if placed is None else shardings)

@@ -1,8 +1,27 @@
-"""The port of the JAX package's ``repro.distributed``: so far the train
-step's gradient compression (``ef_int8_roundtrip``).  The logical sharding
-rules and the compressed all-reduce wait for the distributed training
-slice."""
+"""The port of the JAX package's ``repro.distributed``: the logical
+sharding rules as DTensor placements (``sharding``) and gradient
+compression (``compression``)."""
 
-from repro_torch.distributed.compression import ef_int8_roundtrip
+from repro_torch.distributed.compression import (
+    CompressedPsum,
+    ef_int8_roundtrip,
+)
+from repro_torch.distributed.sharding import (
+    LOGICAL_RULES,
+    axis_rules,
+    current_mesh,
+    logical_spec,
+    shard,
+    use_mesh,
+)
 
-__all__ = ["ef_int8_roundtrip"]
+__all__ = [
+    "LOGICAL_RULES",
+    "axis_rules",
+    "current_mesh",
+    "logical_spec",
+    "shard",
+    "use_mesh",
+    "ef_int8_roundtrip",
+    "CompressedPsum",
+]

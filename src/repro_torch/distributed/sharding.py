@@ -1,0 +1,306 @@
+"""Logical-axis sharding rules, resolved to DTensor placements.
+
+The port of the JAX package's ``distributed/sharding.py``.  Model code
+names each weight's dims with *logical* axes; a rules table maps them onto
+the axes of a ``torch.distributed.device_mesh.DeviceMesh``.  Outside a mesh
+every annotation is a no-op.
+
+Parallelism encoding (the reference's table, copied):
+  batch   → ("pod", "data")   DP across pods and within pods
+  fsdp    → "data"            parameter/optimizer sharding (ZeRO-3)
+  tensor  → "model"           TP: heads / ffn / vocab / expert-ffn
+  expert  → "data"            EP: expert dim of MoE weights
+  kv_seq  → "data"            SP for long-context decode KV caches
+
+``resolve_spec`` returns the reference's normalised PartitionSpec as a
+plain tuple, one entry per dim: ``None``, a mesh axis name, or a tuple of
+axis names.  It reads only the mesh's ``mesh_dim_names`` and ``shape``, so
+it runs on any object that has them, with no process group.
+
+A dim sharded over several axes is split major-to-minor in the order the
+spec lists them, as JAX splits it: block ``c[a1]·s[a2] + c[a2]`` of a dim
+over ``(a1, a2)``.  DTensor splits in mesh-dim order, so an axis that comes
+before a more major one in the mesh takes a ``_StridedShard`` whose split
+factor is the product of those more major axes' sizes (``placements``);
+``local_block`` cuts a rank's block by its mesh coordinate as JAX does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Any
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+# logical axis → mesh axis (None = replicated)
+LOGICAL_RULES: dict[str, object] = {
+    "batch": ("pod", "data"),
+    # Megatron-style sequence parallelism: the residual stream between
+    # blocks shards its seq dim over "model"; inside a block the seq axis
+    # is dropped wherever it would collide with a tensor dim that already
+    # uses "model" (resolve_spec dedup).
+    "seq": "model",
+    "embed": ("pod", "data"),  # FSDP/ZeRO-3 weight dim — across pods too
+    "act_embed": None,      # activations keep embed unsharded (TP gathers)
+    "heads": "model",
+    "heads_fused": "model",  # h·hd fused projection dim (always divisible)
+    "kv_heads": "model",
+    "head_dim": None,
+    "kv_head_dim": "model",  # KV-cache head_dim takes "model" when the
+                             # kv-head count can't (GQA kv < 16)
+    "mlp": "model",
+    "vocab": "model",
+    "experts": ("pod", "data"),
+    "expert_mlp": "model",
+    "dispatch_embed": "model",  # d_model during MoE scatter/gather
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "conv": None,
+    "kv_seq": ("pod", "data"),  # sequence-parallel long-context KV
+    "q_seq": "model",       # context parallelism: q positions take "model"
+                            # when the kv-head count can't split it
+    "layers": None,
+    "stack": None,
+}
+
+# Secondary claims: if a dim's PRIMARY axes were unavailable/indivisible
+# and another dim freed one of these axes, the named logical axis may
+# claim it in a second pass (h2o-danube's d_head=120 can't take "model",
+# so its KV-cache seq dim does).
+SECONDARY_RULES: dict[str, tuple] = {
+    "kv_seq": ("model",),
+}
+
+_state = threading.local()
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+def current_rules() -> dict:
+    return getattr(_state, "rules", LOGICAL_RULES)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: dict | None = None):
+    prev_mesh = getattr(_state, "mesh", None)
+    prev_rules = getattr(_state, "rules", LOGICAL_RULES)
+    _state.mesh = mesh
+    _state.rules = dict(rules) if rules is not None else LOGICAL_RULES
+    try:
+        yield
+    finally:
+        _state.mesh = prev_mesh
+        _state.rules = prev_rules
+
+
+@contextlib.contextmanager
+def axis_rules(**overrides):
+    """Temporarily override logical→mesh rules (perf experiments)."""
+    rules = dict(current_rules())
+    rules.update(overrides)
+    with use_mesh(current_mesh(), rules):
+        yield
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name → size of a ``DeviceMesh`` (or of anything with
+    ``mesh_dim_names`` and ``shape``)."""
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+
+
+def resolve_spec(shape: tuple[int, ...] | None,
+                 logical_axes: tuple[str | None, ...]) -> tuple:
+    """Map logical axis names to a spec under the current mesh and rules,
+    rule for rule the reference's:
+
+      * mesh axes absent from the current mesh are dropped;
+      * a mesh axis may appear only once per spec (later duplicates are
+        dropped);
+      * a dim not divisible by its mesh-axis product is not sharded on it
+        (the first single axis that divides is kept); freed axes are
+        re-homed onto later unsharded, divisible dims whose logical axis is
+        None, jointly first, then singly;
+      * then ``SECONDARY_RULES``' named dims claim still-unused axes.
+
+    ``shape=None`` skips divisibility checks (mesh-presence and duplicate
+    rules still apply)."""
+    mesh = current_mesh()
+    rules = current_rules()
+    sizes = mesh_sizes(mesh) if mesh is not None else {}
+    avail = set(sizes)
+
+    def candidates(ax):
+        tgt = rules.get(ax) if ax is not None else None
+        if tgt is None:
+            return ()
+        if isinstance(tgt, tuple):
+            return tuple(t for t in tgt if t in avail)
+        return (tgt,) if tgt in avail else ()
+
+    used: set[str] = set()
+    freed: list[str] = []
+    out: list = []
+    for i, ax in enumerate(logical_axes):
+        cand = tuple(a for a in candidates(ax) if a not in used)
+        dim = shape[i] if shape is not None else None
+
+        def divides(axes):
+            if dim is None or not axes:
+                return bool(axes)
+            prod = 1
+            for a in axes:
+                prod *= sizes.get(a, 1)
+            return prod > 0 and dim % prod == 0
+
+        chosen = ()
+        if divides(cand):
+            chosen = cand
+        else:
+            for a in cand:
+                if divides((a,)):
+                    chosen = (a,)
+                    break
+            freed.extend(a for a in cand if a not in chosen)
+        used.update(chosen)
+        out.append(chosen)
+
+    if shape is not None:
+        freed = [a for i, a in enumerate(freed)
+                 if a not in used and a not in freed[:i]]
+
+        def try_place(axes_tuple):
+            prod = 1
+            for a in axes_tuple:
+                prod *= sizes.get(a, 1)
+            if prod <= 1:
+                return False
+            for i, cur in enumerate(out):
+                if not cur and logical_axes[i] is None \
+                        and shape[i] % prod == 0 and shape[i] > 1:
+                    out[i] = axes_tuple
+                    used.update(axes_tuple)
+                    return True
+            return False
+
+        if freed and not try_place(tuple(freed)):
+            for a in list(freed):
+                if a not in used:
+                    try_place((a,))
+
+        for i, ax in enumerate(logical_axes):
+            if out[i] or ax not in SECONDARY_RULES:
+                continue
+            for a in SECONDARY_RULES[ax]:
+                if a in used or a not in avail:
+                    continue
+                if sizes.get(a, 1) > 1 and shape[i] % sizes.get(a, 1) == 0:
+                    out[i] = (a,)
+                    used.add(a)
+                    break
+
+    return tuple(c if len(c) > 1 else (c[0] if c else None) for c in out)
+
+
+def logical_spec(*logical_axes: str | None, shape=None) -> tuple:
+    return resolve_spec(shape, logical_axes)
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one entry of a resolved spec, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
+    mesh dim that tensor dim ``d`` takes, ``Replicate()`` elsewhere; a
+    mesh dim that comes before a more major axis of the same tensor dim
+    (a spec listing axes out of mesh order) takes ``_StridedShard(d)``
+    split by those axes' sizes, so that each rank holds JAX's block."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    names = list(mesh.mesh_dim_names)
+    sizes = mesh_sizes(mesh)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        for k, a in enumerate(axes):
+            j = names.index(a)
+            split = math.prod(sizes[b] for b in axes[:k]
+                              if names.index(b) > j)
+            out[j] = Shard(d) if split == 1 else _StridedShard(
+                d, split_factor=split)
+    return tuple(out)
+
+
+def local_block(full: torch.Tensor, spec: tuple, mesh,
+                coordinate=None) -> torch.Tensor:
+    """The block of ``full`` that the rank at ``coordinate`` (this rank's
+    mesh coordinate by default) holds under ``spec``: along each dim, block
+    ``Σ c[a]·(sizes of the axes listed after a)`` of ``Π sizes`` equal
+    blocks, as JAX cuts it.  A view of ``full``."""
+    if coordinate is None:
+        coordinate = mesh.get_coordinate()
+    sizes = mesh_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, coordinate))
+    index = []
+    for d, entry in enumerate(spec):
+        n, b = 1, 0
+        for a in spec_axes(entry):
+            b = b * sizes[a] + coord[a]
+            n *= sizes[a]
+        if full.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(full.shape)} does not split "
+                             f"into {n} blocks ({spec})")
+        size = full.shape[d] // n
+        index.append(slice(b * size, (b + 1) * size))
+    return full[tuple(index)]
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device that holds this rank's blocks on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """One leaf's layout on ``mesh``: its resolved ``spec`` and the DTensor
+    ``placements`` that hold it."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        return local_block(full, self.spec, self.mesh)
+
+    def distribute(self, full: torch.Tensor):
+        """A DTensor of ``full``'s values laid out by this sharding: each
+        rank copies its own block from ``full`` (no communication)."""
+        block = self.local(full).to(mesh_device(self.mesh), copy=True)
+        return DTensor.from_local(
+            block.contiguous(), self.mesh, self.placements, run_check=False,
+            shape=full.shape,
+            stride=torch.empty(full.shape, device="meta").stride())
+
+
+def shard(x, *logical_axes: str | None):
+    """A DTensor ``x`` redistributed to its logical axes' placements under
+    the current mesh; ``x`` itself outside a mesh or when it is not a
+    DTensor."""
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = resolve_spec(tuple(x.shape), tuple(logical_axes))
+    return x.redistribute(mesh, placements(spec, mesh))

@@ -1,8 +1,9 @@
 """The LM stack's models: the dense, MoE, rwkv6, mamba2 and hybrid
-(zamba2) families, on one device.
+(zamba2) families.
 
-The port of the JAX package's ``repro.models`` (``decode_state_specs``, a
-sharding annotation, has no counterpart)."""
+The port of the JAX package's ``repro.models``; ``param_specs`` is the
+spec half of its ``init_params`` (``decode_state_specs`` waits for the dry
+run, ``ROADMAP.md`` §1 item 4)."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
@@ -11,6 +12,7 @@ from repro_torch.models.model import (
     forward,
     init_decode_state,
     init_params,
+    param_specs,
     prefill,
 )
 
@@ -18,6 +20,7 @@ __all__ = [
     "LM",
     "ModelConfig",
     "init_params",
+    "param_specs",
     "forward",
     "prefill",
     "decode_step",

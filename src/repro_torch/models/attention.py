@@ -40,6 +40,9 @@ NEG_INF = -1e30
 class Attention(nn.Module):
     """Projections in the fused head layout ``[d, h·hd]``, as the
     reference stores them."""
+    SPECS = {"wq": ("embed", "heads_fused"), "wk": ("embed", "heads_fused"),
+             "wv": ("embed", "heads_fused"), "wo": ("heads_fused", "embed"),
+             "q_norm": ("head_dim",), "k_norm": ("head_dim",)}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()

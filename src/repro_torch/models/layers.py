@@ -9,8 +9,11 @@ which every product of the models runs).  Weights live in
 parameter tree (``models.convert`` carries a tree across by those names);
 the functions take the module and compute op for op as the reference does.
 Weights are float32 masters, cast to the compute dtype at each use, as the
-reference casts them.  The reference's ``shard`` annotations are no-ops on
-one device and have no counterpart here.
+reference casts them.  The reference's ``shard`` annotations inside the
+model are not placed here: the mesh train step is data parallel and runs
+the model on whole weights (tensor-parallel compute is ``ROADMAP.md`` §1
+item 5).  Each module's ``SPECS`` names its leaves' logical axes, by which
+``distributed.sharding`` places the weights.
 """
 
 from __future__ import annotations
@@ -120,6 +123,10 @@ def apply_rope(x, sin, cos):
 # SwiGLU MLP
 # --------------------------------------------------------------------------
 class MLP(nn.Module):
+    # each leaf's logical axes (the reference's ``mlp_init`` specs)
+    SPECS = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+
     def __init__(self, d_model: int, d_ff: int, device=None):
         super().__init__()
         self.wi = param(d_model, d_ff, device=device)
@@ -137,6 +144,8 @@ def mlp_apply(p: MLP, x, dtype):
 # Embedding / unembedding
 # --------------------------------------------------------------------------
 class Embed(nn.Module):
+    SPECS = {"embedding": ("vocab", "embed"), "unembed": ("embed", "vocab")}
+
     def __init__(self, vocab: int, d_model: int, tie: bool, device=None):
         super().__init__()
         self.embedding = param(vocab, d_model, device=device)

@@ -34,6 +34,9 @@ from repro_torch.models.layers import einsum, matmul, param, rms_norm, silu
 
 class Mamba2(nn.Module):
     """One Mamba2 mixer's weights, named as the reference's tree."""
+    SPECS = {"in_proj": ("embed", "ssm_inner"), "conv_w": ("conv", "ssm_inner"),
+             "A_log": (None,), "D": (None,), "dt_bias": (None,),
+             "norm_w": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()

@@ -102,6 +102,7 @@ def resolve_device(device) -> torch.device:
 class Block(nn.Module):
     """A transformer block: a dense or MoE layer, or the hybrid's shared
     attention+MLP block."""
+    SPECS = {"ln1": (None,), "ln2": (None,)}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -119,6 +120,8 @@ class RWKVLayer(nn.Module):
 
 
 class MambaLayer(nn.Module):
+    SPECS = {"ln1": (None,)}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.mixer = m2.Mamba2(cfg, device)
@@ -134,6 +137,7 @@ class LM(nn.Module):
     parameter tree (``layers.3.attn.wq`` is ``layers/attn/wq``'s row 3;
     the hybrid's unstacked ``shared/attn/wq`` is ``shared.attn.wq``), and
     the config they were made for (``cfg``)."""
+    SPECS = {"final_norm": (None,)}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -173,6 +177,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
                 if leaf == "ww":   # rwkv6's decay projection: decay near 1
                     w.mul_(0.1)
     return model
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The spec half of the reference's ``init_params``: the logical-axis
+    tuple of every leaf of its parameter tree, as nested dicts by the
+    leaf's path, ``layers/...`` leaves led by ``"layers"`` (stacked over
+    the layers).  Each module declares its leaves' axes (``SPECS``)."""
+    model = LM(cfg, "meta")
+    tree: dict = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        axes = model.get_submodule(".".join(parts[:-1])).SPECS[parts[-1]]
+        if parts[0] == "layers":
+            parts, axes = ["layers"] + parts[2:], ("layers",) + axes
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = axes
+    return tree
 
 
 def _is_global_pattern(cfg: ModelConfig) -> list[bool]:

@@ -32,6 +32,11 @@ from repro_torch.models.layers import (
 
 
 class MoE(nn.Module):
+    SPECS = {"router": ("embed", None),
+             "wi": ("experts", None, "expert_mlp"),
+             "wg": ("experts", None, "expert_mlp"),
+             "wo": ("experts", "expert_mlp", None)}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts

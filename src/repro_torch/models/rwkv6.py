@@ -37,6 +37,14 @@ from repro_torch.models.layers import (
 class RWKV6(nn.Module):
     """One RWKV block's weights (time mix and channel mix), named as the
     reference's parameter tree."""
+    SPECS = {"mu": (None, None), "wr": ("embed", "ssm_inner"),
+             "wk": ("embed", "ssm_inner"), "wv": ("embed", "ssm_inner"),
+             "ww": ("embed", "ssm_inner"), "w_bias": (None,),
+             "wg": ("embed", "ssm_inner"), "u": (None, None),
+             "norm_w": (None,), "ln1": (None,), "ln2": (None,),
+             "wo": ("ssm_inner", "embed"), "ffn_wr": ("embed", None),
+             "ffn_wk": ("embed", "mlp"), "ffn_wv": ("mlp", "embed"),
+             "ffn_mu": (None, None)}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()

@@ -8,6 +8,7 @@ from repro_torch.training.step import (
     TrainState,
     build_train_step,
     init_train_state,
+    place_train_state,
     train_loss,
 )
 
@@ -19,5 +20,6 @@ __all__ = [
     "TrainState",
     "build_train_step",
     "init_train_state",
+    "place_train_state",
     "train_loss",
 ]

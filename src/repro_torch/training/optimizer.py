@@ -72,11 +72,14 @@ def _groups(names: list, params: dict):
 @torch.no_grad()
 def adamw_update(grads: dict, state: AdamWState, params: dict, *,
                  lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 grad_norm: torch.Tensor | None = None):
     """One AdamW update of ``params`` by ``grads`` (both keyed by name).
     Updates ``params`` and the moments in place and returns (params, the
-    state with ``step + 1``, metrics ``grad_norm`` and ``lr``)."""
-    gnorm = global_norm(grads)
+    state with ``step + 1``, metrics ``grad_norm`` and ``lr``).  The clip
+    reads ``grad_norm`` where the caller gives it (a mesh step updates its
+    shards by the norm of the whole gradient), else ``global_norm(grads)``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     b1c = 1 - torch.pow(b1, step.to(F32))

@@ -12,16 +12,45 @@ optimizer.
 The step updates the model's parameters in place (``TrainState.model``)
 and returns the state with ``step + 1``; its metrics stay tensors on the
 model's device, and nothing inside the step is read back to the host.
+
+Called under ``distributed.use_mesh(mesh)``, as the reference calls its
+step, the same step runs data parallel over the mesh on a state that
+``place_train_state`` (or ``Checkpointer.restore(shardings=...)``) laid
+out there: every weight and AdamW moment a DTensor holding this rank's
+block, by the logical rules.  Each rank is given the whole global batch.
+The step gathers each weight once for the forward and the backward; each
+rank takes its block of whole rows of every global microbatch, along the
+batch axes that divide the row count (``microbatch_specs``; microbatch
+``i`` is the same rows as on one device); the losses divide
+by the whole microbatch's token count, so the gradients summed over the
+ranks holding the other blocks are the microbatch's; the norm, the clip
+and the int8 round trip see that whole gradient; AdamW updates each
+rank's blocks.  Ranks along axes that do not shard the batch compute the
+same rows: there is no tensor-parallel compute.  A MoE model on more than
+one batch shard is refused: its capacity-bounded dispatch and its
+load-balance loss read the whole microbatch's tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.distributed.compression import ef_int8_roundtrip
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    current_mesh,
+    local_block,
+    mesh_device,
+    mesh_sizes,
+    resolve_spec,
+    spec_axes,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM, forward
 from repro_torch.training.losses import IGNORE, cross_entropy_loss
@@ -30,7 +59,11 @@ from repro_torch.training.optimizer import (
     adamw_init,
     adamw_update,
     cosine_schedule,
+    global_norm,
 )
+
+# the queue item that takes tensor- and expert-parallel compute
+_TP_ITEM = "ROADMAP.md §1 item 5"
 
 
 @dataclasses.dataclass
@@ -38,6 +71,9 @@ class TrainState:
     model: LM             # its parameters, updated in place by each step
     opt: AdamWState
     step: torch.Tensor    # int32 scalar on the model's device
+    # on a mesh: each weight's (and its moments') sharding by name, the
+    # weights and moments DTensors of this rank's blocks; None on one device
+    shardings: dict[str, NamedSharding] | None = None
 
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
@@ -54,18 +90,19 @@ def init_train_state(model: LM, opt_state_dtype=torch.float32) -> TrainState:
 
 
 def train_loss(model: LM, cfg: ModelConfig, batch: dict, *,
-               remat: str = "full"):
+               remat: str = "full", tokens: torch.Tensor | None = None):
     """The reference's ``loss_fn``: masked cross-entropy with z-loss over
     ``forward``'s logits (a vision stub's patch positions carry no label),
     plus, for MoE, ``router_aux_weight · load_balance + router_z_weight ·
-    router_z``.  Returns (loss, metrics)."""
+    router_z``; the cross-entropy's sums divided by ``tokens`` where given
+    (``cross_entropy_loss``).  Returns (loss, metrics)."""
     logits, aux = forward(model, cfg, batch, remat=remat)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
         pad = torch.full(labels.shape[:1] + (cfg.num_patches,), IGNORE,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    loss, metrics = cross_entropy_loss(logits, labels)
+    loss, metrics = cross_entropy_loss(logits, labels, tokens=tokens)
     if cfg.family == "moe" and aux is not None:
         loss = loss + cfg.router_aux_weight * aux["load_balance"] \
             + cfg.router_z_weight * aux["router_z"]
@@ -82,37 +119,186 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {"tokens" [B,S], "labels" [B,S], optional "image_embeds"} on the
-    model's device; B must divide by ``microbatches``.  metrics: ``loss``
-    (the mean over the microbatches), the last microbatch's loss metrics,
-    ``grad_norm`` and ``lr``."""
+    model's device (on a mesh: the whole global batch on every rank); B
+    must divide by ``microbatches``.  metrics: ``loss`` (the mean over the
+    microbatches), the last microbatch's loss metrics, ``grad_norm`` and
+    ``lr``.  Under ``use_mesh(mesh)`` the step is the mesh step (the
+    module's docstring); every rank calls it."""
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
     m = microbatches
 
-    def train_step(state: TrainState, batch: dict):
-        params = state.params
-        weights = list(params.values())
+    def grads_of(model, batch, local_rows, group):
+        """The summed float32 gradients of the microbatches' losses over
+        ``model``'s weights, the summed losses, the last microbatch's
+        metrics.  ``local_rows`` cuts a rank's rows out of a microbatch,
+        and ``group`` sums each microbatch's token count over the ranks
+        holding its other rows (both None on one device; ``group`` None
+        too where the rank holds every row)."""
+        weights = list(model.parameters())
         g_acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                  for w in weights]
         loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=state.step.device)
+                               device=weights[0].device)
         rows = next(iter(batch.values())).shape[0] // m
         for i in range(m):
             mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-            loss, metrics = train_loss(state.model, cfg, mb, remat=remat)
+            tokens = None
+            if local_rows is not None:
+                mb = local_rows(mb)
+                tokens = (mb["labels"] != IGNORE).sum().to(torch.float32)
+                if group is not None:
+                    dist.all_reduce(tokens, group=group)
+            loss, metrics = train_loss(model, cfg, mb, remat=remat,
+                                       tokens=tokens)
             grads = torch.autograd.grad(loss, weights)
             torch._foreach_add_(g_acc, [g.to(torch.float32) for g in grads])
             loss_sum = loss_sum + loss.detach()
             del grads, loss
-        grads = dict(zip(params, torch._foreach_div(g_acc, m)))
-        del g_acc
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if tokens is not None:
+            metrics["tokens"] = tokens.to(torch.int32)
+        return g_acc, loss_sum, metrics
+
+    def update(state, grads, loss_sum, metrics, shardings=None):
         if compress_grads:
             grads = {n: ef_int8_roundtrip(g) for n, g in grads.items()}
+        params, opt = state.params, state.opt
+        gnorm = global_norm(grads)
+        if shardings is not None:      # each rank updates its blocks
+            grads = {n: shardings[n].local(g) for n, g in grads.items()}
+            with torch.no_grad():
+                params = {n: p.to_local() for n, p in params.items()}
+                opt = AdamWState(opt.step,
+                                 {n: t.to_local() for n, t in opt.m.items()},
+                                 {n: t.to_local() for n, t in opt.v.items()})
         _, opt, opt_metrics = adamw_update(
-            grads, state.opt, params, lr=lr_fn(state.step),
-            weight_decay=weight_decay)
-        return TrainState(state.model, opt, state.step + 1), {
-            "loss": loss_sum / m,
-            **{k: v.detach() for k, v in metrics.items()},
-            **opt_metrics}
+            grads, opt, params, lr=lr_fn(state.step),
+            weight_decay=weight_decay, grad_norm=gnorm)
+        return TrainState(
+            state.model, AdamWState(opt.step, state.opt.m, state.opt.v),
+            state.step + 1, state.shardings), {
+            "loss": loss_sum / m, **metrics, **opt_metrics}
+
+    def local_step(state: TrainState, batch: dict):
+        g_acc, loss_sum, metrics = grads_of(state.model, batch, None, None)
+        grads = dict(zip(state.params, torch._foreach_div(g_acc, m)))
+        del g_acc
+        return update(state, grads, loss_sum, metrics)
+
+    def mesh_step(state: TrainState, batch: dict, mesh):
+        if state.shardings is None:
+            raise ValueError("a mesh step takes a state placed on the mesh "
+                             "(place_train_state, or Checkpointer.restore "
+                             "with shardings)")
+        specs = microbatch_specs(batch, m)
+        axes = spec_axes(specs["tokens"][0])
+        shards = math.prod(mesh_sizes(mesh)[a] for a in axes)
+        if cfg.family == "moe" and shards > 1:
+            raise NotImplementedError(
+                f"a MoE model on {shards} batch shards: its capacity-bounded "
+                f"dispatch and load-balance loss read the whole microbatch's "
+                f"tokens; expert-parallel compute is {_TP_ITEM}")
+        group = _batch_group(mesh, axes)
+        with torch.no_grad():       # each weight gathered once
+            full = {n: p.full_tensor() for n, p in state.params.items()}
+        compute = LM(cfg, "meta")
+        compute.load_state_dict(full, assign=True)
+        compute.requires_grad_(True)
+        del full
+        g_acc, loss_sum, metrics = grads_of(
+            compute, batch, lambda mb: {
+                k: local_block(v, specs[k], mesh) for k, v in mb.items()},
+            group)
+        del compute
+        if group is not None:
+            # the microbatches' gradients and losses summed over the ranks
+            # holding the other rows
+            for g in g_acc:
+                dist.all_reduce(g, group=group)
+            sums = torch.stack([loss_sum, metrics["ce"], metrics["zloss"]])
+            dist.all_reduce(sums, group=group)
+            loss_sum, metrics["ce"], metrics["zloss"] = sums.unbind()
+        grads = dict(zip(state.params, torch._foreach_div(g_acc, m)))
+        del g_acc
+        return update(state, grads, loss_sum, metrics, state.shardings)
+
+    def train_step(state: TrainState, batch: dict):
+        mesh = current_mesh()
+        if mesh is None:
+            return local_step(state, batch)
+        return mesh_step(state, batch, mesh)
 
     return train_step
+
+
+def microbatch_specs(batch: dict, microbatches: int) -> dict[str, tuple]:
+    """Each batch leaf's spec for one microbatch under the current mesh:
+    its rows (dim 0) by the ``"batch"`` rule, every other dim whole, so a
+    rank's block is always whole rows.  Rows that do not divide by the
+    batch axes keep only the axes they divide by (``resolve_spec``'s
+    fallback); the freed axes compute the same rows."""
+    rows = next(iter(batch.values())).shape[0] // microbatches
+    spec = resolve_spec((rows,), ("batch",))
+    return {k: spec + (None,) * (v.dim() - 1) for k, v in batch.items()}
+
+
+def _batch_group(mesh, axes: tuple):
+    """The process group of the ranks whose mesh coordinates differ only
+    along ``axes`` (this rank's and the other blocks of its rows), from
+    the mesh: one axis's group, or the group of the sub-mesh of several
+    flattened into one; None when no axis cuts the rows."""
+    if not axes:
+        return None
+    names = list(mesh.mesh_dim_names)
+    axes = tuple(sorted(axes, key=names.index))
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def param_shardings(model: LM, tree: dict) -> dict[str, NamedSharding]:
+    """Each of ``model``'s weight names with its sharding, from ``tree``
+    (the parameter part of ``launch.inputs.state_shardings``, by the
+    reference tree's paths): a ``layers.<i>....`` weight takes its stacked
+    leaf's sharding without the leading ``"layers"`` entry, which must be
+    replicated."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        path = ["layers", *parts[2:]] if parts[0] == "layers" else parts
+        sh = tree
+        for key in path:
+            sh = sh[key]
+        if parts[0] == "layers":
+            if sh.spec[0] is not None:
+                raise ValueError(f"{'/'.join(path)}: the layer dim is "
+                                 f"sharded ({sh.spec})")
+            sh = NamedSharding(sh.mesh, sh.spec[1:])
+        out[name] = sh
+    return out
+
+
+def placed_model(cfg: ModelConfig, weights: dict, like: LM) -> LM:
+    """A new ``LM`` holding ``weights`` (DTensors or tensors by name), each
+    requiring gradients as ``like``'s weight of its name does."""
+    model = LM(cfg, "meta")
+    model.load_state_dict(weights, assign=True)
+    for w, w0 in zip(model.parameters(), like.parameters()):
+        w.requires_grad_(w0.requires_grad)
+    return model
+
+
+def place_train_state(state: TrainState, shardings) -> TrainState:
+    """``state`` (whole, the same on every rank) laid out on a mesh by
+    ``shardings``, the tree ``launch.inputs.state_shardings`` gives: the
+    weights and AdamW moments become DTensors of this rank's blocks (each
+    rank copies its own; no communication), the two step counters tensors
+    on the mesh's device, the same on every rank."""
+    by_name = param_shardings(state.model, shardings[0])
+    dev = mesh_device(next(iter(by_name.values())).mesh)
+    with torch.no_grad():
+        weights, m, v = ({n: by_name[n].distribute(t) for n, t in ts.items()}
+                         for ts in (state.params, state.opt.m, state.opt.v))
+    return TrainState(placed_model(state.model.cfg, weights, state.model),
+                      AdamWState(state.opt.step.to(dev, copy=True), m, v),
+                      state.step.to(dev, copy=True), by_name)

@@ -479,14 +479,21 @@ def test_the_launcher_resumes_bit_exactly(tmp_path, capsys):
 
 
 def test_the_launcher_refuses_a_mesh(tmp_path, capsys, monkeypatch):
-    with pytest.raises(SystemExit) as exc:
+    """The production meshes need 256 and 512 ranks; a coordinator
+    address needs the rank and the world size.  Nothing is written."""
+    with pytest.raises(RuntimeError, match=r"\(16, 16\) needs 256 ranks, "
+                                           r"found 1"):
         _train(tmp_path, "--mesh", "single")
-    assert exc.value.code == 2
-    assert "ROADMAP.md §1 item 3" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match=r"\(2, 16, 16\) needs 512"):
+        _train(tmp_path, "--mesh", "multi")
     monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(SystemExit):
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit) as exc:
         _train(tmp_path)
-    assert "COORDINATOR_ADDRESS" in capsys.readouterr().err
+    assert exc.value.code == 2
+    assert "COORDINATOR_ADDRESS is set without RANK and WORLD_SIZE" in \
+        capsys.readouterr().err
     assert not any(tmp_path.iterdir())
 
 

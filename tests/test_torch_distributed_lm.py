@@ -1,0 +1,673 @@
+"""Distributed LM training: the port's mesh train step, placed states and
+elastic restore against the JAX package's
+``tests/helpers/distributed_lm_check.py``, at its config and bounds.
+
+The helper's run: ``qwen3-14b``'s smoke config in float32,
+``TokenPipeline(seq_len=16, global_batch=8, seed=42)``, 2 microbatches,
+``base_lr=5e-3``, ``warmup=2``, ``remat="none"``, 4 steps on a (2,2,2)
+pod × data × model mesh against one device (loss ``rtol=1e-4``, params
+``rtol=2e-3, atol=2e-4``), then the step-4 checkpoint restored onto (4,2)
+and onto one device, 2 more steps each (loss ``rtol=1e-4``).
+
+Three runs, started together: the JAX side in a subprocess of this file
+over 8 host devices (``--xla_force_host_platform_device_count=8``), the
+port as one ``torch.multiprocessing`` spawn of 8 ``gloo`` ranks
+(``FileStore`` rendezvous, one thread a rank), and the port on one device
+in the test process.  All start from the JAX package's initial state,
+written by its checkpointer.  Held:
+
+  * each rank's local block of every leaf of the state placed on (2,2,2)
+    and on (4,2), and on (2,2,2) under an ``axis_rules`` override that
+    splits a dim over ("data", "pod") (out of mesh order), equals the JAX
+    array's shard at the same mesh coordinate (``devices_indices_map``),
+    bitwise, and each DTensor gathers back to the whole array;
+  * the port's (2,2,2) run against the port's one-device run and against
+    the JAX package's (2,2,2) run;
+  * a run on the (8,1) host mesh, whose microbatches' 4 rows do not
+    divide by its 8 batch shards, against the one-device run;
+  * elastic restore of the port's step-4 checkpoint onto (4,2) and onto
+    one device, 2 steps each;
+  * across the packages: the JAX-written step-4 checkpoint continued on
+    the port's (4,2) against the JAX package's (4,2) continuation, and the
+    port-written one on the JAX package's (4,2) against the port's;
+  * every rank's copy of a replicated block bitwise equal to every other's;
+  * ``CompressedPsum`` over groups of 2 and 4 ranks against a numpy
+    oracle, and a MoE model on 4 and on 2 batch shards refused.
+
+Then ``launch/train.py`` at 2 ranks under ``COORDINATOR_ADDRESS=file://``
+checkpoints at step 3, resumes at world size 1 and ends within the
+helper's bounds of the one-device launcher.
+
+Observed gaps (on a CPU, torch 2.13): the (2,2,2) run's step-4
+loss within 9.3e-8 relative of the one-device run's and of the JAX
+(2,2,2) run's, its parameters within 2.3e-7 and 4.7e-7; the (4,2)
+continuations' losses equal to the one-device and the other package's
+(relative gap 0.0), their parameters within 1.7e-7.  The mesh step sums
+in another order than one device (each rank's rows, then ``all_reduce``),
+so it is not bitwise; at one rank it is (``tests/test_torch_gpu.py``,
+``chip_smoke.py``).  On the (8, 1) host mesh a microbatch's 4 rows do not
+divide by 8 batch shards, so each rank computes them all: its four steps
+are bitwise the one-device run's.  The launcher (bfloat16 compute) ended
+14 of its 70,896 parameter entries, all among the embedding's 12,288,
+beyond the helper's parameter bound, by up to 6.5e-4: AdamW's sign on
+round-off gradients (the launcher test's docstring); ``LAUNCH_FAR``
+allows 32.
+
+Run alone: ``PYTHONPATH=src python -m pytest -q tests/test_torch_distributed_lm.py``.
+"""
+
+import dataclasses
+import datetime
+import json
+import logging
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+SRC = REPO / "src"
+HELPERS = REPO / "tests" / "helpers"
+TIMEOUT_S = 300
+WORLD = 8
+STEPS, MORE = 4, 2
+MESHES = {"2x2x2": ((2, 2, 2), ("pod", "data", "model")),
+          "4x2": ((4, 2), ("data", "model"))}
+# a dim split over ("data", "pod"): the spec lists its axes out of mesh order
+OVERRIDE = {"embed": ("data", "pod")}
+LOSS_RTOL = 1e-4
+PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-4
+# the meshes a MoE model is refused on, and their batch shards
+MOE_MESHES = {"2x2x2": 4, "2x4": 2}
+# the launcher's parameter entries (of 70,896) allowed beyond the helper's
+# bound: AdamW's sign on round-off gradients in bfloat16 (14 observed)
+LAUNCH_FAR = 32
+PSUM_GROUPS = {2: [[0, 1], [2, 3], [4, 5], [6, 7]],
+               4: [[0, 1, 2, 3], [4, 5, 6, 7]]}
+
+
+def _wait_for(path: Path, deadline: float) -> None:
+    """Polls for ``path`` (a checkpoint the other side writes, renamed into
+    place once whole)."""
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear")
+        time.sleep(0.1)
+
+
+# ---------------------------------------------------------------------------
+# the JAX side (run as ``python tests/test_torch_distributed_lm.py jax TMP``)
+# ---------------------------------------------------------------------------
+def _jax_side(tmp: Path) -> None:
+    import jax
+    sys.path.insert(0, str(HELPERS))
+    from distributed_lm_check import make_mesh, run_steps, state_shardings
+
+    from repro.checkpoint import Checkpointer
+    from repro.checkpoint.checkpointer import _flatten
+    from repro.configs import get_smoke_config
+    from repro.data import TokenPipeline
+    from repro.distributed.sharding import LOGICAL_RULES
+    from repro.launch.inputs import abstract_params, to_named_shardings
+    from repro.training import init_train_state
+    from repro.training.optimizer import AdamWState
+    from repro.training.step import TrainState
+
+    deadline = time.monotonic() + TIMEOUT_S
+    assert jax.device_count() == WORLD
+    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype="float32")
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=16,
+                         global_batch=8, seed=42)
+    like = init_train_state(abstract_params(cfg)[0])
+    state0 = Checkpointer(tmp / "init").restore(like=like)
+    out: dict = {}
+
+    def keep(tag, state, metrics):
+        out[f"{tag}|loss"] = np.asarray(metrics["loss"])
+        for k, v in _flatten(state.params)[0].items():
+            out[f"{tag}|param|0/{k}"] = np.asarray(v)
+
+    meshes = {n: make_mesh(*MESHES[n]) for n in MESHES}
+    s, m = run_steps(cfg, meshes["2x2x2"], state0, pipe, STEPS)
+    keep("jax222", s, m)
+    Checkpointer(tmp / "jax_ckpt").save(STEPS, s, async_=False)
+
+    # each leaf's index at each mesh coordinate
+    pshapes, pspecs = abstract_params(cfg)
+    shapes = jax.eval_shape(init_train_state, pshapes)
+    specs = TrainState(params=pspecs,
+                       opt=AdamWState(step=(), m=pspecs, v=pspecs), step=())
+    for tag, mesh, rules in (
+            ("2x2x2", meshes["2x2x2"], None), ("4x2", meshes["4x2"], None),
+            ("2x2x2-override", meshes["2x2x2"],
+             {**LOGICAL_RULES, **OVERRIDE})):
+        coord = {d.id: c for c, d in np.ndenumerate(mesh.devices)}
+        flat_sh = _flatten(to_named_shardings(mesh, specs, shapes, rules))[0]
+        flat_shape = _flatten(shapes)[0]
+        for k, sh in flat_sh.items():
+            shape = flat_shape[k].shape
+            idx = np.zeros(mesh.devices.shape + (len(shape), 2), np.int64)
+            for d, index in sh.devices_indices_map(shape).items():
+                idx[coord[d.id]] = np.reshape(
+                    [[sl.start or 0, n if sl.stop is None else sl.stop]
+                     for sl, n in zip(index, shape)], (len(shape), 2))
+            out[f"idx|{tag}|{k}"] = idx
+
+    # elastic: each step-4 checkpoint continued on (4,2)
+    sh42 = state_shardings(cfg, meshes["4x2"])
+    for tag, src in (("J4", tmp / "jax_ckpt"), ("P4", tmp / "port_ckpt")):
+        _wait_for(src / f"step_{STEPS}", deadline)
+        r = Checkpointer(src).restore(like=jax.eval_shape(lambda: s),
+                                      shardings=sh42)
+        s2, m2 = run_steps(cfg, meshes["4x2"], r, pipe, MORE, start=STEPS)
+        keep(f"jax42|{tag}", s2, m2)
+    np.savez(tmp / "jax.npz", **out)
+
+
+# ---------------------------------------------------------------------------
+# the port side: one spawn of 8 ranks
+# ---------------------------------------------------------------------------
+def _port_config():
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen3-14b"),
+                               dtype="float32")
+
+
+def _port_step(cfg):
+    from repro_torch.training import build_train_step
+    return build_train_step(cfg, microbatches=2, base_lr=5e-3, warmup=2,
+                            total_steps=50, remat="none")
+
+
+def _pipe(cfg):
+    from repro_torch.data import TokenPipeline
+    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=16,
+                         global_batch=8, seed=42)
+
+
+def _port_worker(rank: int, tmp: str) -> None:
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import training as tt
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import CompressedPsum
+    from repro_torch.distributed.sharding import LOGICAL_RULES, use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_auto_mesh, make_host_mesh
+    from repro_torch.models import LM, init_params
+
+    torch.set_num_threads(1)
+    # DTensor warns that a dim sharded over two mesh dims gathers in two
+    # steps; a gather adds nothing, so the bits are the same
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    tmp = Path(tmp)
+    deadline = time.monotonic() + TIMEOUT_S
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp / "store"), WORLD), rank=rank, world_size=WORLD,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    cfg = _port_config()
+    pipe, step = _pipe(cfg), _port_step(cfg)
+    meshes = {n: make_auto_mesh(*MESHES[n], device_type="cpu")
+              for n in MESHES}
+    like = tt.init_train_state(LM(cfg, "meta"))
+    out: dict = {}
+
+    def blocks(tag, state, mesh, whole=None):
+        """This rank's block of every leaf; with ``whole`` (the same state
+        on this rank's CPU), whether every leaf gathers back to it."""
+        out[f"coord|{tag}"] = np.asarray(mesh.get_coordinate())
+        same = True
+        full = _flatten(whole) if whole is not None else {}
+        for k, leaf in _flatten(state).items():
+            rows = leaf if isinstance(leaf, list) else [leaf]
+            local = [r.to_local() if isinstance(r, DTensor) else r
+                     for r in rows]
+            # a copy: the steps update the state in place
+            out[f"blk|{tag}|{k}"] = (torch.stack(local) if isinstance(
+                leaf, list) else local[0]).detach().numpy().copy()
+            if whole is not None:
+                got = [r.full_tensor() if isinstance(r, DTensor) else r
+                       for r in rows]
+                want = full[k] if isinstance(full[k], list) else [full[k]]
+                same &= all(torch.equal(a.detach(), b.detach())
+                            for a, b in zip(got, want))
+        if whole is not None:
+            out[f"whole|{tag}"] = np.asarray(same)
+
+    def keep(tag, state, metrics):
+        out[f"{tag}|loss"] = np.asarray(float(metrics["loss"]))
+        for k, leaf in _flatten(state).items():
+            if k.startswith("0/"):
+                rows = leaf if isinstance(leaf, list) else [leaf]
+                full = [r.full_tensor().detach() for r in rows]
+                out[f"{tag}|param|{k}"] = (torch.stack(full) if isinstance(
+                    leaf, list) else full[0]).numpy()
+
+    def run(state, mesh, start, n):
+        for i in range(start, start + n):
+            with use_mesh(mesh):
+                state, metrics = step(state, pipe.torch_batch(i, "cpu"))
+        return state, metrics
+
+    init = Checkpointer(tmp / "init")
+    whole0 = init.restore(like=like, shardings=torch.device("cpu"))
+    s = init.restore(like=like, shardings=state_shardings(
+        cfg, meshes["2x2x2"], {**LOGICAL_RULES, **OVERRIDE}))
+    blocks("2x2x2-override", s, meshes["2x2x2"], whole0)
+    s = init.restore(like=like,
+                     shardings=state_shardings(cfg, meshes["2x2x2"]))
+    blocks("2x2x2", s, meshes["2x2x2"], whole0)
+    s, m = run(s, meshes["2x2x2"], 0, STEPS)
+    keep("port222", s, m)
+    blocks("2x2x2-final", s, meshes["2x2x2"])
+    Checkpointer(tmp / "port_ckpt").save(STEPS, s, async_=False)
+
+    sh42 = state_shardings(cfg, meshes["4x2"])
+    for tag, src in (("P4", tmp / "port_ckpt"), ("J4", tmp / "jax_ckpt")):
+        _wait_for(src / f"step_{STEPS}", deadline)
+        ck = Checkpointer(src)
+        s = ck.restore(like=like, shardings=sh42)
+        if tag == "P4":
+            blocks("4x2", s, meshes["4x2"], ck.restore(
+                like=like, shardings=torch.device("cpu")))
+        s, m = run(s, meshes["4x2"], STEPS, MORE)
+        keep(f"port42|{tag}", s, m)
+        if tag == "P4":
+            blocks("4x2-final", s, meshes["4x2"])
+
+    # the (8, 1) host mesh: a microbatch's 4 rows do not divide by its 8
+    # batch shards, so every rank computes all of them
+    host = make_host_mesh(device_type="cpu")
+    s = init.restore(like=like, shardings=state_shardings(cfg, host))
+    s, m = run(s, host, 0, STEPS)
+    keep("port81", s, m)
+
+    # CompressedPsum over groups of 2 and 4 ranks, two rounds each
+    for size, enum in PSUM_GROUPS.items():
+        group, _ = dist.new_subgroups_by_enumeration(enum)
+        grads = {"w": torch.from_numpy(_psum_grads(rank))}
+        res = CompressedPsum.init_state(grads)
+        for r in range(2):
+            got, res = CompressedPsum.psum(grads, res, group)
+            out[f"psum|{size}|{r}|out"] = got["w"].numpy()
+            out[f"psum|{size}|{r}|res"] = res["w"].numpy()
+
+    # a MoE model on 4 and on 2 batch shards
+    moe = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                              dtype="float32")
+    meshes["2x4"] = make_auto_mesh((2, 4), ("data", "model"),
+                                   device_type="cpu")
+    for tag in MOE_MESHES:
+        state = tt.place_train_state(
+            tt.init_train_state(init_params(moe, seed=0, device="cpu")),
+            state_shardings(moe, meshes[tag]))
+        try:
+            with use_mesh(meshes[tag]):
+                _port_step(moe)(state, _pipe(moe).torch_batch(0, "cpu"))
+            out[f"moe_refused|{tag}"] = np.asarray("")
+        except NotImplementedError as exc:
+            out[f"moe_refused|{tag}"] = np.asarray(str(exc))
+    np.savez(tmp / f"port_{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _psum_grads(rank: int) -> np.ndarray:
+    return np.random.default_rng(100 + rank).normal(size=(64,)).astype(
+        np.float32)
+
+
+# ---------------------------------------------------------------------------
+# fixtures
+# ---------------------------------------------------------------------------
+def _load(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _read_ckpt(d: Path) -> dict:
+    leaves = json.loads((d / "manifest.json").read_text())["leaves"]
+    return {k: np.load(d / e["file"]) for k, e in leaves.items()}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The JAX side's, each port rank's and the one-device run's
+    outputs."""
+    import jax
+    import torch.multiprocessing as mp
+
+    from repro.checkpoint import Checkpointer as JCheckpointer
+    from repro.configs import get_smoke_config as jsmoke
+    from repro.models import init_params as jinit_params
+    from repro.training import init_train_state as jinit_state
+    from repro_torch import training as tt
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.models import LM
+
+    tmp = tmp_path_factory.mktemp("dlm")
+    jcfg = dataclasses.replace(jsmoke("qwen3-14b"), dtype="float32")
+    JCheckpointer(tmp / "init").save(0, jinit_state(jinit_params(
+        jax.random.PRNGKey(0), jcfg)[0]), async_=False)
+    # one thread a device, a rank and a process: the file runs beside the
+    # other test files' workers
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8 "
+                        "--xla_cpu_multi_thread_eigen=false",
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC), os.environ.get("PYTHONPATH", "")])}
+    jproc = subprocess.Popen([sys.executable, __file__, "jax", str(tmp)],
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + TIMEOUT_S
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ctx = mp.start_processes(_port_worker, args=(str(tmp),),
+                                 nprocs=WORLD, join=False,
+                                 start_method="spawn")
+        # the port on one device, meanwhile
+        cfg = _port_config()
+        pipe, step = _pipe(cfg), _port_step(cfg)
+        like = tt.init_train_state(LM(cfg, "meta"))
+        one: dict = {}
+
+        def run(state, start, n, tag):
+            for i in range(start, start + n):
+                state, metrics = step(state, pipe.torch_batch(i, "cpu"))
+            one[f"{tag}|loss"] = np.asarray(float(metrics["loss"]))
+            for k, leaf in _flatten(state).items():
+                if k.startswith("0/"):
+                    one[f"{tag}|param|{k}"] = (torch.stack(leaf) if isinstance(
+                        leaf, list) else leaf).detach().numpy()
+
+        cpu = torch.device("cpu")
+        run(Checkpointer(tmp / "init").restore(like=like, shardings=cpu), 0,
+            STEPS, "one")
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail("the port's 8-rank spawn timed out")
+        run(Checkpointer(tmp / "port_ckpt").restore(like=like, shardings=cpu),
+            STEPS, MORE, "one|P4")
+        log, _ = jproc.communicate(
+            timeout=max(1.0, deadline - time.monotonic()))
+        assert jproc.returncode == 0, f"the JAX side failed:\n{log}"
+    finally:
+        torch.set_num_threads(threads)
+        if jproc.poll() is None:
+            jproc.kill()
+            jproc.wait()
+    port = [_load(tmp / f"port_{r}.npz") for r in range(WORLD)]
+    files = {"init": _read_ckpt(tmp / "init" / "step_0"),
+             "P4": _read_ckpt(tmp / "port_ckpt" / f"step_{STEPS}"),
+             "J4": _read_ckpt(tmp / "jax_ckpt" / f"step_{STEPS}")}
+    return _load(tmp / "jax.npz"), port, one, files
+
+
+def _params(d: dict, tag: str) -> dict:
+    head = f"{tag}|param|"
+    return {k[len(head):]: v for k, v in d.items() if k.startswith(head)}
+
+
+def _close_params(got: dict, want: dict) -> None:
+    assert got and sorted(got) == sorted(want)
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL, err_msg=k)
+
+
+def _index(jax_out: dict, idx_tag: str, key: str, coord) -> tuple:
+    return tuple(slice(int(a), int(b))
+                 for a, b in jax_out[f"idx|{idx_tag}|{key}"][tuple(coord)])
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("tag,source", [("2x2x2", "init"), ("4x2", "P4"),
+                                        ("2x2x2-override", "init")])
+def test_each_rank_holds_the_jax_shard_at_its_coordinate(runs, tag, source):
+    jax_out, port, _, files = runs
+    full = files[source]
+    n = 0
+    for r, out in enumerate(port):
+        assert bool(out[f"whole|{tag}"]), (tag, r)
+        coord = out[f"coord|{tag}"]
+        head = f"blk|{tag}|"
+        keys = sorted(k[len(head):] for k in out if k.startswith(head))
+        assert keys == sorted(full)
+        for key in keys:
+            want = full[key][_index(jax_out, tag, key, coord)]
+            got = out[head + key]
+            assert got.dtype == want.dtype and got.shape == want.shape, key
+            assert np.array_equal(got, want), (tag, r, key)
+            n += 1
+    assert n == WORLD * len(full)
+
+
+def test_the_override_splits_a_dim_out_of_mesh_order(runs):
+    """The override's embedding is split over ("data", "pod"): rank 2 (pod
+    0, data 1) holds block 2 of its rows, not block 1."""
+    jax_out, _, _, _ = runs
+    idx = jax_out["idx|2x2x2-override|0/embed/embedding"]
+    # dim 1 (embed) at coordinate (pod 0, data 1, model 0)
+    block = idx[0, 1, 0, 1, 0] // (idx[0, 0, 0, 1, 1] - idx[0, 0, 0, 1, 0])
+    assert block == 2
+
+
+def test_the_mesh_run_matches_the_one_device_run(runs):
+    _, port, one, _ = runs
+    np.testing.assert_allclose(port[0]["port222|loss"], one["one|loss"],
+                               rtol=LOSS_RTOL)
+    _close_params(_params(port[0], "port222"), _params(one, "one"))
+
+
+def test_the_mesh_run_matches_the_jax_mesh_run(runs):
+    jax_out, port, _, _ = runs
+    np.testing.assert_allclose(port[0]["port222|loss"],
+                               jax_out["jax222|loss"], rtol=LOSS_RTOL)
+    _close_params(_params(port[0], "port222"), _params(jax_out, "jax222"))
+
+
+def test_rows_that_do_not_divide_by_the_batch_shards(runs):
+    """On the (8, 1) host mesh a microbatch's 4 rows stay whole on every
+    rank: the run is the one-device run's."""
+    _, port, one, _ = runs
+    for out in port:
+        np.testing.assert_allclose(out["port81|loss"], one["one|loss"],
+                                   rtol=LOSS_RTOL)
+    _close_params(_params(port[0], "port81"), _params(one, "one"))
+
+
+def test_elastic_restore_onto_4x2_and_one_device(runs):
+    _, port, one, _ = runs
+    np.testing.assert_allclose(port[0]["port42|P4|loss"],
+                               one["one|P4|loss"], rtol=LOSS_RTOL)
+    _close_params(_params(port[0], "port42|P4"), _params(one, "one|P4"))
+
+
+@pytest.mark.parametrize("ckpt", ["J4", "P4"])
+def test_each_package_continues_the_others_checkpoint(runs, ckpt):
+    """J4: the JAX-written step-4 checkpoint on the port's (4,2) against
+    the JAX package's own continuation; P4: the port-written one on the
+    JAX package's (4,2) against the port's."""
+    jax_out, port, _, _ = runs
+    np.testing.assert_allclose(port[0][f"port42|{ckpt}|loss"],
+                               jax_out[f"jax42|{ckpt}|loss"], rtol=LOSS_RTOL)
+    _close_params(_params(port[0], f"port42|{ckpt}"),
+                  _params(jax_out, f"jax42|{ckpt}"))
+
+
+def test_the_port_writes_the_reference_format(runs):
+    _, _, _, files = runs
+    assert sorted(files["P4"]) == sorted(files["J4"])
+    for k, v in files["P4"].items():
+        assert v.dtype == files["J4"][k].dtype and v.shape == \
+            files["J4"][k].shape, k
+
+
+@pytest.mark.parametrize("tag,idx_tag", [("2x2x2-final", "2x2x2"),
+                                         ("4x2-final", "4x2")])
+def test_replicated_blocks_are_bitwise_equal_on_every_rank(runs, tag,
+                                                           idx_tag):
+    jax_out, port, _, _ = runs
+    head = f"blk|{tag}|"
+    replicas = 0
+    for key in sorted(k[len(head):] for k in port[0] if k.startswith(head)):
+        seen: dict = {}
+        for out in port:
+            index = _index(jax_out, idx_tag, key, out[f"coord|{tag}"])
+            block = out[head + key]
+            if index in seen:
+                assert block.tobytes() == seen[index].tobytes(), key
+                replicas += 1
+            seen[index] = block
+    assert replicas > 0
+
+
+@pytest.mark.parametrize("size", sorted(PSUM_GROUPS))
+def test_compressed_psum_matches_a_numpy_oracle(runs, size):
+    """Each rank sends q·scale of ``g + r``; the group sums the payloads;
+    each rank keeps ``g + r − sent`` for the next round."""
+    _, port, _, _ = runs
+    res = {r: np.zeros(64, np.float32) for r in range(WORLD)}
+    for rnd in range(2):
+        sent = {}
+        for r in range(WORLD):
+            g = _psum_grads(r) + res[r]
+            scale = np.maximum(np.abs(g).max(), np.float32(1e-12)) / \
+                np.float32(127)
+            q = np.clip(np.round(g / scale), -127, 127).astype(np.int8)
+            sent[r] = q.astype(np.float32) * scale
+            new = g - sent[r]
+            got = port[r][f"psum|{size}|{rnd}|res"]
+            np.testing.assert_array_equal(got, new)
+            # residual bookkeeping: sent + r' = g + r
+            assert np.abs(sent[r] + got - g).max() <= 1e-6
+            res[r] = new
+        for group in PSUM_GROUPS[size]:
+            want = np.sum([sent[r] for r in group], axis=0)
+            for r in group:
+                np.testing.assert_allclose(port[r][f"psum|{size}|{rnd}|out"],
+                                           want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", sorted(MOE_MESHES))
+def test_moe_on_more_than_one_batch_shard_is_refused(runs, mesh):
+    _, port, _, _ = runs
+    for out in port:
+        msg = str(out[f"moe_refused|{mesh}"])
+        assert f"{MOE_MESHES[mesh]} batch shards" in msg
+        assert "ROADMAP.md §1 item 5" in msg
+
+
+def test_the_launcher_on_two_ranks_resumes_on_one(tmp_path):
+    """``launch/train.py`` at 2 ranks (``COORDINATOR_ADDRESS=file://``)
+    checkpoints at steps 3 and 6; its step-6 checkpoint dropped, the same
+    command at world size 1 resumes from step 3 and ends within the
+    helper's bounds of the one-device launcher's run: the float32 loss of
+    each final state on the next batch, ``rtol=1e-4``, and the parameters
+    within the helper's ``rtol``/``atol`` but for at most ``LAUNCH_FAR``
+    entries.  The launcher computes in bfloat16, where AdamW's normalised
+    update of an entry whose gradient is round-off (summed in another
+    order on 2 ranks) can take either sign; such an entry is held within
+    the helper's bound plus twice the run's summed learning rate."""
+    from repro_torch import training as tt
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.training.optimizer import cosine_schedule
+
+    steps, seq = 6, 32
+    args = ["--smoke", "--device", "cpu", "--mesh", "host", "--steps",
+            str(steps), "--ckpt-every", "3", "--seq", str(seq),
+            "--log-every", "1"]
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC), os.environ.get("PYTHONPATH", "")])}
+    for k in ("COORDINATOR_ADDRESS", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(k, None)
+
+    def launch(ckpt, **extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--ckpt-dir", str(tmp_path / ckpt)], cwd=REPO,
+            env={**env, **extra}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    procs = [launch("two", COORDINATOR_ADDRESS=f"file://{tmp_path}/rdv",
+                    WORLD_SIZE="2", RANK=str(r)) for r in range(2)]
+    procs.append(launch("one"))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+            assert p.returncode == 0, logs[-1]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert "on mesh {'data': 2, 'model': 1} (cpu, world size 2)" in logs[0]
+    assert "[train]" not in logs[1]          # rank 1 logs nothing
+    assert sorted(p.name for p in (tmp_path / "two").iterdir()) == \
+        ["step_3", "step_6"]
+    shutil.move(tmp_path / "two" / "step_6", tmp_path / "two_rank_step_6")
+    resumed = launch("two")
+    log = resumed.communicate(timeout=TIMEOUT_S)[0]
+    assert resumed.returncode == 0, log
+    assert "[train] resumed from step 3" in log and "world size 1" in log
+
+    one = _read_ckpt(tmp_path / "one" / "step_6")
+    lr = cosine_schedule(3e-4, steps, steps)
+    flips = 2 * sum(float(lr(torch.tensor(t))) for t in range(steps))
+    for d in (tmp_path / "two" / "step_6", tmp_path / "two_rank_step_6"):
+        got = _read_ckpt(d)
+        assert sorted(got) == sorted(one)
+        far = 0
+        for k in got:
+            assert got[k].dtype == one[k].dtype, k
+            if k.startswith("0/"):
+                gap = np.abs(got[k] - one[k])
+                bound = PARAM_ATOL + PARAM_RTOL * np.abs(one[k])
+                far += int((gap > bound).sum())
+                assert (gap <= bound + flips).all(), (k, gap.max())
+            elif k in ("1/0", "2"):
+                assert int(got[k]) == int(one[k]) == steps
+        assert far <= LAUNCH_FAR, (d.name, far)
+
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"),
+                              dtype="float32")
+    like = tt.init_train_state(LM(cfg, "meta"))
+    batch = TokenPipeline(cfg.vocab_size, seq, 8, seed=1234).torch_batch(
+        steps, "cpu")
+
+    def loss(d):
+        ck = Checkpointer(d.parent)
+        state = ck.restore(like=like, step=steps,
+                           shardings=torch.device("cpu"))
+        with torch.no_grad():
+            return float(tt.train_loss(state.model, cfg, batch,
+                                       remat="none")[0])
+
+    want = loss(tmp_path / "one" / "step_6")
+    assert want == pytest.approx(loss(tmp_path / "two" / "step_6"),
+                                 rel=LOSS_RTOL)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["jax"]:
+    _jax_side(Path(sys.argv[2]))

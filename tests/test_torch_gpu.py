@@ -17,7 +17,9 @@ expert load (``load_stats``) through K3 against ``bincount``.  The training
 slice: a float32 train step of the dense, MoE, rwkv6 and hybrid smoke
 configs on the card against the same step on the CPU.  The checkpoint
 slice: a train state on the card saved, stepped in place while the write
-is in flight, and restored onto the card and the CPU, bitwise.
+is in flight, and restored onto the card and the CPU, bitwise.  The
+distributed training slice: the mesh train step on a one-rank NCCL (1, 1)
+mesh, bitwise the one-device step.
 """
 
 import dataclasses
@@ -1227,6 +1229,37 @@ def test_mesh_service_at_world_size_1_matches_local_service(nccl_mesh):
     spans = [sp.name for sp in batch[0].stats.trace.walk()]
     assert "ring_sweep" in spans, spans
     assert msvc.metrics_v2()["gauges"]["mesh_devices"] == 1
+
+
+def test_lm_mesh_step_at_world_size_1_is_the_local_step(nccl_mesh):
+    """The smoke config's train step on a one-rank NCCL (1, 1) host mesh,
+    its state placed by the logical rules (DTensors of the whole arrays),
+    bitwise the one-device step's: losses and every tensor of the state."""
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_smoke_config("smollm-135m")
+    mesh = make_host_mesh()
+    step = ttr.build_train_step(cfg, microbatches=2, base_lr=1e-2, warmup=2,
+                                total_steps=10, remat="full",
+                                compress_grads=True)
+    pipe = TokenPipeline(cfg.vocab_size, 16, 4, seed=11)
+    local = ttr.init_train_state(tm.init_params(cfg, seed=0, device="cuda"))
+    placed = ttr.place_train_state(
+        ttr.init_train_state(tm.init_params(cfg, seed=0, device="cuda")),
+        state_shardings(cfg, mesh))
+    for i in range(3):
+        batch = pipe.torch_batch(i, "cuda")
+        local, want = step(local, batch)
+        with use_mesh(mesh):
+            placed, got = step(placed, batch)
+        assert _same_bits(got["loss"], want["loss"])
+        assert _same_bits(got["grad_norm"], want["grad_norm"])
+    got, want = _state_tensors(placed), _state_tensors(local)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        assert a.is_cuda and _same_bits(a, b)
 
 
 @pytest.mark.parametrize("mode", ["sum", "any"])
