@@ -253,6 +253,17 @@ data × model mesh, float32, against one rank within
 ``tests/helpers/distributed_lm_check.py``'s bounds, with step ms; with
 fewer cards a line saying it did not run and why.  Counts set to 0
 before the phase and read after: ``lm_dist_launches`` (0, checked).
+``lm_dryrun``: the dry run.  ``lm_dryrun_cli``: ``python -m
+repro_torch.launch.dryrun`` on smollm-135m's ``decode_32k`` on both
+production meshes (256 and 512 fake ranks) exits 0 with two results,
+printed.  ``lm_dryrun_step``: ``lower_train_cell`` of ``lm_dist``'s
+model and traffic on a one-rank fake (1, 1) mesh, its placed state's
+bytes, FLOPs and collectives by kind equal to ``lm_dist_step``'s real
+NCCL step (one more step counted under ``FlopCounterMode`` and
+``CommDebugMode``), its predicted peak beside the measured one with the
+ratio (not gated), and ``torch.cuda.memory_allocated()`` unchanged.
+Counts set to 0 before the phase and read after: ``lm_dryrun_launches``
+(0, checked).
 
 Prints the card's name and power limit, one JSON line per kernel call, per
 phase split, per cut-off case and per timed K3 case (``segsum_case``), one
@@ -267,8 +278,9 @@ library time on the int32 main path and its launches in the ``mesh`` and
 ``serve_mesh`` phases (``mesh_launches``, ``serve_mesh_launches``), in
 the recurrent LM phase (``lm_mixers_launches``; K3's also with its other
 LM launches), in the training phase (``lm_train_launches``), in the
-checkpoint phase (``lm_ckpt_launches``) and in the distributed training
-phase (``lm_dist_launches``), the
+checkpoint phase (``lm_ckpt_launches``), in the distributed training
+phase (``lm_dist_launches``) and in the dry run (``lm_dryrun_launches``),
+the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line; so does a run without a card, or from a directory that does
@@ -2979,6 +2991,15 @@ def lm_dist_step_line(torch, card, dev) -> dict:
         "one-device step")
     check(mesh_losses == local_losses, f"lm dist: losses {mesh_losses} on "
           f"the mesh, {local_losses} on one device")
+    # one more mesh step, counted: the lm_dryrun phase holds the dry run's
+    # trace of this step against these counts
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as flops, CommDebugMode() as comm:
+        mesh_step(placed, batches[0])
+    torch.cuda.synchronize()
+    counted = {"flops": flops.get_total_flops(), "collective_counts": {
+        op.__name__: n for op, n in comm.get_comm_counts().items()}}
     del placed, local, blocks, got, want, step, batches
     torch.cuda.empty_cache()
     return {
@@ -2991,7 +3012,7 @@ def lm_dist_step_line(torch, card, dev) -> dict:
         "local_step_ms_p90": float(np.percentile(local_ms[1:], 90)),
         "peak_allocated_bytes_per_rank": peak,
         "placed_state_bytes_per_rank": placed_bytes,
-        "bitwise_vs_one_device": True, **card}
+        "bitwise_vs_one_device": True, "counted_step": counted, **card}
 
 
 def lm_dist_launcher_line(card) -> dict:
@@ -3151,6 +3172,97 @@ def lm_dist_multi_line(torch, card) -> dict:
             "param_max_abs_gap": worst, "step_ms": got["ms"].tolist(),
             "step_ms_median": float(np.median(got["ms"][1:])),
             "peak_allocated_bytes_rank0": int(got["peak"]), **card}
+
+
+# the dry run: python -m repro_torch.launch.dryrun on one cell at
+# full width on both production meshes (fake ranks, nothing allocated),
+# then the mesh step at LM_DIST's traffic traced on a one-rank fake (1, 1)
+# mesh and held against lm_dist_step's real one-rank NCCL step
+LM_DRYRUN_CLI = ("--arch", "smollm-135m", "--shape", "decode_32k",
+                 "--mesh", "both")
+LM_DRYRUN_RUN_S = 300
+
+
+def lm_dryrun_lines(torch, card, dist: dict) -> list[dict]:
+    """(a) ``python -m repro_torch.launch.dryrun`` with ``LM_DRYRUN_CLI``
+    from the checkout: exit 0, every cell a result, its JSON printed.
+    (b) ``lower_train_cell`` of ``LM_DIST``'s model and traffic on a
+    one-rank fake world's (1, 1) mesh (this process, after ``nccl_world``
+    is gone): its placed state's bytes, its FLOPs and its collectives by
+    kind equal ``dist`` (``lm_dist_step_line``'s placed bytes, and its
+    counted real step's ``FlopCounterMode`` and ``CommDebugMode``); its
+    predicted peak beside the real step's measured one, with the ratio.
+    (c) ``torch.cuda.memory_allocated()`` the same before and after."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_auto_mesh
+    root = Path(__file__).resolve().parent
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(root / "src"), os.environ.get("PYTHONPATH")))))
+    with tempfile.TemporaryDirectory(prefix="lm-dryrun-", dir=root) as tmp:
+        out = Path(tmp) / "dryrun.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             *LM_DRYRUN_CLI, "--out", str(out)], cwd=root, env=env,
+            capture_output=True, text=True, timeout=LM_DRYRUN_RUN_S)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"lm dryrun: the sweep exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+              f"{proc.stderr[-3000:]}")
+        cli = json.loads(out.read_text())
+    check(len(cli["results"]) == 2 and not cli["failures"],
+          f"lm dryrun: {len(cli['results'])} cells, failures "
+          f"{cli['failures']}")
+
+    t = LM_DIST
+    cfg = get_config(t["arch"])
+    cell = ShapeCell("lm_dist", t["seq_len"], t["global_batch"], "train",
+                     microbatch=t["global_batch"] // t["microbatches"])
+    t0 = time.perf_counter()
+    with dr.fake_world(1):
+        mesh = make_auto_mesh((1, 1), ("data", "model"), device_type="cpu")
+        traced = dr.lower_train_cell(cfg, cell, mesh)
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    real = dist["counted_step"]
+    real_ops = dict.fromkeys(dr.KINDS, 0)
+    for name, n in real["collective_counts"].items():
+        real_ops[dr.KIND_OF[name]] += n
+    mem = traced["memory"]
+    check(mem["placed_state_bytes"] == dist["placed_state_bytes_per_rank"],
+          f"lm dryrun: placed state {mem['placed_state_bytes']} B traced, "
+          f"{dist['placed_state_bytes_per_rank']} B on the card")
+    check(traced["flops"] == real["flops"], f"lm dryrun: {traced['flops']} "
+          f"FLOPs traced, {real['flops']} counted on the card")
+    check(traced["collective_ops"] == real_ops, f"lm dryrun: collectives "
+          f"{traced['collective_ops']} traced, {real_ops} on the card")
+    check(after == before, f"lm dryrun: memory_allocated {before} B before "
+          f"the dry run, {after} B after")
+    peak = dist["peak_allocated_bytes_per_rank"]
+    return [
+        {"lm_dryrun_cli": " ".join(("python -m repro_torch.launch.dryrun",
+                                    *LM_DRYRUN_CLI)),
+         "run_s": cli_s, **cli, **card},
+        {"lm_dryrun_step": cfg.name, "mesh": [1, 1], "traffic": t,
+         "trace_s": trace_s,
+         "placed_state_bytes": {"traced": mem["placed_state_bytes"],
+                                "card": dist["placed_state_bytes_per_rank"]},
+         "flops": {"traced": traced["flops"], "card": real["flops"]},
+         "collective_ops": {"traced": traced["collective_ops"],
+                            "card": real_ops},
+         "collective_bytes_traced": traced["collective_bytes"],
+         "peak_bytes": {"traced": mem["peak_bytes"], "card": peak,
+                        "traced_over_card": mem["peak_bytes"] / peak},
+         "memory_traced": mem,
+         "memory_allocated_bytes": {"before": before, "after": after},
+         **card}]
 
 
 MESH_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
@@ -3945,7 +4057,8 @@ def main() -> int:
     for _, _, k in kernels.values():
         k.reset_counts()
     with nccl_world(torch):
-        log(json.dumps(lm_dist_step_line(torch, card, dev)))
+        dist_line = lm_dist_step_line(torch, card, dev)
+        log(json.dumps(dist_line))
     log(json.dumps(lm_dist_launcher_line(card)))
     log(json.dumps(lm_dist_multi_line(torch, card)))
     dist_k = {name: k.launches for name, (_, _, k) in kernels.items()}
@@ -3955,6 +4068,22 @@ def main() -> int:
         f"mesh bitwise the one-device step; the launcher under "
         f"COORDINATOR_ADDRESS killed after step {LM_CKPT_KILL_AT} resumed "
         f"bitwise; no kernel of the port launched ({dist_k}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the dry run: fake ranks, held against the real one-rank step -----
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    for line in lm_dryrun_lines(torch, card, dist_line):
+        log(json.dumps(line))
+    dryrun_k = {name: k.launches for name, (_, _, k) in kernels.items()}
+    check(not any(dryrun_k.values()),
+          f"the dry-run phase launched a kernel of the port: {dryrun_k}")
+    log(f"lm_dryrun: python -m repro_torch.launch.dryrun "
+        f"{' '.join(LM_DRYRUN_CLI)} exited 0; {LM_DIST['arch']}'s mesh "
+        f"step traced on a one-rank fake mesh equal to the card's in placed "
+        f"bytes, FLOPs and collectives, nothing allocated on the card; no "
+        f"kernel of the port launched ({dryrun_k}), in "
         f"{time.perf_counter() - t0:.1f} s")
 
     rows = []
@@ -3975,7 +4104,8 @@ def main() -> int:
                      "lm_mixers_launches": mixers[name],
                      "lm_train_launches": train[name],
                      "lm_ckpt_launches": ckpt[name],
-                     "lm_dist_launches": dist_k[name]})
+                     "lm_dist_launches": dist_k[name],
+                     "lm_dryrun_launches": dryrun_k[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,
                             lm_load_stats_launches=lm_accounting)

@@ -7,8 +7,7 @@ parameter tree's shapes and logical specs, and ``to_named_shardings`` /
 ``batch_shardings`` each leaf's ``NamedSharding`` on a mesh, by the
 logical rules (``distributed.sharding``).  Nothing is allocated.
 ``state_shardings`` is the tree a ``TrainState`` is placed and restored
-by.  The reference's ``abstract_cache`` waits for ``decode_state_specs``
-(``ROADMAP.md`` §1 item 4).
+by, and ``abstract_cache`` the decode caches' shapes and logical specs.
 """
 
 from __future__ import annotations
@@ -23,7 +22,12 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import reference_rows
-from repro_torch.models.model import LM, param_specs
+from repro_torch.models.model import (
+    LM,
+    decode_state_specs,
+    init_decode_state,
+    param_specs,
+)
 
 
 def sds(shape, dtype) -> torch.Tensor:
@@ -72,6 +76,17 @@ def abstract_params(cfg: ModelConfig, dtype=None):
             node = node.setdefault(key, {})
         node[path[-1]] = sds(shape, dtype or torch.float32)
     return shapes, param_specs(cfg)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """(the decode caches as meta tensors, their logical-spec tree
+    ``decode_state_specs``): each cache the shape and dtype
+    ``init_decode_state`` gives it; ``pos``, which ``init_decode_state``
+    keeps as a host integer, is the reference's 0-d int32 leaf (spec
+    ``()``)."""
+    shapes = init_decode_state(cfg, batch, max_len, device="meta")
+    shapes["pos"] = sds((), torch.int32)
+    return shapes, decode_state_specs(cfg)
 
 
 def _is_spec(x) -> bool:

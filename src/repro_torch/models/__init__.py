@@ -2,12 +2,13 @@
 (zamba2) families.
 
 The port of the JAX package's ``repro.models``; ``param_specs`` is the
-spec half of its ``init_params`` (``decode_state_specs`` waits for the dry
-run, ``ROADMAP.md`` §1 item 4)."""
+spec half of its ``init_params``, ``decode_state_specs`` the decode
+caches' logical axes."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     LM,
+    decode_state_specs,
     decode_step,
     forward,
     init_decode_state,
@@ -24,5 +25,6 @@ __all__ = [
     "forward",
     "prefill",
     "decode_step",
+    "decode_state_specs",
     "init_decode_state",
 ]

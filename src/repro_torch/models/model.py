@@ -418,6 +418,33 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return state
 
 
+def decode_state_specs(cfg: ModelConfig) -> dict:
+    """The decode caches' logical axes, leaf for leaf the reference's (its
+    in_shardings): a dense or MoE cache names its head dim
+    ``kv_head_dim``, which may take "model" when the KV-head count cannot;
+    the hybrid's names it ``head_dim``; ``pos`` is a scalar."""
+    if cfg.family in ("dense", "moe"):
+        return {"k": ("stack", "batch", "kv_seq", "kv_heads", "kv_head_dim"),
+                "v": ("stack", "batch", "kv_seq", "kv_heads", "kv_head_dim"),
+                "pos": ()}
+    if cfg.family == "rwkv6":
+        return {"wkv": ("stack", "batch", "heads", None, None),
+                "tok": ("stack", "batch", None),
+                "ffn": ("stack", "batch", None),
+                "pos": ()}
+    if cfg.family == "mamba2":
+        return {"ssm": ("stack", "batch", "heads", None, None),
+                "conv": ("stack", "batch", None, "ssm_inner"),
+                "pos": ()}
+    if cfg.family == "hybrid":
+        return {"k": ("stack", "batch", "kv_seq", "kv_heads", "head_dim"),
+                "v": ("stack", "batch", "kv_seq", "kv_heads", "head_dim"),
+                "ssm": ("stack", "batch", "heads", None, None),
+                "conv": ("stack", "batch", None, "ssm_inner"),
+                "pos": ()}
+    raise ValueError(cfg.family)
+
+
 @torch.inference_mode()
 def prefill(model: LM, cfg: ModelConfig, batch, cache: dict):
     """Run the prompt through the model from a fresh state (an incoming

@@ -1,0 +1,526 @@
+"""The dry run (``repro_torch.launch.dryrun``), ``launch.inputs.abstract_cache``
+and ``models.decode_state_specs`` against the JAX package.
+
+Held:
+
+  * ``decode_state_specs`` equal to the reference's for every family;
+  * ``abstract_cache``'s shapes, dtypes and specs equal to the reference's
+    ``jax.eval_shape`` tree for every arch at its smoke and full config, at
+    (128, 32768) and (1, 524288);
+  * per-rank placed bytes of every arch × cell × production mesh: the sum
+    of the reference's ``NamedSharding.shard_shape`` bytes over its train
+    state, or its bfloat16 parameters and caches, and over its batch, as
+    its ``dryrun.py`` lays them out, computed in a JAX subprocess over 512
+    host devices (``--xla_force_host_platform_device_count=512``), equals
+    the port's ``argument_bytes`` exactly;
+  * a smoke train cell on an 8-rank (2, 4) mesh: the reference's
+    ``lower_train_cell(...).compile().memory_analysis()
+    .argument_size_in_bytes`` equals the port's traced ``argument_bytes``;
+  * FLOPs of each family's smoke ``prefill`` and ``decode_step`` under
+    ``FlopCounterMode`` equal the ``dot_general`` FLOPs of the reference's
+    ``jax.make_jaxpr`` of the same call (a scan body counted once an
+    iteration), and so do the full-width smollm-135m ``decode_32k`` cell's
+    through ``run_cell``;
+  * at one rank, a traced mesh step's FLOPs equal a real CPU step's
+    ``FlopCounterMode`` count (dense, MoE, rwkv6), and its collectives are
+    one-rank sums only;
+  * a smoke mesh step's collectives on 8 and 512 fake ranks, op for op and
+    byte for byte, as worked out from the placements and the microbatch
+    count;
+  * the MoE ``train_4k`` cells listed as failures with the mesh step's
+    ``NotImplementedError``, and ``main`` exiting 1.
+
+FLOPs: ``FlopCounterMode`` counts matrix products (``mm``, ``bmm``,
+``addmm``, convolutions, attention) at ``2·M·N·K``, and the reference's
+``dot_general``s at the same; the port's products are ``@`` and
+``torch.einsum`` where the reference's are ``jnp.dot``/``einsum``, one
+for one, so the counts are equal with no gap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.extend.core as jcore
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke_config
+from repro.launch.inputs import abstract_cache as jabstract_cache
+from repro.launch.inputs import abstract_params as jabstract_params
+from repro.models import decode_state_specs as jdecode_state_specs
+from repro.models import decode_step as jdecode_step
+from repro.models import init_decode_state as jinit_decode_state
+from repro.models import init_params as jinit_params
+from repro.models import prefill as jprefill
+from repro_torch import models as tm
+from repro_torch import training as tt
+from repro_torch.configs import (
+    ARCHS,
+    SHAPES,
+    ShapeCell,
+    cells_for,
+    get_config,
+    get_smoke_config,
+)
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch.inputs import abstract_cache, input_specs
+from repro_torch.launch.mesh import make_auto_mesh, make_production_mesh
+from repro_torch.models import LM, decode_state_specs
+from repro_torch.models.config import ModelConfig
+from repro_torch.training.step import param_shardings
+
+REPO = Path(__file__).resolve().parents[1]
+SRC = REPO / "src"
+TIMEOUT_S = 300
+# one arch of each family; mamba2 has no arch of its own: zamba2's config
+# with the mamba2 family, as the reference's tests make it
+FAMILIES = {"dense": "smollm-135m", "moe": "mixtral-8x22b",
+            "rwkv6": "rwkv6-1.6b", "mamba2": "zamba2-1.2b",
+            "hybrid": "zamba2-1.2b", "vision": "pixtral-12b"}
+CACHE_SIZES = ((128, 32768), (1, 524288))
+MESHES = {"16x16": False, "2x16x16": True}
+# the smoke train cell: 2 microbatches of 32 rows, which the batch axes of
+# (2, 4) and of (2, 16, 16) divide
+SMOKE_CELL = ShapeCell("smoke", 16, 64, "train", microbatch=32)
+SMOKE_ARCH = "qwen3-14b"
+SMOKE_MESH = ((2, 4), ("data", "model"))
+PROMPT, MAX_LEN, BATCH = 32, 64, 2
+
+
+def _cfgs(name: str, smoke: bool, family: str | None = None):
+    """(the JAX package's config, the port's) of ``name``."""
+    jcfg = (jget_smoke_config if smoke else jget_config)(name)
+    if family is not None:
+        jcfg = dataclasses.replace(jcfg, family=family)
+    return jcfg, ModelConfig(**dataclasses.asdict(jcfg))
+
+
+def _family_cfgs(family: str, smoke: bool = True):
+    return _cfgs(FAMILIES[family], smoke,
+                 "mamba2" if family == "mamba2" else None)
+
+
+def _cells():
+    return [(arch, shape, mesh) for arch in ARCHS for shape in cells_for(arch)
+            for mesh in MESHES]
+
+
+# --------------------------------------------------------------------------
+# the JAX side: shard-shape sums over 512 host devices, one smoke compile
+# --------------------------------------------------------------------------
+def _jax_side(out: Path) -> None:
+    from jax.sharding import NamedSharding
+
+    from repro.configs import SHAPES as JSHAPES
+    from repro.configs import ShapeCell as JShapeCell
+    from repro.configs import cells_for as jcells_for
+    from repro.launch.dryrun import lower_train_cell
+    from repro.launch.inputs import batch_shardings, input_specs
+    from repro.launch.inputs import to_named_shardings
+    from repro.launch.mesh import make_auto_mesh as jmesh
+    from repro.launch.mesh import make_production_mesh as jprod_mesh
+    from repro.training import init_train_state
+    from repro.training.optimizer import AdamWState
+    from repro.training.step import TrainState
+
+    def tree_bytes(shapes, shardings):
+        return int(sum(jax.tree.leaves(jax.tree.map(
+            lambda sh, x: math.prod(sh.shard_shape(x.shape))
+            * x.dtype.itemsize, shardings, shapes,
+            is_leaf=lambda x: isinstance(x, NamedSharding)))))
+
+    sums = {}
+    for mesh_name, multi in MESHES.items():
+        mesh = jprod_mesh(multi_pod=multi)
+        for arch in ARCHS:
+            cfg = jget_config(arch)
+            for shape in jcells_for(arch):
+                cell = JSHAPES[shape]
+                batch = input_specs(cfg, cell)
+                got = {"batch": tree_bytes(batch,
+                                           batch_shardings(mesh, batch))}
+                if cell.kind == "train":       # dryrun.py:93-98
+                    pshapes, pspecs = jabstract_params(cfg)
+                    shapes = jax.eval_shape(init_train_state, pshapes)
+                    specs = TrainState(params=pspecs, opt=AdamWState(
+                        step=(), m=pspecs, v=pspecs), step=())
+                    got["state"] = tree_bytes(shapes, to_named_shardings(
+                        mesh, specs, shapes))
+                else:                          # dryrun.py:116-120
+                    pshapes, pspecs = jabstract_params(cfg,
+                                                       dtype=jnp.bfloat16)
+                    cshapes, cspecs = jabstract_cache(
+                        cfg, cell.global_batch, cell.seq_len)
+                    got["params"] = tree_bytes(pshapes, to_named_shardings(
+                        mesh, pspecs, pshapes))
+                    got["cache"] = tree_bytes(cshapes, to_named_shardings(
+                        mesh, cspecs, cshapes))
+                sums[f"{arch}|{shape}|{mesh_name}"] = got
+    shape, axes = SMOKE_MESH
+    mesh = jmesh(shape, axes, devices=jax.devices()[:math.prod(shape)])
+    mem = lower_train_cell(jget_smoke_config(SMOKE_ARCH), JShapeCell(
+        *dataclasses.astuple(SMOKE_CELL)), mesh).compile().memory_analysis()
+    out.write_text(json.dumps({
+        "sums": sums,
+        "smoke_argument_bytes": int(mem.argument_size_in_bytes)}))
+
+
+@pytest.fixture(scope="module")
+def sides(tmp_path_factory):
+    """(the JAX side's output, the port's ``argument_bytes`` of every cell,
+    each production mesh in a fake world of its rank count), the JAX
+    subprocess running meanwhile."""
+    out = tmp_path_factory.mktemp("dryrun") / "jax.json"
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=512",
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.Popen([sys.executable, __file__, "jax", str(out)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        sums = {}
+        for mesh_name, multi in MESHES.items():
+            with dr.fake_world(512 if multi else 256):
+                mesh = make_production_mesh(multi_pod=multi,
+                                            device_type="cpu")
+                for arch, shape, m in _cells():
+                    if m == mesh_name:
+                        sums[f"{arch}|{shape}|{m}"] = dr.argument_bytes(
+                            get_config(arch), SHAPES[shape], mesh)
+        log, _ = proc.communicate(timeout=TIMEOUT_S)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert proc.returncode == 0, log[-4000:]
+    return json.loads(out.read_text()), sums
+
+
+# --------------------------------------------------------------------------
+# decode_state_specs, abstract_cache
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_decode_state_specs_match_the_reference(family):
+    jcfg, cfg = _family_cfgs(family, smoke=False)
+    assert decode_state_specs(cfg) == jdecode_state_specs(jcfg)
+
+
+@pytest.mark.parametrize("batch,max_len", CACHE_SIZES)
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", [*ARCHS, "mamba2"])
+def test_abstract_cache_matches_the_reference(arch, smoke, batch, max_len):
+    jcfg, cfg = (_family_cfgs("mamba2", smoke) if arch == "mamba2"
+                 else _cfgs(arch, smoke))
+    jshapes, jspecs = jabstract_cache(jcfg, batch, max_len)
+    shapes, specs = abstract_cache(cfg, batch, max_len)
+    assert specs == jspecs
+    assert set(shapes) == set(jshapes)
+    for k, x in shapes.items():
+        assert x.device.type == "meta"
+        assert tuple(x.shape) == tuple(jshapes[k].shape), k
+        assert str(x.dtype) == f"torch.{jshapes[k].dtype}", k
+
+
+# --------------------------------------------------------------------------
+# per-rank bytes
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch,shape,mesh", _cells())
+def test_placed_bytes_match_the_reference_shards(sides, arch, shape, mesh):
+    jax_side, port_sums = sides
+    key = f"{arch}|{shape}|{mesh}"
+    got = dict(port_sums[key])
+    assert got.pop("total") == sum(got.values())
+    assert got == jax_side["sums"][key]
+
+
+def test_smoke_train_cell_argument_bytes_match_xla(sides):
+    jax_side, _ = sides
+    shape, axes = SMOKE_MESH
+    with dr.fake_world(math.prod(shape)):
+        mesh = make_auto_mesh(shape, axes, device_type="cpu")
+        got = dr.lower_train_cell(get_smoke_config(SMOKE_ARCH), SMOKE_CELL,
+                                  mesh)
+    assert got["memory"]["argument_bytes"] == jax_side[
+        "smoke_argument_bytes"]
+    assert got["memory"]["peak_bytes"] >= got["memory"]["argument_bytes"]
+
+
+# --------------------------------------------------------------------------
+# FLOPs
+# --------------------------------------------------------------------------
+def _dot_flops(jaxpr) -> int:
+    """2·M·N·K of every distinct ``dot_general`` that contracts a dim, in
+    a (closed) jaxpr, a scan's body times its length, every other
+    sub-jaxpr once.
+
+    Distinct after common-subexpression elimination, as XLA's compile
+    merges equations of one primitive and parameters on equal operands:
+    the reference's prefill computes each attention block's q/k/v
+    projections twice, once in ``attention_prefill`` and again to write
+    the cache (``src/repro/models/model.py:145-147``), and its compiled
+    program (like the port) computes them once.  A ``dot_general`` with no
+    contracting dim is an outer or elementwise product that a
+    multi-operand ``jnp.einsum`` was split into (the recurrent mixers'
+    decay and gate scalings, rwkv6's ``kv`` and mamba2's ``outer`` in
+    decode): the port multiplies those elementwise, which
+    ``FlopCounterMode`` does not count."""
+    jaxpr = getattr(jaxpr, "jaxpr", jaxpr)
+    canon: dict = {}      # var -> the first var of its value
+    seen: dict = {}       # (primitive, params, operands) -> its outvars
+    total = 0
+
+    def operand(v):
+        if isinstance(v, jcore.Literal):
+            return ("literal", repr(v.val), str(v.aval))
+        return canon.get(v, v)
+
+    for eqn in jaxpr.eqns:
+        name = eqn.primitive.name
+        key = (name, repr(sorted(eqn.params.items(), key=lambda kv: kv[0])),
+               tuple(operand(v) for v in eqn.invars))
+        if key in seen:
+            for v, first in zip(eqn.outvars, seen[key]):
+                canon[v] = first
+            continue
+        seen[key] = [canon.get(v, v) for v in eqn.outvars]
+        if name == "dot_general":
+            (lc, _), _ = eqn.params["dimension_numbers"]
+            lhs = eqn.invars[0].aval.shape
+            if lc:
+                total += 2 * math.prod(eqn.outvars[0].aval.shape) \
+                    * math.prod(lhs[d] for d in lc)
+            continue
+        assert name not in ("while", "cond"), name
+        times = eqn.params["length"] if name == "scan" else 1
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                if isinstance(sub, (jcore.Jaxpr, jcore.ClosedJaxpr)):
+                    total += times * _dot_flops(sub)
+    return total
+
+
+def _port_flops(fn) -> int:
+    with FlopCounterMode(display=False) as flops:
+        fn()
+    return flops.get_total_flops()
+
+
+def _serve_inputs(cfg, rng):
+    tokens = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT), np.int32)
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision_stub":
+        batch["image_embeds"] = rng.standard_normal(
+            (BATCH, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch, tokens[:, :1]
+
+
+def _rwkv6_summed_products(cfg, batch: int, s: int) -> int:
+    """The FLOPs of the two contractions of rwkv6's chunked prefill that
+    the port computes as products and sums (``src/repro_torch/models/
+    rwkv6.py:99-106``) where the reference contracts with ``jnp.einsum``
+    (``src/repro/models/rwkv6.py:103,105``): per chunk and layer, ``att``'s
+    sum over K of [b,i,j,h,K] and ``diag``'s of [b,i,h,K]."""
+    c, k = cfg.ssm_chunk, cfg.ssm_head_dim
+    h = cfg.d_model // k
+    return cfg.n_layers * (s // c) * (2 * batch * c * c * h * k
+                                      + 2 * batch * c * h * k)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_serving_flops_match_the_reference_dots(family):
+    jcfg, cfg = _family_cfgs(family)
+    batch, tok = _serve_inputs(cfg, np.random.default_rng(0))
+    params, _ = jinit_params(jax.random.PRNGKey(0), jcfg)
+    jcache = jinit_decode_state(jcfg, BATCH, MAX_LEN)
+    want_prefill = _dot_flops(jax.make_jaxpr(
+        lambda p, b, c: jprefill(p, jcfg, b, c))(params, batch, jcache))
+    want_decode = _dot_flops(jax.make_jaxpr(
+        lambda p, t, c: jdecode_step(p, jcfg, t, c))(params, tok, jcache))
+
+    model = tm.init_params(cfg, seed=0, device="cpu")
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    cache = tm.init_decode_state(cfg, BATCH, MAX_LEN, device="cpu")
+    if family == "rwkv6":
+        want_prefill -= _rwkv6_summed_products(cfg, BATCH, PROMPT)
+    assert _port_flops(lambda: tm.prefill(model, cfg, tbatch, cache)) \
+        == want_prefill
+    assert _port_flops(lambda: tm.decode_step(
+        model, cfg, torch.from_numpy(tok), cache)) == want_decode
+    assert want_prefill > 0 and want_decode > 0
+
+
+def test_run_cell_decode_32k_at_full_width():
+    """smollm-135m's ``decode_32k`` on (16, 16): the record's keys, its
+    per-rank bytes from the placements, FLOPs equal to the reference's
+    dots at full width (abstract inputs), no collectives."""
+    rec = dr.run_cell("smollm-135m", "decode_32k", False, verbose=False)
+    assert {"arch", "shape", "mesh", "devices", "trace_s", "flops", "scope",
+            "collective_bytes", "collective_ops", "memory",
+            "cell_memory"} <= set(rec)
+    assert (rec["mesh"], rec["devices"], rec["scope"]) == ("16x16", 256,
+                                                           "cell")
+    assert set(rec["collective_bytes"]) == set(dr.KINDS)
+    assert not any(rec["collective_bytes"].values())
+    assert not any(rec["collective_ops"].values())
+    with dr.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        args = dr.argument_bytes(get_config("smollm-135m"),
+                                 SHAPES["decode_32k"], mesh)
+    assert rec["memory"]["argument_bytes"] == args["total"]
+    cell_mem = rec["cell_memory"]
+    assert cell_mem["peak_bytes"] >= cell_mem["argument_bytes"] > \
+        rec["memory"]["argument_bytes"] * 200
+
+    jcfg = jget_config("smollm-135m")
+    cell = SHAPES["decode_32k"]
+    pshapes, _ = jabstract_params(jcfg, dtype=jnp.bfloat16)
+    cshapes, _ = jabstract_cache(jcfg, cell.global_batch, cell.seq_len)
+    tok = jax.ShapeDtypeStruct((cell.global_batch, 1), jnp.int32)
+    assert rec["flops"] == _dot_flops(jax.make_jaxpr(
+        lambda p, t, c: jdecode_step(p, jcfg, t, c))(pshapes, tok, cshapes))
+
+
+# a dense, a MoE and a recurrent step (every family's serving FLOPs are
+# held above)
+@pytest.mark.parametrize("family", ["dense", "moe", "rwkv6"])
+def test_one_rank_trace_flops_match_a_real_cpu_step(family):
+    _, cfg = _family_cfgs(family)
+    cell = ShapeCell("smoke", 8 + (cfg.num_patches if cfg.frontend
+                                   == "vision_stub" else 0), 2, "train",
+                     microbatch=1)
+    with dr.fake_world(1):
+        mesh = make_auto_mesh((1, 1), ("data", "model"), device_type="cpu")
+        traced = dr.lower_train_cell(cfg, cell, mesh)
+        want = _expected_collectives(cfg, cell, mesh)
+    # one-rank sums only: a size-1 mesh dim gathers nothing
+    assert traced["collective_ops"] == want.pop("ops")
+    assert traced["collective_bytes"] == want
+    assert want["all-gather"] == 0
+
+    rng = np.random.default_rng(0)
+    batch = {}
+    for k, x in input_specs(cfg, cell).items():
+        v = (rng.integers(0, cfg.vocab_size, tuple(x.shape))
+             if x.dtype == torch.int32
+             else rng.standard_normal(tuple(x.shape)))
+        batch[k] = torch.from_numpy(v).to(x.dtype)
+    state = tt.init_train_state(tm.init_params(cfg, seed=0, device="cpu"))
+    step = tt.build_train_step(cfg, microbatches=cell.global_batch,
+                               remat="full")
+    assert _port_flops(lambda: step(state, batch)) == traced["flops"] > 0
+
+
+# --------------------------------------------------------------------------
+# collectives
+# --------------------------------------------------------------------------
+def _expected_collectives(cfg, cell, mesh) -> dict:
+    """The mesh step's collectives from the placements and the microbatch
+    count: each weight gathered whole, one ``all_gather_into_tensor`` a run
+    of adjacent mesh dims that shard the same tensor dim (DTensor gathers
+    such a run over its flattened group at once), innermost run first,
+    each output the block grown by the runs gathered so far (a run of size
+    1 moves nothing and issues none); then, where the batch axes cut a
+    microbatch's rows (even into one block), one ``allreduce_`` of its
+    token count (4 B) a microbatch, one of each weight's float32 gradient
+    and one of the three summed losses."""
+    from repro_torch.distributed.sharding import spec_axes, use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.training.step import microbatch_specs
+
+    micro = cell.global_batch // cell.microbatch
+    sizes = list(mesh.shape)
+    by_name = param_shardings(LM(cfg, "meta"), state_shardings(cfg, mesh)[0])
+    weights = dict(LM(cfg, "meta").named_parameters())
+    out = dict.fromkeys(dr.KINDS, 0)
+    ops = dict.fromkeys(dr.KINDS, 0)
+    for name, sh in by_name.items():
+        block = dr.block_bytes(tuple(weights[name].shape), torch.float32, sh)
+        runs: list[list] = []          # [placement, size], mesh order
+        for p, n in zip(sh.placements, sizes):
+            if runs and not p.is_replicate() and p == runs[-1][0]:
+                runs[-1][1] *= n
+            else:
+                runs.append([p, n])
+        for p, n in reversed(runs):
+            if p.is_replicate() or n == 1:
+                continue
+            block *= n
+            out["all-gather"] += block
+            ops["all-gather"] += 1
+    with use_mesh(mesh):
+        spec = microbatch_specs(input_specs(cfg, cell), micro)
+    if spec_axes(spec["tokens"][0]):
+        out["all-reduce"] = 4 * micro + 4 * sum(
+            w.numel() for w in weights.values()) + 12
+        ops["all-reduce"] = micro + len(weights) + 1
+    out["ops"] = ops
+    return out
+
+
+@pytest.mark.parametrize("shape,axes", [SMOKE_MESH, ((2, 16, 16), (
+    "pod", "data", "model"))], ids=["8", "512"])
+def test_mesh_step_collectives_follow_the_placements(shape, axes):
+    cfg = get_smoke_config(SMOKE_ARCH)
+    with dr.fake_world(math.prod(shape)):
+        mesh = make_auto_mesh(shape, axes, device_type="cpu")
+        got = dr.lower_train_cell(cfg, SMOKE_CELL, mesh)
+        want = _expected_collectives(cfg, SMOKE_CELL, mesh)
+    assert got["collective_ops"] == want.pop("ops")
+    assert got["collective_bytes"] == want
+    assert got["collective_ops"]["all-gather"] > 0
+    assert got["collective_ops"]["all-reduce"] > 2
+
+
+# --------------------------------------------------------------------------
+# main
+# --------------------------------------------------------------------------
+def test_moe_train_cells_are_listed_as_failures(tmp_path, monkeypatch):
+    out = tmp_path / "dryrun.json"
+    monkeypatch.setattr(sys, "argv", [
+        "dryrun", "--arch", "mixtral-8x22b", "--shape", "train_4k",
+        "--mesh", "multi", "--out", str(out)])
+    with pytest.raises(SystemExit) as exit_:
+        dr.main()
+    assert exit_.value.code == 1
+    rec = json.loads(out.read_text())
+    assert rec["results"] == []
+    assert [f[:3] for f in rec["failures"]] == [
+        ["mixtral-8x22b", "train_4k", True]]
+    for f in rec["failures"]:
+        assert f[3].startswith("NotImplementedError(") and "MoE" in f[3]
+
+
+def test_collectives_are_recorded_by_kind_and_an_unknown_one_fails():
+    with dr.fake_world(4):
+        with dr.CollectiveMode() as comm:
+            torch.distributed.all_reduce(torch.ones(3))
+        assert dr.collective_bytes(comm.records) == {
+            **dict.fromkeys(dr.KINDS, 0), "all-reduce": 12,
+            "ops": {**dict.fromkeys(dr.KINDS, 0), "all-reduce": 1}}
+        with pytest.raises(NotImplementedError, match="has no kind"):
+            with dr.CollectiveMode():
+                torch.distributed.broadcast(torch.ones(3), 0)
+
+
+def test_fake_world_refuses_a_live_group():
+    with dr.fake_world(4):
+        with pytest.raises(RuntimeError, match="already initialised"):
+            with dr.fake_world(2):
+                pass
+    assert not torch.distributed.is_initialized()
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["jax"]:
+    _jax_side(Path(sys.argv[2]))
