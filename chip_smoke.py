@@ -241,17 +241,28 @@ code and are not counted).
 NCCL group: smollm-135m at full width and depth, the launcher's traffic
 (``LM_DIST``), its state placed on the (1, 1) host mesh by the logical
 rules and trained through the mesh step (``build_train_step`` under
-``use_mesh``), then the same steps on one device from the same weights;
+``use_mesh``; a dense model, so the step computes on the placed DTensor
+weights), then the same steps on one device from the same weights;
 every tensor of the two states and every loss bitwise equal; step ms
-(median, p90) mesh against local, peak bytes and the placed state's
-bytes per rank.  ``lm_dist_launcher``: the launcher as rank 0 of 1 under
+(median, p90) mesh against local, peak bytes, the placed state's bytes
+and the FLOPs of a step per rank, and one mesh and one local step
+profiled (wall and device ms, idle share, kernels, host op events).
+``lm_dist_gather``: the same on the gather path (the mesh step of every
+family but the dense one: whole weights gathered once a step, gradients
+all-reduced), rwkv6-1.6b at full width with 2 layers (``LM_DIST_GATHER``),
+bitwise the one-device step.  ``lm_dist_launcher``: the launcher as rank 0 of 1 under
 ``COORDINATOR_ADDRESS`` (a ``file://`` rendezvous) once uninterrupted,
 once SIGKILLed when ``step_3`` appears and restarted; the resumed run's
 final checkpoint bitwise the uninterrupted one's.  ``lm_dist_multi``:
 with ``LM_DIST_MULTI["ranks"]`` cards, that many NCCL ranks on a (2, 2)
-data × model mesh, float32, against one rank within
-``tests/helpers/distributed_lm_check.py``'s bounds, with step ms; with
-fewer cards a line saying it did not run and why.  Counts set to 0
+data × model mesh, float32, each of ``LM_DIST_MULTI_CASES`` against one
+rank within ``tests/helpers/distributed_lm_check.py``'s bounds, with step
+ms, the collectives of a step by op and a profiled step (device and NCCL
+ms, host op events): smollm-135m through the dense step
+(tensor-parallel products over "model"; its 3 KV heads do not divide by
+2, so its attention cuts the query positions) and through the gather
+path, and rwkv6-1.6b at 2 layers through the gather path; with fewer
+cards a line saying it did not run and why.  Counts set to 0
 before the phase and read after: ``lm_dist_launches`` (0, checked).
 ``lm_dryrun``: the dry run.  ``lm_dryrun_cli``: ``python -m
 repro_torch.launch.dryrun`` on smollm-135m's ``decode_32k`` on both
@@ -2924,8 +2935,20 @@ def lm_ckpt_lines(torch, card, dev) -> list[dict]:
 LM_DIST = {"arch": "smollm-135m", "global_batch": 8, "seq_len": 256,
            "seed": 1234, "steps": 6, "base_lr": 3e-4, "warmup": 6,
            "microbatches": 1, "remat": "full"}
+# the gather path (the step of rwkv6, mamba2, the hybrid and MoE: whole
+# weights gathered once a step, float32 gradients all-reduced): rwkv6-1.6b
+# at full width, its depth cut to lm_train's 2 layers, LM_DIST's traffic
+# for 3 steps
+LM_DIST_GATHER = {"arch": "rwkv6-1.6b", "n_layers": 2, "steps": 3}
 LM_DIST_MULTI = {"ranks": 4, "mesh": (2, 2), "axes": ("data", "model"),
-                 "steps": 3, "timeout_s": 300}
+                 "steps": 3, "timeout_s": 600}
+# the (2, 2) cases: the launcher's model through its own (dense) step and,
+# for comparison, through the gather path (TP_FAMILIES emptied in the
+# ranks), and the gather path's own family at LM_DIST_GATHER's depth
+LM_DIST_MULTI_CASES = (("smollm-135m", None, "dense"),
+                       ("smollm-135m", None, "gather"),
+                       (LM_DIST_GATHER["arch"], LM_DIST_GATHER["n_layers"],
+                        "gather"))
 LM_DIST_LOSS_RTOL = 1e-4
 LM_DIST_PARAM_RTOL, LM_DIST_PARAM_ATOL = 2e-3, 2e-4
 
@@ -2950,22 +2973,21 @@ def lm_whole(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def lm_dist_step_line(torch, card, dev) -> dict:
-    """The mesh step at world size 1 (inside ``nccl_world``): the state
-    placed on the (1, 1) host mesh by the logical rules, ``LM_DIST``'s
+def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST) -> dict:
+    """``cfg``'s mesh step at world size 1 (inside ``nccl_world``): the
+    state placed on the (1, 1) host mesh by the logical rules, ``t``'s
     steps timed, then the same steps on one device from the same weights;
-    every tensor of the two final states bitwise equal."""
+    every tensor of the two final states and every loss bitwise equal.
+    Returns the line's numbers and, under ``"run"``, what a caller goes on
+    with (the mesh step, the one-device step, both states, the batches)."""
     from repro_torch import models as tm
     from repro_torch import training as tt
-    from repro_torch.configs import get_config
     from repro_torch.distributed import use_mesh
     from repro_torch.distributed.sharding import mesh_sizes
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.launch.mesh import make_host_mesh
-    t = LM_DIST
-    cfg = get_config(t["arch"])
     mesh = make_host_mesh()
-    step, batches, whole = lm_dist_setup(torch, tm, tt, cfg, dev)
+    step, batches, whole = lm_dist_setup(torch, tm, tt, cfg, dev, t)
     placed = tt.place_train_state(whole, state_shardings(cfg, mesh))
     del whole
     torch.cuda.synchronize()
@@ -2978,19 +3000,51 @@ def lm_dist_step_line(torch, card, dev) -> dict:
     placed, mesh_ms, mesh_losses, _ = lm_train_steps(
         torch, mesh_step, placed, batches, t["steps"])
     peak = torch.cuda.max_memory_allocated()
-    blocks = [x.to_local() if hasattr(x, "to_local") else x
-              for x in lm_state_tensors(placed)]
-    placed_bytes = sum(x.numel() * x.element_size() for x in blocks)
-    _, _, local = lm_dist_setup(torch, tm, tt, cfg, dev)
+    placed_bytes = sum(
+        x.numel() * x.element_size() for x in (
+            y.to_local() if hasattr(y, "to_local") else y
+            for y in lm_state_tensors(placed)))
+    _, _, local = lm_dist_setup(torch, tm, tt, cfg, dev, t)
     local, local_ms, local_losses, _ = lm_train_steps(
         torch, step, local, batches, t["steps"])
     got, want = lm_state_tensors(placed), lm_state_tensors(local)
     check(len(got) == len(want) and all(
         lm_bitwise(torch, lm_whole(a), b) for a, b in zip(got, want)),
-        "lm dist: the mesh step at world size 1 is not bitwise the "
-        "one-device step")
-    check(mesh_losses == local_losses, f"lm dist: losses {mesh_losses} on "
-          f"the mesh, {local_losses} on one device")
+        f"lm dist: {cfg.name}'s mesh step at world size 1 is not bitwise "
+        f"the one-device step")
+    check(mesh_losses == local_losses, f"lm dist: {cfg.name}'s losses "
+          f"{mesh_losses} on the mesh, {local_losses} on one device")
+    del got, want
+    return {
+        "mesh": mesh_sizes(mesh), "world_size": 1, "backend": "nccl",
+        "losses": mesh_losses, "mesh_step_ms": mesh_ms,
+        "local_step_ms": local_ms,
+        "mesh_step_ms_median": statistics.median(mesh_ms[1:]),
+        "mesh_step_ms_p90": float(np.percentile(mesh_ms[1:], 90)),
+        "local_step_ms_median": statistics.median(local_ms[1:]),
+        "local_step_ms_p90": float(np.percentile(local_ms[1:], 90)),
+        "peak_allocated_bytes_per_rank": peak,
+        "placed_state_bytes_per_rank": placed_bytes,
+        "step_path": lm_step_path(tt, cfg), "bitwise_vs_one_device": True,
+        "run": (mesh_step, step, placed, local, batches)}
+
+
+def lm_step_path(tt, cfg) -> str:
+    """Which mesh step ``cfg`` takes: the dense step on its placed weights
+    or the gather path."""
+    return ("dense: placed weights" if cfg.family in tt.step.TP_FAMILIES
+            else "gather")
+
+
+def lm_dist_step_line(torch, card, dev) -> dict:
+    """``lm_dist_one_rank`` of ``LM_DIST``'s model and traffic, then one
+    more mesh step counted (FLOPs, collectives) and one mesh and one local
+    step profiled."""
+    from repro_torch.configs import get_config
+    from torch.autograd import DeviceType
+    cfg = get_config(LM_DIST["arch"])
+    line = lm_dist_one_rank(torch, cfg, dev)
+    mesh_step, step, placed, local, batches = line.pop("run")
     # one more mesh step, counted: the lm_dryrun phase holds the dry run's
     # trace of this step against these counts
     from torch.distributed.tensor.debug import CommDebugMode
@@ -3000,19 +3054,47 @@ def lm_dist_step_line(torch, card, dev) -> dict:
     torch.cuda.synchronize()
     counted = {"flops": flops.get_total_flops(), "collective_counts": {
         op.__name__: n for op, n in comm.get_comm_counts().items()}}
-    del placed, local, blocks, got, want, step, batches
+    # where a step's time goes: one mesh and one local step profiled
+    profiles = {}
+    for tag, fn, state in (("mesh", mesh_step, placed),
+                           ("local", step, local)):
+        wall_ms, rows, averages = profile_rows(
+            torch, lambda s, fn=fn: fn(s, batches[0]), state)
+        busy = sum(r[1] for r in rows)
+        profiles[tag] = {
+            "profiled_wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1 - busy / wall_ms,
+            "kernels": sum(r[2] for r in rows),
+            "host_ops": sum(ev.count for ev in averages
+                            if ev.device_type != DeviceType.CUDA)}
+    del placed, local, step, mesh_step, batches
     torch.cuda.empty_cache()
-    return {
-        "lm_dist_step": cfg.name, "mesh": mesh_sizes(mesh), "world_size": 1,
-        "backend": "nccl", "traffic": t, "losses": mesh_losses,
-        "mesh_step_ms": mesh_ms, "local_step_ms": local_ms,
-        "mesh_step_ms_median": statistics.median(mesh_ms[1:]),
-        "mesh_step_ms_p90": float(np.percentile(mesh_ms[1:], 90)),
-        "local_step_ms_median": statistics.median(local_ms[1:]),
-        "local_step_ms_p90": float(np.percentile(local_ms[1:], 90)),
-        "peak_allocated_bytes_per_rank": peak,
-        "placed_state_bytes_per_rank": placed_bytes,
-        "bitwise_vs_one_device": True, "counted_step": counted, **card}
+    return {"lm_dist_step": cfg.name, "traffic": LM_DIST, **line,
+            "flops_per_rank": counted["flops"], "profiles": profiles,
+            "counted_step": counted, **card}
+
+
+def lm_dist_gather_line(torch, card, dev) -> dict:
+    """``lm_dist_one_rank`` of ``LM_DIST_GATHER``'s model (a family the
+    dense step does not take) at ``LM_DIST``'s traffic: the gather path's
+    mesh step bitwise the one-device step on the card."""
+    import dataclasses
+
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    g = LM_DIST_GATHER
+    full = get_config(g["arch"])
+    cfg = dataclasses.replace(full, n_layers=g["n_layers"])
+    check(lm_step_path(tt, cfg) == "gather",
+          f"lm dist: {cfg.name} no longer takes the gather path")
+    t = {**LM_DIST, "steps": g["steps"]}
+    line = lm_dist_one_rank(torch, cfg, dev, t)
+    del line["run"]
+    torch.cuda.empty_cache()
+    return {"lm_dist_gather": cfg.name, "family": cfg.family,
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+            "traffic": {k: v for k, v in t.items() if k != "arch"},
+            **line, **card}
 
 
 def lm_dist_launcher_line(card) -> dict:
@@ -3064,76 +3146,117 @@ def lm_dist_launcher_line(card) -> dict:
                                 if ln.startswith("[train]")], **card}
 
 
-def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
-    """One of ``LM_DIST_MULTI["ranks"]`` NCCL ranks (card ``rank``): the
-    float32 launcher's model placed on the (2, 2) data × model mesh,
-    ``LM_DIST_MULTI["steps"]`` steps timed; rank 0 writes the losses, the
-    step ms and the whole parameters to ``out``."""
+def lm_dist_multi_config(arch: str, n_layers):
+    """``arch`` in float32, its depth cut to ``n_layers`` where given."""
     import dataclasses
 
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
+    """One of ``LM_DIST_MULTI["ranks"]`` NCCL ranks (card ``rank``): for
+    each of ``LM_DIST_MULTI_CASES``, the float32 model placed on the
+    (2, 2) data × model mesh, ``LM_DIST_MULTI["steps"]`` steps timed, then
+    one more counted (collectives by op) and two profiled (the second
+    recorded: wall and device ms, the NCCL kernels' share, host op
+    events); rank 0 writes each case's losses, step ms, peak, counts,
+    profile and whole parameters (those before the extra steps) to
+    ``out`` with the case's index."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import models as tm
     from repro_torch import training as tt
-    from repro_torch.configs import get_config
     from repro_torch.distributed import use_mesh
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.launch.mesh import make_auto_mesh
+    from torch.autograd import DeviceType
+    from torch.distributed.tensor.debug import CommDebugMode
     t = LM_DIST_MULTI
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", store=dist.FileStore(store, t["ranks"]),
                             rank=rank, world_size=t["ranks"])
+    families = tt.step.TP_FAMILIES
     try:
-        cfg = dataclasses.replace(get_config(LM_DIST["arch"]),
-                                  dtype="float32")
         mesh = make_auto_mesh(t["mesh"], t["axes"])
-        step, batches, whole = lm_dist_setup(torch, tm, tt, cfg, "cuda")
-        state = tt.place_train_state(whole, state_shardings(cfg, mesh))
-        del whole
-        ms, losses = [], []
-        for i in range(t["steps"]):
+        for i, (arch, n_layers, path) in enumerate(LM_DIST_MULTI_CASES):
+            tt.step.TP_FAMILIES = families if path == "dense" else ()
+            cfg = lm_dist_multi_config(arch, n_layers)
+            check(lm_step_path(tt, cfg).startswith(path),
+                  f"lm dist: {cfg.name} does not take the {path} path")
+            step, batches, whole = lm_dist_setup(
+                torch, tm, tt, cfg, "cuda", {**LM_DIST, "steps": t["steps"]})
+            state = tt.place_train_state(whole, state_shardings(cfg, mesh))
+            del whole
+            torch.cuda.reset_peak_memory_stats()
+
+            def mesh_step(s, batch):
+                with use_mesh(mesh):
+                    return step(s, batch)
+
+            ms, losses = [], []
+            for b in batches:
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = mesh_step(state, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics["loss"]))
+            peak = torch.cuda.max_memory_allocated()
+            params = {n: lm_whole(p).detach().cpu().numpy()
+                      for n, p in state.params.items()}
+            with CommDebugMode() as comm:
+                state, _ = mesh_step(state, batches[0])
+            counts = {op.__name__: n
+                      for op, n in comm.get_comm_counts().items()}
+            wall, rows, averages = profile_rows(
+                torch, lambda s: mesh_step(s, batches[0]), state)
+            profile = {
+                "profiled_wall_ms": wall,
+                "device_ms": sum(r[1] for r in rows),
+                "nccl_ms": sum(r[1] for r in rows if "nccl" in r[0].lower()),
+                "kernels": sum(r[2] for r in rows),
+                "host_ops": sum(ev.count for ev in averages
+                                if ev.device_type != DeviceType.CUDA)}
+            if rank == 0:
+                np.savez(f"{out}.{i}.npz", losses=np.asarray(losses),
+                         ms=np.asarray(ms), peak=np.asarray(peak),
+                         meta=np.asarray(json.dumps({
+                             "collective_counts": counts,
+                             "profile": profile})),
+                         **{f"param|{n}": v for n, v in params.items()})
+            del state, step, batches, params
+            torch.cuda.empty_cache()
             dist.barrier()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with use_mesh(mesh):
-                state, metrics = step(state, batches[i])
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(metrics["loss"]))
-        params = {n: lm_whole(p).detach().cpu().numpy()
-                  for n, p in state.params.items()}
-        peak = torch.cuda.max_memory_allocated()
-        if rank == 0:
-            np.savez(out, losses=np.asarray(losses), ms=np.asarray(ms),
-                     peak=np.asarray(peak),
-                     **{f"param|{n}": v for n, v in params.items()})
-        dist.barrier()
     finally:
+        tt.step.TP_FAMILIES = families
         dist.destroy_process_group()
 
 
-def lm_dist_multi_line(torch, card) -> dict:
-    """With ``LM_DIST_MULTI["ranks"]`` cards: the (2, 2) mesh run against
-    the same float32 steps on one card, the loss within
-    ``LM_DIST_LOSS_RTOL`` and every parameter within the helper's bounds;
-    with fewer, a line saying it did not run."""
-    import dataclasses
+def lm_dist_multi_line(torch, card) -> list[dict]:
+    """With ``LM_DIST_MULTI["ranks"]`` cards: each of
+    ``LM_DIST_MULTI_CASES`` on the (2, 2) mesh against the same float32
+    steps on one card, the loss within ``LM_DIST_LOSS_RTOL`` and every
+    parameter within the helper's bounds; with fewer, a line saying it
+    did not run."""
     import tempfile
 
     import torch.multiprocessing as mp
     t = LM_DIST_MULTI
     n = torch.cuda.device_count()
     if n < t["ranks"]:
-        return {"lm_dist_multi": "not run",
-                "why": f"{n} CUDA device(s) here; the {t['mesh']} mesh of "
-                       f"NCCL ranks needs {t['ranks']}", **card}
+        return [{"lm_dist_multi": "not run",
+                 "why": f"{n} CUDA device(s) here; the {t['mesh']} mesh of "
+                        f"NCCL ranks needs {t['ranks']}", **card}]
     from repro_torch import models as tm
     from repro_torch import training as tt
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(LM_DIST["arch"]), dtype="float32")
     with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "rank0.npz"
+        out = Path(tmp) / "rank0"
         ctx = mp.start_processes(
             lm_dist_multi_rank, args=(str(Path(tmp) / "store"), str(out)),
             nprocs=t["ranks"], join=False, start_method="spawn")
@@ -3144,34 +3267,47 @@ def lm_dist_multi_line(torch, card) -> dict:
                     p.kill()
                 check(False, f"lm dist: the {t['ranks']}-rank mesh run "
                       f"timed out")
-        with np.load(out) as z:
-            got = {k: z[k] for k in z.files}
-    step, batches, state = lm_dist_setup(torch, tm, tt, cfg, "cuda")
-    losses = []
-    for i in range(t["steps"]):
-        state, metrics = step(state, batches[i])
-        losses.append(float(metrics["loss"]))
-    worst = 0.0
-    for name, p in state.params.items():
-        want = p.detach().cpu().numpy()
-        mesh_p = got[f"param|{name}"]
-        check(np.allclose(mesh_p, want, rtol=LM_DIST_PARAM_RTOL,
-                          atol=LM_DIST_PARAM_ATOL),
-              f"lm dist: {name} on the {t['mesh']} mesh is off the "
-              f"one-rank run by {np.abs(mesh_p - want).max()}")
-        worst = max(worst, float(np.abs(mesh_p - want).max()))
-    rel = abs(got["losses"][-1] - losses[-1]) / abs(losses[-1])
-    check(rel <= LM_DIST_LOSS_RTOL, f"lm dist: loss {got['losses']} on the "
-          f"mesh, {losses} on one rank")
-    del state, step, batches
-    torch.cuda.empty_cache()
-    return {"lm_dist_multi": LM_DIST["arch"], "dtype": "float32",
+        runs = []
+        for i in range(len(LM_DIST_MULTI_CASES)):
+            with np.load(f"{out}.{i}.npz") as z:
+                runs.append({k: z[k] for k in z.files})
+    lines = []
+    for (arch, n_layers, path), got in zip(LM_DIST_MULTI_CASES, runs):
+        cfg = lm_dist_multi_config(arch, n_layers)
+        step, batches, state = lm_dist_setup(
+            torch, tm, tt, cfg, "cuda", {**LM_DIST, "steps": t["steps"]})
+        losses = []
+        for i in range(t["steps"]):
+            state, metrics = step(state, batches[i])
+            losses.append(float(metrics["loss"]))
+        worst = 0.0
+        for name, p in state.params.items():
+            want = p.detach().cpu().numpy()
+            mesh_p = got[f"param|{name}"]
+            check(np.allclose(mesh_p, want, rtol=LM_DIST_PARAM_RTOL,
+                              atol=LM_DIST_PARAM_ATOL),
+                  f"lm dist: {cfg.name}'s {name} on the {t['mesh']} mesh "
+                  f"({path}) is off the one-rank run by "
+                  f"{np.abs(mesh_p - want).max()}")
+            worst = max(worst, float(np.abs(mesh_p - want).max()))
+        rel = abs(got["losses"][-1] - losses[-1]) / abs(losses[-1])
+        check(rel <= LM_DIST_LOSS_RTOL, f"lm dist: {cfg.name}'s loss "
+              f"{got['losses']} on the mesh ({path}), {losses} on one rank")
+        del state, step, batches
+        torch.cuda.empty_cache()
+        lines.append({
+            "lm_dist_multi": cfg.name, "dtype": "float32",
+            "reduced": None if n_layers is None else {
+                "n_layers": [get_config(arch).n_layers, n_layers]},
             "mesh": dict(zip(t["axes"], t["mesh"])), "ranks": t["ranks"],
-            "backend": "nccl", "losses": got["losses"].tolist(),
-            "one_rank_losses": losses, "loss_rel_gap": rel,
-            "param_max_abs_gap": worst, "step_ms": got["ms"].tolist(),
+            "step_path": path, "backend": "nccl",
+            "losses": got["losses"].tolist(), "one_rank_losses": losses,
+            "loss_rel_gap": rel, "param_max_abs_gap": worst,
+            "step_ms": got["ms"].tolist(),
             "step_ms_median": float(np.median(got["ms"][1:])),
-            "peak_allocated_bytes_rank0": int(got["peak"]), **card}
+            "peak_allocated_bytes_rank0": int(got["peak"]),
+            **json.loads(str(got["meta"])), **card})
+    return lines
 
 
 # the dry run: python -m repro_torch.launch.dryrun on one cell at
@@ -4059,13 +4195,16 @@ def main() -> int:
     with nccl_world(torch):
         dist_line = lm_dist_step_line(torch, card, dev)
         log(json.dumps(dist_line))
+        log(json.dumps(lm_dist_gather_line(torch, card, dev)))
     log(json.dumps(lm_dist_launcher_line(card)))
-    log(json.dumps(lm_dist_multi_line(torch, card)))
+    for line in lm_dist_multi_line(torch, card):
+        log(json.dumps(line))
     dist_k = {name: k.launches for name, (_, _, k) in kernels.items()}
     check(not any(dist_k.values()),
           f"the distributed LM phase launched a kernel of the port: {dist_k}")
-    log(f"lm_dist: {LM_DIST['arch']}'s mesh step on a one-rank NCCL (1, 1) "
-        f"mesh bitwise the one-device step; the launcher under "
+    log(f"lm_dist: {LM_DIST['arch']}'s mesh step (dense) and "
+        f"{LM_DIST_GATHER['arch']}'s (the gather path) on a one-rank NCCL "
+        f"(1, 1) mesh bitwise the one-device step; the launcher under "
         f"COORDINATOR_ADDRESS killed after step {LM_CKPT_KILL_AT} resumed "
         f"bitwise; no kernel of the port launched ({dist_k}), in "
         f"{time.perf_counter() - t0:.1f} s")

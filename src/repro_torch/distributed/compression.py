@@ -30,7 +30,9 @@ def _quant(g):
 
 def ef_int8_roundtrip(g: torch.Tensor) -> torch.Tensor:
     """Quantise → dequantise in float32, per-tensor scale; the result in
-    g's dtype."""
+    g's dtype.  A DTensor ``g`` (a rank's block of a sharded gradient)
+    takes the whole tensor's scale: DTensor reduces the max over the
+    ranks, as the reference's GSPMD program does."""
     q, scale = _quant(g.to(torch.float32))
     return (q.to(torch.float32) * scale).to(g.dtype)
 

@@ -23,6 +23,17 @@ over ``(a1, a2)``.  DTensor splits in mesh-dim order, so an axis that comes
 before a more major one in the mesh takes a ``_StridedShard`` whose split
 factor is the product of those more major axes' sizes (``placements``);
 ``local_block`` cuts a rank's block by its mesh coordinate as JAX does.
+
+Computing on a mesh (the dense family's mesh train step): the weights are
+DTensors of each rank's block, and ``weight_use`` gives a weight as one
+use reads it: gathered along the data-parallel axes (those of the
+``"batch"`` rule, whose ranks hold other rows), still cut along the
+others ("model"); the backward of that gather reduce-scatters the
+weight's gradient.  ``shard`` places an activation at one of the
+reference's annotation points, ``match`` puts one value in another's
+placements (the residual stream's), and ``local_apply`` runs a function
+on each rank's blocks of operands laid out for it (``models.layers
+.matmul`` and the attention core).
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import threading
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 # logical axis → mesh axis (None = replicated)
 LOGICAL_RULES: dict[str, object] = {
@@ -304,3 +315,128 @@ def shard(x, *logical_axes: str | None):
         return x
     spec = resolve_spec(tuple(x.shape), tuple(logical_axes))
     return x.redistribute(mesh, placements(spec, mesh))
+
+
+def weight_use(w, dtype=None):
+    """``w`` as one use reads it: cast to ``dtype`` (where given), then, a
+    DTensor under a mesh, gathered along the data-parallel axes (the
+    ``"batch"`` rule's) and left cut along every other.  The cast comes
+    first: it is elementwise, so the gathered bits are the same, and the
+    gather moves the compute dtype's bytes.  The backward sums the use's
+    gradient over those axes into each rank's block (a reduce-scatter)."""
+    if dtype is not None:
+        w = w.to(dtype)
+    mesh = current_mesh()
+    if mesh is None or not isinstance(w, DTensor):
+        return w
+    data = set(spec_axes(current_rules().get("batch")))
+    use = tuple(Replicate() if name in data else p for name, p in zip(
+        w.device_mesh.mesh_dim_names, w.placements))
+    return w if use == w.placements else _WeightUse.apply(w, use)
+
+
+class _WeightUse(torch.autograd.Function):
+    """A weight gathered for one use; the backward puts the use's gradient
+    back into the weight's placements one mesh dim at a time, outermost
+    first, so that each cut dim is a reduce-scatter (DTensor's one-shot
+    plan for several partial dims all-reduces some of them)."""
+
+    @staticmethod
+    def forward(ctx, w, use):
+        ctx.placements = w.placements
+        return w.redistribute(w.device_mesh, use)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = g.device_mesh
+        if not all(type(p) in (Shard, Replicate) for p in ctx.placements):
+            return g.redistribute(mesh, ctx.placements), None
+        for i, p in enumerate(ctx.placements):
+            if g.placements[i] != p:
+                step = list(g.placements)
+                step[i] = p
+                g = g.redistribute(mesh, step)
+        return g, None
+
+
+def match(y, x):
+    """``y`` in ``x``'s placements (a DTensor's partial sums reduced, its
+    shards moved); ``y`` itself unless both are DTensors."""
+    if not (isinstance(y, DTensor) and isinstance(x, DTensor)) \
+            or y.placements == x.placements:
+        return y
+    return y.redistribute(x.device_mesh, x.placements)
+
+
+def block_start(t, dim: int) -> int:
+    """Where this rank's block of the DTensor ``t`` starts along ``dim``
+    (0 where no mesh dim cuts it): mesh dims cut it outermost first, as
+    DTensor nests ``Shard`` placements.  Read from the mesh coordinate,
+    which a fake mode leaves alone."""
+    first, n = 0, 1
+    for c, size, p in zip(t.device_mesh.get_coordinate(),
+                          t.device_mesh.shape, t.placements):
+        if p.is_shard(dim):
+            first, n = first * size + c, n * size
+    return first * (t.shape[dim] // n)
+
+
+def block_take(take, ids, block, first: int, dim: int):
+    """``take(i, block)`` for the ids of ``ids`` that fall in ``block``, a
+    block of a table that starts at id ``first`` along ``dim`` (``i`` their
+    offsets in it), zeros for every other id: one rank's share of a lookup
+    in a table cut into blocks (a partial sum over the ranks holding them).
+    All of them, with ``take``'s own bits, when ``block`` is the whole
+    table (``first`` 0)."""
+    idx = ids - first
+    hit = (idx >= 0) & (idx < block.shape[dim])
+    out = take(torch.where(hit, idx, 0), block)
+    return torch.where(hit.reshape(hit.shape + (1,) * (out.ndim - hit.ndim)),
+                       out, 0.0)
+
+
+def _as_dtensor(t, mesh):
+    """``t`` replicated on ``mesh`` (a plain tensor, the same on every
+    rank), or ``t`` itself when it is a DTensor."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def replicated_like(t, like):
+    """A plain tensor that is the same on every rank, as a replicated
+    DTensor on ``like``'s mesh where ``like`` is a DTensor; else ``t``."""
+    if not isinstance(like, DTensor):
+        return t
+    return _as_dtensor(t, like.device_mesh)
+
+
+def local_apply(fn, args, in_placements, out_placements):
+    """``fn(*args)`` on each rank's blocks.  Each operand is redistributed
+    to its placements in ``in_placements`` (a plain tensor is taken as the
+    same on every rank), ``fn`` runs on the local blocks, and its output
+    becomes a DTensor of ``out_placements``.  An operand replicated on a
+    mesh dim where the output is not has a partial gradient there: every
+    rank's block of the output read all of it.  Without a DTensor operand
+    it is ``fn(*args)``."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    out_placements = tuple(out_placements)
+    local = []
+    for a, pl in zip(args, in_placements):
+        pl = tuple(pl)
+        a = _as_dtensor(a, mesh)
+        if a.placements != pl:
+            # (a redistribution to the same placements would turn the
+            # partial gradient back into a replicated one: an all-reduce)
+            a = a.redistribute(mesh, pl)
+        grad = tuple(
+            Replicate() if p.is_partial() else
+            Partial() if p.is_replicate() and not o.is_replicate() else p
+            for p, o in zip(pl, out_placements))
+        local.append(a.to_local(grad_placements=grad))
+    return DTensor.from_local(fn(*local), mesh, out_placements,
+                              run_check=False)

@@ -20,7 +20,7 @@ A train cell is one mesh step (``training.step``, ``microbatches =
 global_batch // microbatch``, ``remat="full"``) traced on rank 0: every
 rank holds equal blocks (``resolve_spec`` shards a dim only by axes that
 divide it) and runs the same step, so rank 0's numbers are every rank's.
-The port has no partitioned serving (``ROADMAP.md`` §1 item 5): a prefill
+The port has no partitioned serving (``ROADMAP.md`` §1 item 5c): a prefill
 or decode cell's per-rank argument bytes come from the placements of its
 bfloat16 parameters and caches, and its FLOPs and memory from tracing
 ``prefill`` / ``decode_step`` on the whole cell on one fake device; the
@@ -39,6 +39,14 @@ trace issues them).  What the numbers do not count:
     peak holds it whole, ``argument_bytes`` counts each rank's block of it
     (the reference's ``batch_shardings``), and ``temp_bytes`` is the peak
     less ``argument_bytes``;
+  * on a CPU mesh DTensor moves a shard from one tensor dim to another
+    (the dense step's annotation points) by an all-gather of the whole
+    tensor and a chunk, where NCCL runs an all-to-all of the block: the
+    trace takes the card's route (``_card_redistribution``), so the record
+    counts the all-to-all and the peak holds only the block;
+  * DTensor infers each op's output metadata by running it on fakes of
+    the whole, unsharded shapes: those are not tensors of the step and
+    are not counted (``PeakTracker``);
   * no allocator: the peak is the largest sum of live tensors' storage
     bytes, without the caching allocator's rounding and fragmentation, the
     CUDA context or NCCL's buffers.
@@ -59,6 +67,7 @@ import json
 import math
 import multiprocessing
 import os
+import threading
 import time
 import traceback
 from concurrent.futures import ProcessPoolExecutor
@@ -123,11 +132,15 @@ KIND_OF = {
     "all_to_all_single": "all-to-all",
     "alltoall_": "all-to-all",
     "alltoall_base_": "all-to-all",
+    # DTensor's move of a shard from one tensor dim to another
+    "shard_dim_alltoall": "all-to-all",
 }
-# any other op of these namespaces but a wait fails the cell: a collective
-# of no kind is not dropped from the count
-_C10D = ("c10d", "_c10d_functional", "c10d_functional")
-_NOT_COLLECTIVES = ("wait_tensor", "wait")
+# any other op of these namespaces but a wait (or the autograd wrapper of a
+# functional collective's output) fails the cell: a collective of no kind
+# is not dropped from the count
+_C10D = ("c10d", "_c10d_functional", "c10d_functional", "_dtensor")
+_NOT_COLLECTIVES = ("wait_tensor", "wait", "_wrap_tensor_autograd",
+                    "mesh_get_process_group")
 
 
 @contextlib.contextmanager
@@ -257,12 +270,64 @@ def _local_bytes(tree) -> int:
         if isinstance(t, torch.Tensor))
 
 
+_PROPAGATING = threading.local()
+
+
+@contextlib.contextmanager
+def _marked_propagation():
+    """Marks the ops DTensor runs to infer an op's output metadata (on
+    fakes of the whole, unsharded shapes, under the active fake mode, which
+    in a dry run is the trace's own) so that ``PeakTracker`` can tell them
+    from the ops that compute each rank's block."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def marked(self, *args, **kwargs):
+        _PROPAGATING.depth = getattr(_PROPAGATING, "depth", 0) + 1
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            _PROPAGATING.depth -= 1
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = marked
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+
+
+@contextlib.contextmanager
+def _card_redistribution():
+    """DTensor's move of a shard from one tensor dim to another as a card
+    runs it, an all-to-all of the block (``_dtensor.shard_dim_alltoall``),
+    where on a CPU mesh it gathers the whole tensor and keeps a chunk."""
+    from torch.distributed.tensor import placement_types
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    orig = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
+
+
 class PeakTracker(MemTracker):
     """``MemTracker`` without its per-module statistics: the dry run reads
     only its peak, and the module hooks refuse a module called twice from
     the top level in one step (a MoE layer, once a microbatch).  Every
     tensor an op makes is still tracked by its storage, so a view and its
-    base count once."""
+    base count once; the fakes of DTensor's metadata propagation
+    (``_marked_propagation``) hold no memory on a card and are not
+    tracked."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if getattr(_PROPAGATING, "depth", 0):
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
 
     def _pre_fw_hook(self, module, inputs) -> None:
         pass
@@ -292,7 +357,7 @@ def _traced(fn, device, held, args_bytes: int) -> dict:
     comm = CollectiveMode()
     mem = PeakTracker()
     mem.track_external(*held)
-    with flops, comm, mem:
+    with _marked_propagation(), _card_redistribution(), flops, comm, mem:
         out = fn()
     peak = mem.peak(device)
     coll = collective_bytes(comm.records)

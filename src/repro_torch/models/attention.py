@@ -15,20 +15,40 @@ Plain ``torch.einsum`` and ``softmax``, as the reference is plain ``jnp``
 (no Pallas kernel): ``scaled_dot_product_attention`` computes in another
 order and would hide what the reference computes.  GQA computes grouped
 einsums; ``n_kv_heads == 1`` (gemma3) is MQA.
+
+On a mesh (the dense family's mesh train step) the train path places the
+reference's annotations: the three projections' ``("batch", "seq",
+"heads_fused")`` and the scores' ``("batch", "kv_heads", None, "q_seq",
+None)``.  The scores' placement decides each rank's share of the
+attention: its KV heads where their count divides the "model" axis, else
+its block of query positions against every key (``_attend_placements``);
+each rank then runs the one-device code on its blocks.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.distributed.sharding import (
+    current_mesh,
+    local_apply,
+    placements,
+    replicated_like,
+    resolve_spec,
+    shard,
+    weight_use,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
     einsum,
     matmul,
+    matmul_operand,
     param,
     rms_norm,
     rope,
@@ -64,16 +84,29 @@ def _qkv(p: Attention, cfg: ModelConfig, x, pos, dtype):
     """Project + (qk-norm) + rope.  q [B,S,KV,G,hd], k and v [B,S,KV,hd]."""
     b, s = x.shape[:2]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = matmul(x, p.wq.to(dtype)).reshape(b, s, h, hd)
-    k = matmul(x, p.wk.to(dtype)).reshape(b, s, kv, hd)
-    v = matmul(x, p.wv.to(dtype)).reshape(b, s, kv, hd)
+    wq, wk, wv = (weight_use(w, dtype) for w in (p.wq, p.wk, p.wv))
+    if isinstance(x, DTensor):
+        x = matmul_operand(x, wq)
+    q = _heads(shard(matmul(x, wq), "batch", "seq", "heads_fused"), h, hd)
+    k = _heads(shard(matmul(x, wk), "batch", "seq", "heads_fused"), kv, hd)
+    v = _heads(shard(matmul(x, wv), "batch", "seq", "heads_fused"), kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    sin, cos = rope(pos, hd, cfg.rope_theta)
+    sin, cos = (replicated_like(t, q) for t in rope(pos, hd, cfg.rope_theta))
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     return q.reshape(b, s, kv, h // kv, hd), k, v
+
+
+def _heads(t, n: int, hd: int):
+    """[B, S, n·hd] → [B, S, n, hd].  A DTensor cut along the fused dim
+    (where the sequence could not take "model") is gathered along it
+    first: DTensor does not split a cut dim."""
+    if isinstance(t, DTensor) and any(p.is_shard(2) for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_shard(2) else p for p in t.placements])
+    return t.reshape(*t.shape[:2], n, hd)
 
 
 def _mask(q_pos, k_pos, window, is_global: bool):
@@ -90,19 +123,45 @@ def _sqrt_hd(hd: int) -> torch.Tensor:
     return torch.tensor(math.sqrt(hd), dtype=torch.float32)
 
 
-def attention_train(p: Attention, cfg: ModelConfig, x, pos, is_global: bool,
-                    dtype):
-    """Dense masked attention (``forward``'s path)."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, pos, dtype)
-    mask = _mask(pos[0], pos[0], window_of(cfg), is_global)
-    scores = einsum("bqhgk,bshk->bhgqs", q, k) \
-        / _sqrt_hd(cfg.d_head).to(dtype)
+def _attend(q, k, v, mask, hd: int, dtype):
+    """Masked softmax attention of q [B,Sq,KV,G,hd] over k, v [B,Sk,KV,hd]
+    under mask [Sq, Sk], scores divided by sqrt(d_head) in the compute
+    dtype.  Returns [B,Sq,KV·G·hd]."""
+    scores = einsum("bqhgk,bshk->bhgqs", q, k) / _sqrt_hd(hd).to(dtype)
     scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     out = einsum("bhgqs,bshk->bqhgk", probs, v)
-    return matmul(out.reshape(b, s, cfg.n_heads * cfg.d_head),
-                  p.wo.to(dtype))
+    return out.reshape(*out.shape[:2], -1)
+
+
+def _attend_placements(q) -> tuple:
+    """``_attend``'s operands' and output's placements on the current mesh
+    from the reference's scores annotation ``("batch", "kv_heads", None,
+    "q_seq", None)`` of the scores [B,KV,G,Sq,Sk]: a mesh axis that cuts
+    B, KV or Sq cuts q and the output there, k and v where it cuts B or
+    KV, the mask where it cuts Sq.  An axis on G or on the keys computes
+    them whole: the output's fused heads would not be one block, and the
+    softmax would run across ranks."""
+    mesh = current_mesh()
+    b, sq, kvh, g, _ = q.shape
+    sb, skv, _, sq_, _ = resolve_spec(
+        (b, kvh, g, sq, sq), ("batch", "kv_heads", None, "q_seq", None))
+    kv = placements((sb, None, skv, None), mesh)
+    return ([placements((sb, sq_, skv, None, None), mesh), kv, kv,
+             placements((sq_, None), mesh)], placements((sb, sq_, skv), mesh))
+
+
+def attention_train(p: Attention, cfg: ModelConfig, x, pos, is_global: bool,
+                    dtype):
+    """Dense masked attention (``forward``'s path)."""
+    q, k, v = _qkv(p, cfg, x, pos, dtype)
+    mask = _mask(pos[0], pos[0], window_of(cfg), is_global)
+    attend = functools.partial(_attend, hd=cfg.d_head, dtype=dtype)
+    if isinstance(q, DTensor):
+        o = local_apply(attend, (q, k, v, mask), *_attend_placements(q))
+    else:
+        o = attend(q, k, v, mask)
+    return matmul(o, weight_use(p.wo, dtype))
 
 
 def attention_prefill(p: Attention, cfg: ModelConfig, x, pos,

@@ -9,19 +9,37 @@ which every product of the models runs).  Weights live in
 parameter tree (``models.convert`` carries a tree across by those names);
 the functions take the module and compute op for op as the reference does.
 Weights are float32 masters, cast to the compute dtype at each use, as the
-reference casts them.  The reference's ``shard`` annotations inside the
-model are not placed here: the mesh train step is data parallel and runs
-the model on whole weights (tensor-parallel compute is ``ROADMAP.md`` §1
-item 5).  Each module's ``SPECS`` names its leaves' logical axes, by which
-``distributed.sharding`` places the weights.
+reference casts them (``sharding.weight_use``).  Each module's ``SPECS``
+names its leaves' logical axes, by which ``distributed.sharding`` places
+the weights.
+
+On a mesh (the dense family's mesh train step) the weights are DTensors
+and every function here computes on their blocks: a use gathers a weight
+along the data-parallel axes only, ``matmul`` runs each rank's block of
+the product (column-parallel where the weight's output dim is cut,
+row-parallel with a partial sum where its input dim is), and the
+reference's ``shard`` annotations are placed where it places them
+(``mlp_apply``'s hidden, the embedding's output, the logits).  Off a mesh
+every one of them is the identity.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import (
+    block_start,
+    block_take,
+    local_apply,
+    replicated_like,
+    shard,
+    weight_use,
+)
 
 
 def param(*shape: int, device) -> nn.Parameter:
@@ -46,16 +64,46 @@ def _cpu_bf16(t) -> bool:
     return t.dtype == torch.bfloat16 and t.device.type == "cpu"
 
 
+def _matmul(a, b):
+    if _cpu_bf16(a):
+        return (a.to(torch.float32) @ b.to(torch.float32)).to(a.dtype)
+    return a @ b
+
+
 def matmul(a, b):
     """``a @ b``.  A bfloat16 product on the CPU is taken as a float32 one
     rounded once to bfloat16, as XLA's CPU backend computes the reference's
     bfloat16 dots: torch's CPU bfloat16 GEMM also rounds once, but sums in
     another order, and a last-bit difference in one entry is amplified
     through a few layers past the bfloat16 tests' bound.  On the card a
-    bfloat16 GEMM runs as it is (float32 accumulation, its own order)."""
-    if _cpu_bf16(a):
-        return (a.to(torch.float32) @ b.to(torch.float32)).to(a.dtype)
-    return a @ b
+    bfloat16 GEMM runs as it is (float32 accumulation, its own order).
+
+    ``a`` a DTensor and ``b`` a weight in use (``weight_use``): each rank
+    multiplies its blocks, ``a`` laid out for ``b`` first
+    (``matmul_operand``): the product is cut as ``a``'s rows and ``b``'s
+    columns are, and partial where ``b``'s rows are cut."""
+    if not isinstance(a, DTensor):
+        return _matmul(a, b)
+    a = matmul_operand(a, b)
+    last = a.ndim - 1
+    out = tuple(Partial() if bp.is_shard(0) else
+                Shard(last) if bp.is_shard(1) else ap
+                for ap, bp in zip(a.placements, b.placements))
+    return local_apply(_matmul, (a, b), (a.placements, b.placements), out)
+
+
+def matmul_operand(a, b):
+    """``a`` (a DTensor) laid out to multiply the weight ``b`` block by
+    block: cut along its last dim on each mesh dim that cuts ``b``'s rows,
+    whole on each that cuts ``b``'s columns or that cuts ``a``'s last dim
+    under a whole ``b``, and as it is elsewhere (its rows' cut, a partial
+    sum).  Several products of one operand lay it out once."""
+    last = a.ndim - 1
+    want = tuple(Shard(last) if bp.is_shard(0) else
+                 Replicate() if bp.is_shard(1) or ap.is_shard(last) else ap
+                 for ap, bp in zip(a.placements, b.placements))
+    return a if want == a.placements else a.redistribute(a.device_mesh,
+                                                         want)
 
 
 def einsum(equation: str, *operands):
@@ -135,9 +183,13 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x, dtype):
-    h = matmul(x, p.wi.to(dtype))
-    g = matmul(x, p.wg.to(dtype))
-    return matmul(silu(g) * h, p.wo.to(dtype))
+    wi, wg, wo = (weight_use(w, dtype) for w in (p.wi, p.wg, p.wo))
+    if isinstance(x, DTensor):
+        x = matmul_operand(x, wi)
+    h = matmul(x, wi)
+    g = matmul(x, wg)
+    h = shard(silu(g) * h, "batch", "seq", "mlp")
+    return matmul(h, wo)
 
 
 # --------------------------------------------------------------------------
@@ -159,14 +211,25 @@ def embed_apply(p: Embed, tokens, dtype):
     ``F.embedding``, whose backward sums each row's gradients in a fixed
     order on the CPU as on the card: an indexing gather's backward (an
     accumulating ``index_put_``) adds with atomics across CPU threads, and
-    a train step was not bitwise repeatable."""
-    return nn.functional.embedding(tokens, p.embedding).to(dtype)
+    a train step was not bitwise repeatable.  On a mesh each rank looks up
+    the tokens of its block of the vocabulary (``block_take``; the others are
+    zeros, a partial sum), and the annotation point sums them."""
+    w = weight_use(p.embedding)
+    if not isinstance(w, DTensor):
+        return nn.functional.embedding(tokens, w).to(dtype)
+    tokens = replicated_like(tokens, w)
+    out = tuple(Partial() if wp.is_shard(0) else tp
+                for tp, wp in zip(tokens.placements, w.placements))
+    out = local_apply(functools.partial(
+        block_take, nn.functional.embedding, first=block_start(w, 0), dim=0),
+        (tokens, w), (tokens.placements, w.placements), out)
+    return shard(out, "batch", "seq", "act_embed").to(dtype)
 
 
 def unembed_apply(p: Embed, x, dtype, softcap: float = 0.0):
     """Logits in the compute dtype; the embedding's transpose when tied."""
     w = p.unembed if p.unembed is not None else p.embedding.T
-    logits = matmul(x, w.to(dtype))
+    logits = matmul(x, weight_use(w, dtype))
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
-    return logits
+    return shard(logits, "batch", "seq", "vocab")

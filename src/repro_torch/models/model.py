@@ -24,6 +24,12 @@ transformer block, each application of the hybrid's shared block, each
 RWKV block and each Mamba2 layer is one ``torch.utils.checkpoint``.
 ``prefill``, ``decode_step`` and ``init_decode_state`` run under
 ``torch.inference_mode``.
+
+``forward`` of a dense model also runs on a mesh, on DTensor weights (the
+mesh train step): the embedded inputs take the reference's ``("batch",
+"seq", "act_embed")`` annotation, the residual stream keeps that
+placement (each block's attention and MLP outputs are summed into it),
+and the layers compute on each rank's blocks (``models.layers``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,13 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.sharding import (
+    current_mesh,
+    current_rules,
+    match,
+    shard,
+    use_mesh,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
@@ -81,12 +94,23 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 
 def _run(remat: str, fn, *args):
-    """``fn(*args)``, a block of ``forward``, under the policy ``remat``."""
+    """``fn(*args)``, a block of ``forward``, under the policy ``remat``.
+    Under a mesh the block re-enters the caller's mesh and rules each time
+    it runs: its recomputation runs in the backward, which autograd runs on
+    a thread of its own for a CUDA device (``use_mesh`` is per thread)."""
     if remat == "none":
         return fn(*args)
+    mesh = current_mesh()
+    if mesh is not None:
+        fn = functools.partial(_on_mesh, mesh, current_rules(), fn)
     extra = {} if remat == "full" else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_matmuls)}
     return checkpoint(fn, *args, use_reentrant=False, **extra)
+
+
+def _on_mesh(mesh, rules, fn, *args):
+    with use_mesh(mesh, rules):
+        return fn(*args)
 
 
 def resolve_device(device) -> torch.device:
@@ -219,7 +243,7 @@ def _embed_inputs(model: LM, cfg: ModelConfig, batch, dtype):
     if cfg.frontend == "vision_stub":
         img = batch["image_embeds"].to(dtype)
         x = torch.cat([img, x], dim=1)
-    return _scale_embeds(cfg, x, dtype)
+    return shard(_scale_embeds(cfg, x, dtype), "batch", "seq", "act_embed")
 
 
 def _head(model: LM, cfg: ModelConfig, x, dtype):
@@ -250,11 +274,11 @@ def _block(bp: Block, cfg: ModelConfig, x, pos, is_global: bool, mode: str,
         a = attn.attention_decode(bp.attn, cfg, h, cache["k"][slot],
                                   cache["v"][slot], cache["pos"], is_global,
                                   dtype)
-    x, h2 = add_rms_norm(x, a, bp.ln2, cfg.norm_eps)
+    x, h2 = add_rms_norm(x, match(a, x), bp.ln2, cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = bp.mlp(cfg, h2, dtype)
         return x + y, aux
-    return x + mlp_apply(bp.mlp, h2, dtype), None
+    return x + match(mlp_apply(bp.mlp, h2, dtype), x), None
 
 
 def _dense_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,

@@ -20,6 +20,8 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 F32 = torch.float32
 
@@ -47,9 +49,27 @@ def _f32(ts):
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in
-    float32."""
-    norms = torch._foreach_norm(_f32(tree.values()))
-    return torch.sqrt(torch.sum(torch.square(torch.stack(norms))))
+    float32.  A DTensor leaf is the whole tensor: each rank squares its
+    block's norm, and the squares are summed over the ranks holding the
+    leaf's other blocks (one ``all_reduce`` a mesh dim, over the leaves cut
+    along it), so every rank gets the same norm."""
+    leaves = list(tree.values())
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in leaves]
+    squares = torch.square(torch.stack(torch._foreach_norm(_f32(local))))
+    placed = [t for t in leaves if isinstance(t, DTensor)]
+    if placed:
+        mesh = placed[0].device_mesh
+        for d in range(mesh.ndim):
+            if mesh.size(d) == 1:
+                continue
+            cut = [i for i, t in enumerate(leaves) if isinstance(t, DTensor)
+                   and not (t.placements[d].is_replicate()
+                            or t.placements[d].is_partial())]
+            if cut:
+                part = squares[cut]
+                dist.all_reduce(part, group=mesh.get_group(d))
+                squares[cut] = part
+    return torch.sqrt(torch.sum(squares))
 
 
 # leaves updated together: each foreach op's temporaries stay at about this

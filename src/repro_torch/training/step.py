@@ -14,21 +14,33 @@ and returns the state with ``step + 1``; its metrics stay tensors on the
 model's device, and nothing inside the step is read back to the host.
 
 Called under ``distributed.use_mesh(mesh)``, as the reference calls its
-step, the same step runs data parallel over the mesh on a state that
+step, the same step runs over the mesh on a state that
 ``place_train_state`` (or ``Checkpointer.restore(shardings=...)``) laid
 out there: every weight and AdamW moment a DTensor holding this rank's
-block, by the logical rules.  Each rank is given the whole global batch.
-The step gathers each weight once for the forward and the backward; each
-rank takes its block of whole rows of every global microbatch, along the
-batch axes that divide the row count (``microbatch_specs``; microbatch
-``i`` is the same rows as on one device); the losses divide
-by the whole microbatch's token count, so the gradients summed over the
-ranks holding the other blocks are the microbatch's; the norm, the clip
-and the int8 round trip see that whole gradient; AdamW updates each
-rank's blocks.  Ranks along axes that do not shard the batch compute the
-same rows: there is no tensor-parallel compute.  A MoE model on more than
-one batch shard is refused: its capacity-bounded dispatch and its
-load-balance loss read the whole microbatch's tokens.
+block, by the logical rules.  Each rank is given the whole global batch
+and takes its block of whole rows of every microbatch, along the batch
+axes that divide the row count (``microbatch_specs``; microbatch ``i`` is
+the same rows as on one device).  The norm, the clip and the int8 round
+trip see the whole gradient; AdamW updates each rank's blocks.
+
+A dense model (``TP_FAMILIES``) computes on its placed weights, as GSPMD
+partitions the reference: the microbatch enters as a DTensor, each use of
+a weight gathers it along the data-parallel axes only (``"model"`` stays
+cut: tensor-parallel products), the reference's ``shard`` annotations
+place the activations (the residual stream's sequence over ``"model"``),
+and the loss is the whole microbatch's.  The gradients come back in the
+weights' placements (each use's reduce-scatter) and accumulate in float32
+as each rank's blocks: no weight is gathered whole and no gradient
+accumulated whole.
+
+The other families (rwkv6, mamba2, the hybrid and MoE) gather each weight
+once for the forward and the backward and compute their rows on whole
+weights; the losses divide by the whole microbatch's token count, so the
+float32 gradients summed over the ranks holding the other rows are the
+microbatch's.  Ranks along axes that do not shard the batch compute the
+same rows.  A MoE model on more than one batch shard is refused: its
+capacity-bounded dispatch and its load-balance loss read the whole
+microbatch's tokens.
 """
 
 from __future__ import annotations
@@ -38,14 +50,16 @@ import math
 from typing import Callable
 
 import torch
-
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.compression import ef_int8_roundtrip
 from repro_torch.distributed.sharding import (
     NamedSharding,
     current_mesh,
+    current_rules,
     local_block,
+    match,
     mesh_device,
     mesh_sizes,
     resolve_spec,
@@ -62,8 +76,10 @@ from repro_torch.training.optimizer import (
     global_norm,
 )
 
-# the queue item that takes tensor- and expert-parallel compute
-_TP_ITEM = "ROADMAP.md §1 item 5"
+# the queue item that takes expert-parallel compute
+_EP_ITEM = "ROADMAP.md §1 item 5b"
+# the families whose mesh step computes on the placed weights
+TP_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass
@@ -99,8 +115,7 @@ def train_loss(model: LM, cfg: ModelConfig, batch: dict, *,
     logits, aux = forward(model, cfg, batch, remat=remat)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
-        pad = torch.full(labels.shape[:1] + (cfg.num_patches,), IGNORE,
-                         dtype=labels.dtype, device=labels.device)
+        pad = labels.new_full(labels.shape[:1] + (cfg.num_patches,), IGNORE)
         labels = torch.cat([pad, labels], dim=1)
     loss, metrics = cross_entropy_loss(logits, labels, tokens=tokens)
     if cfg.family == "moe" and aux is not None:
@@ -159,13 +174,44 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
             metrics["tokens"] = tokens.to(torch.int32)
         return g_acc, loss_sum, metrics
 
+    def placed_grads(model, batch, specs, mesh):
+        """``grads_of`` on the placed model itself (``TP_FAMILIES``): each
+        microbatch a DTensor of each rank's rows, the loss the whole
+        microbatch's, the float32 gradients accumulated as each rank's
+        blocks and returned as DTensors in the weights' placements."""
+        weights = list(model.parameters())
+        g_acc = [torch.zeros(w.to_local().shape, dtype=torch.float32,
+                             device=w.device) for w in weights]
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=weights[0].device)
+        rows = next(iter(batch.values())).shape[0] // m
+        for i in range(m):
+            mb = {k: NamedSharding(mesh, specs[k]).distribute(
+                v[i * rows:(i + 1) * rows]) for k, v in batch.items()}
+            loss, metrics = train_loss(model, cfg, mb, remat=remat)
+            loss = loss.full_tensor()
+            grads = torch.autograd.grad(loss, weights)
+            # a replicated weight's gradient comes back as partial sums
+            torch._foreach_add_(g_acc, [match(g, w).to_local().to(
+                torch.float32) for g, w in zip(grads, weights)])
+            loss_sum = loss_sum + loss.detach()
+            del grads, loss
+        metrics = {k: v.full_tensor().detach() for k, v in metrics.items()}
+        grads = {n: DTensor.from_local(g, w.device_mesh, w.placements,
+                                       run_check=False, shape=w.shape,
+                                       stride=w.stride())
+                 for (n, w), g in zip(model.named_parameters(),
+                                      torch._foreach_div(g_acc, m))}
+        return grads, loss_sum, metrics
+
     def update(state, grads, loss_sum, metrics, shardings=None):
         if compress_grads:
             grads = {n: ef_int8_roundtrip(g) for n, g in grads.items()}
         params, opt = state.params, state.opt
         gnorm = global_norm(grads)
         if shardings is not None:      # each rank updates its blocks
-            grads = {n: shardings[n].local(g) for n, g in grads.items()}
+            grads = {n: g.to_local() if isinstance(g, DTensor)
+                     else shardings[n].local(g) for n, g in grads.items()}
             with torch.no_grad():
                 params = {n: p.to_local() for n, p in params.items()}
                 opt = AdamWState(opt.step,
@@ -191,13 +237,21 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                              "(place_train_state, or Checkpointer.restore "
                              "with shardings)")
         specs = microbatch_specs(batch, m)
+        if cfg.family in TP_FAMILIES:
+            # the data-parallel axes' flattened sub-mesh: DTensor gathers a
+            # weight along them in one collective
+            _batch_group(mesh, tuple(a for a in mesh.mesh_dim_names if a in
+                                     spec_axes(current_rules()["batch"])))
+            grads, loss_sum, metrics = placed_grads(state.model, batch,
+                                                    specs, mesh)
+            return update(state, grads, loss_sum, metrics, state.shardings)
         axes = spec_axes(specs["tokens"][0])
         shards = math.prod(mesh_sizes(mesh)[a] for a in axes)
         if cfg.family == "moe" and shards > 1:
             raise NotImplementedError(
                 f"a MoE model on {shards} batch shards: its capacity-bounded "
                 f"dispatch and load-balance loss read the whole microbatch's "
-                f"tokens; expert-parallel compute is {_TP_ITEM}")
+                f"tokens; expert-parallel compute is {_EP_ITEM}")
         group = _batch_group(mesh, axes)
         with torch.no_grad():       # each weight gathered once
             full = {n: p.full_tensor() for n, p in state.params.items()}

@@ -32,7 +32,22 @@ written by its checkpointer.  Held:
     port-written one on the JAX package's (4,2) against the port's;
   * every rank's copy of a replicated block bitwise equal to every other's;
   * ``CompressedPsum`` over groups of 2 and 4 ranks against a numpy
-    oracle, and a MoE model on 4 and on 2 batch shards refused.
+    oracle, and a MoE model on 4 and on 2 batch shards refused;
+  * a placed gradient's int8 round trip and norm those of the whole;
+  * the dense mesh step computes on the placed weights: qwen3-smoke's
+    (2,2,2) run above goes through it (its 2 KV heads take "model"), and
+    so does a gemma3-smoke run (one KV head: the query positions take
+    "model"), 2 steps held against gemma3's one-device run and the JAX
+    package's (2,2,2) run at the same bounds; one qwen3 step on (2,2,2) counts at
+    most ``FLOPS_RATIO`` of the FLOPs a rank of the same step through the
+    gather path (``TP_FAMILIES`` emptied), and none of its collectives
+    outputs more than the largest weight's block over "model"; a step on
+    15-token rows, which "model" does not divide (the projections'
+    annotation cuts the fused heads, the logits' the vocabulary), against
+    one device.
+
+And in the test process, on a one-rank ``gloo`` group: every dense smoke
+config's mesh step on the (1,1) mesh bitwise equal to its one-device step.
 
 Then ``launch/train.py`` at 2 ranks under ``COORDINATOR_ADDRESS=file://``
 checkpoints at step 3, resumes at world size 1 and ends within the
@@ -42,7 +57,10 @@ Observed gaps (on a CPU, torch 2.13): the (2,2,2) run's step-4
 loss within 9.3e-8 relative of the one-device run's and of the JAX
 (2,2,2) run's, its parameters within 2.3e-7 and 4.7e-7; the (4,2)
 continuations' losses equal to the one-device and the other package's
-(relative gap 0.0), their parameters within 1.7e-7.  The mesh step sums
+(relative gap 0.0), their parameters within 1.7e-7.  Through the dense
+step (on placed weights): qwen3's (2,2,2) loss equal to the one-device
+run's, its parameters within 3.5e-6 of it; gemma3's loss within 7.9e-8,
+parameters within 2.3e-5 (the step's sums run in other orders).  The mesh step sums
 in another order than one device (each rank's rows, then ``all_reduce``),
 so it is not bitwise; at one rank it is (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).  On the (8, 1) host mesh a microbatch's 4 rows do not
@@ -90,6 +108,16 @@ MOE_MESHES = {"2x2x2": 4, "2x4": 2}
 LAUNCH_FAR = 32
 PSUM_GROUPS = {2: [[0, 1], [2, 3], [4, 5], [6, 7]],
                4: [[0, 1, 2, 3], [4, 5, 6, 7]]}
+# the dense step's FLOPs a rank over the gather path's on (2,2,2): its
+# "model" axis of 2 halves them
+FLOPS_RATIO = 0.6
+# the second dense arch of the spawn (one KV head) and the rows that
+# "model" does not divide
+KV1_ARCH = "gemma3-1b"
+KV1_STEPS = 2
+ODD_SEQ = 15
+DENSE_ARCHS = ("qwen3-14b", "gemma3-1b", "smollm-135m", "h2o-danube-3-4b",
+               "pixtral-12b", "musicgen-large")
 
 
 def _wait_for(path: Path, deadline: float) -> None:
@@ -134,6 +162,13 @@ def _jax_side(tmp: Path) -> None:
             out[f"{tag}|param|0/{k}"] = np.asarray(v)
 
     meshes = {n: make_mesh(*MESHES[n]) for n in MESHES}
+    kv1 = dataclasses.replace(get_smoke_config(KV1_ARCH), dtype="float32")
+    kv1_state = Checkpointer(tmp / "init_kv1").restore(
+        like=init_train_state(abstract_params(kv1)[0]))
+    kv1_pipe = TokenPipeline(vocab_size=kv1.vocab_size, seq_len=16,
+                             global_batch=8, seed=42)
+    keep("jax222|kv1", *run_steps(kv1, meshes["2x2x2"], kv1_state, kv1_pipe,
+                                  KV1_STEPS))
     s, m = run_steps(cfg, meshes["2x2x2"], state0, pipe, STEPS)
     keep("jax222", s, m)
     Checkpointer(tmp / "jax_ckpt").save(STEPS, s, async_=False)
@@ -173,10 +208,9 @@ def _jax_side(tmp: Path) -> None:
 # ---------------------------------------------------------------------------
 # the port side: one spawn of 8 ranks
 # ---------------------------------------------------------------------------
-def _port_config():
+def _port_config(arch: str = "qwen3-14b"):
     from repro_torch.configs import get_smoke_config
-    return dataclasses.replace(get_smoke_config("qwen3-14b"),
-                               dtype="float32")
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
 
 
 def _port_step(cfg):
@@ -185,9 +219,9 @@ def _port_step(cfg):
                             total_steps=50, remat="none")
 
 
-def _pipe(cfg):
+def _pipe(cfg, seq_len: int = 16):
     from repro_torch.data import TokenPipeline
-    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=16,
+    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq_len,
                          global_batch=8, seed=42)
 
 
@@ -260,6 +294,42 @@ def _port_worker(rank: int, tmp: str) -> None:
         return state, metrics
 
     init = Checkpointer(tmp / "init")
+    # gemma3-smoke through the dense step on (2,2,2)
+    kv1 = _port_config(KV1_ARCH)
+    kv1_like = tt.init_train_state(LM(kv1, "meta"))
+    s = Checkpointer(tmp / "init_kv1").restore(
+        like=kv1_like, shardings=state_shardings(kv1, meshes["2x2x2"]))
+    kv1_pipe, kv1_step = _pipe(kv1), _port_step(kv1)
+    for i in range(KV1_STEPS):
+        with use_mesh(meshes["2x2x2"]):
+            s, m = kv1_step(s, kv1_pipe.torch_batch(i, "cpu"))
+    keep("port222|kv1", s, m)
+
+    # one qwen3 step counted, through the dense step and the gather path
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.training import step as tstep
+    paths = tstep.TP_FAMILIES
+    for tag, families in (("tp", paths), ("dp", ())):
+        tstep.TP_FAMILIES = families
+        s = init.restore(like=like,
+                         shardings=state_shardings(cfg, meshes["2x2x2"]))
+        with FlopCounterMode(display=False) as flops, \
+                dr.CollectiveMode() as comm, use_mesh(meshes["2x2x2"]):
+            step(s, pipe.torch_batch(0, "cpu"))
+        out[f"flops|{tag}"] = np.asarray(flops.get_total_flops())
+        out[f"largest_collective|{tag}"] = np.asarray(
+            max(n for _, n in comm.records))
+    tstep.TP_FAMILIES = paths
+
+    # 15-token rows: "model" cuts the fused heads and the vocabulary
+    s = init.restore(like=like,
+                     shardings=state_shardings(cfg, meshes["2x2x2"]))
+    with use_mesh(meshes["2x2x2"]):
+        s, m = step(s, _pipe(cfg, ODD_SEQ).torch_batch(0, "cpu"))
+    keep("port222|odd", s, m)
+
     whole0 = init.restore(like=like, shardings=torch.device("cpu"))
     s = init.restore(like=like, shardings=state_shardings(
         cfg, meshes["2x2x2"], {**LOGICAL_RULES, **OVERRIDE}))
@@ -291,6 +361,24 @@ def _port_worker(rank: int, tmp: str) -> None:
     s = init.restore(like=like, shardings=state_shardings(cfg, host))
     s, m = run(s, host, 0, STEPS)
     keep("port81", s, m)
+
+    # the whole gradient's int8 round trip and norm from the blocks
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import ef_int8_roundtrip
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.training.optimizer import global_norm
+    gen = torch.Generator().manual_seed(5)
+    whole = {"a": torch.randn(16, 8, generator=gen),
+             "b": torch.randn(12, generator=gen) * 3}
+    cut = {"a": (("pod", "data"), "model"), "b": (None,)}
+    placed = {n: distribute_tensor(t, meshes["2x2x2"], placements(
+        cut[n], meshes["2x2x2"])) for n, t in whole.items()}
+    out["int8|same"] = np.asarray(all(torch.equal(
+        ef_int8_roundtrip(placed[n]).full_tensor(), ef_int8_roundtrip(t))
+        for n, t in whole.items()))
+    out["norm|placed"] = global_norm(placed).numpy()
+    out["norm|whole"] = global_norm(whole).numpy()
 
     # CompressedPsum over groups of 2 and 4 ranks, two rounds each
     for size, enum in PSUM_GROUPS.items():
@@ -357,9 +445,10 @@ def runs(tmp_path_factory):
     from repro_torch.models import LM
 
     tmp = tmp_path_factory.mktemp("dlm")
-    jcfg = dataclasses.replace(jsmoke("qwen3-14b"), dtype="float32")
-    JCheckpointer(tmp / "init").save(0, jinit_state(jinit_params(
-        jax.random.PRNGKey(0), jcfg)[0]), async_=False)
+    for arch, d in (("qwen3-14b", "init"), (KV1_ARCH, "init_kv1")):
+        jcfg = dataclasses.replace(jsmoke(arch), dtype="float32")
+        JCheckpointer(tmp / d).save(0, jinit_state(jinit_params(
+            jax.random.PRNGKey(0), jcfg)[0]), async_=False)
     # one thread a device, a rank and a process: the file runs beside the
     # other test files' workers
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
@@ -383,7 +472,7 @@ def runs(tmp_path_factory):
         like = tt.init_train_state(LM(cfg, "meta"))
         one: dict = {}
 
-        def run(state, start, n, tag):
+        def run(state, start, n, tag, step=step, pipe=pipe):
             for i in range(start, start + n):
                 state, metrics = step(state, pipe.torch_batch(i, "cpu"))
             one[f"{tag}|loss"] = np.asarray(float(metrics["loss"]))
@@ -395,6 +484,12 @@ def runs(tmp_path_factory):
         cpu = torch.device("cpu")
         run(Checkpointer(tmp / "init").restore(like=like, shardings=cpu), 0,
             STEPS, "one")
+        run(Checkpointer(tmp / "init").restore(like=like, shardings=cpu), 0,
+            1, "one|odd", pipe=_pipe(cfg, ODD_SEQ))
+        kv1 = _port_config(KV1_ARCH)
+        run(Checkpointer(tmp / "init_kv1").restore(
+            like=tt.init_train_state(LM(kv1, "meta")), shardings=cpu), 0,
+            KV1_STEPS, "one|kv1", step=_port_step(kv1), pipe=_pipe(kv1))
         while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
             if time.monotonic() > deadline:
                 for p in ctx.processes:
@@ -482,6 +577,49 @@ def test_the_mesh_run_matches_the_jax_mesh_run(runs):
     _close_params(_params(port[0], "port222"), _params(jax_out, "jax222"))
 
 
+def test_the_dense_step_with_one_kv_head_matches_both_runs(runs):
+    """gemma3-smoke on (2,2,2): its one KV head cannot take "model", so
+    the scores' annotation cuts the query positions."""
+    jax_out, port, one, _ = runs
+    for want in (one["one|kv1|loss"], jax_out["jax222|kv1|loss"]):
+        np.testing.assert_allclose(port[0]["port222|kv1|loss"], want,
+                                   rtol=LOSS_RTOL)
+    _close_params(_params(port[0], "port222|kv1"), _params(one, "one|kv1"))
+    _close_params(_params(port[0], "port222|kv1"),
+                  _params(jax_out, "jax222|kv1"))
+
+
+def test_the_dense_step_divides_the_flops_by_model(runs):
+    _, port, _, _ = runs
+    for out in port:
+        tp, dp = int(out["flops|tp"]), int(out["flops|dp"])
+        assert 0 < tp <= FLOPS_RATIO * dp, (tp, dp)
+
+
+def test_no_collective_outputs_more_than_a_weights_model_block(runs):
+    """The dense step gathers each weight along the data-parallel axes
+    only: no collective's output is larger than the largest weight's
+    block over "model" (the gather path's whole embedding is)."""
+    from repro_torch.models import LM
+    _, port, _, _ = runs
+    cfg = _port_config()
+    block = max(w.numel() * 4 // 2 for w in LM(cfg, "meta").parameters())
+    for out in port:
+        assert 0 < int(out["largest_collective|tp"]) <= block
+        assert int(out["largest_collective|dp"]) > block
+
+
+def test_rows_that_model_does_not_divide(runs):
+    """15-token rows on (2,2,2): the residual stream stays whole along
+    "model", the fused heads are gathered before they are split, the
+    logits are cut along the vocabulary (the loss's log-sum-exp and gold
+    logit taken block by block); one step against one device."""
+    _, port, one, _ = runs
+    np.testing.assert_allclose(port[0]["port222|odd|loss"],
+                               one["one|odd|loss"], rtol=LOSS_RTOL)
+    _close_params(_params(port[0], "port222|odd"), _params(one, "one|odd"))
+
+
 def test_rows_that_do_not_divide_by_the_batch_shards(runs):
     """On the (8, 1) host mesh a microbatch's 4 rows stay whole on every
     rank: the run is the one-device run's."""
@@ -538,6 +676,21 @@ def test_replicated_blocks_are_bitwise_equal_on_every_rank(runs, tag,
     assert replicas > 0
 
 
+def test_int8_round_trip_and_norm_of_a_placed_gradient(runs):
+    """On (2,2,2), a leaf cut over ("pod", "data") and "model" and a
+    replicated one: the int8 round trip of each rank's block takes the
+    whole tensor's scale (bitwise the whole tensor's round trip), and the
+    norm of the blocks is the whole tree's on every rank (float32, summed
+    in another order)."""
+    _, port, _, _ = runs
+    for out in port:
+        assert bool(out["int8|same"])
+        np.testing.assert_allclose(out["norm|placed"], out["norm|whole"],
+                                   rtol=1e-6)
+        assert out["norm|placed"].tobytes() == \
+            port[0]["norm|placed"].tobytes()
+
+
 @pytest.mark.parametrize("size", sorted(PSUM_GROUPS))
 def test_compressed_psum_matches_a_numpy_oracle(runs, size):
     """Each rank sends q·scale of ``g + r``; the group sums the payloads;
@@ -572,6 +725,86 @@ def test_moe_on_more_than_one_batch_shard_is_refused(runs, mesh):
         msg = str(out[f"moe_refused|{mesh}"])
         assert f"{MOE_MESHES[mesh]} batch shards" in msg
         assert "ROADMAP.md §1 item 5" in msg
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_one_rank_mesh_step_is_bitwise_the_one_device_step(arch, tmp_path):
+    """Each dense smoke config (in its bfloat16) on the (1,1) mesh of a
+    one-rank ``gloo`` group: a step of 2 microbatches under
+    ``remat="full"`` with the int8 round trip, every weight and moment
+    bitwise the one-device step's.  Every DTensor op is then local."""
+    _one_rank_against_one_device(arch, tmp_path)
+
+
+def test_a_backward_on_its_own_thread_recomputes_on_the_mesh(tmp_path,
+                                                             monkeypatch):
+    """On a card autograd runs the backward on a thread of its own, where
+    the caller's ``use_mesh`` is not set, and a block under remat is
+    recomputed there: ``torch.autograd.grad`` moved to a new thread, the
+    one-rank mesh step stays bitwise the one-device step."""
+    import threading
+    grad = torch.autograd.grad
+
+    def on_a_thread(*args, **kwargs):
+        out = []
+        t = threading.Thread(target=lambda: out.append(grad(*args,
+                                                            **kwargs)))
+        t.start()
+        t.join(timeout=TIMEOUT_S)
+        assert not t.is_alive() and out, "the backward failed on its thread"
+        return out[0]
+
+    monkeypatch.setattr(torch.autograd, "grad", on_a_thread)
+    _one_rank_against_one_device("h2o-danube-3-4b", tmp_path)
+
+
+def _one_rank_against_one_device(arch: str, tmp_path) -> None:
+    import torch.distributed as dist
+
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    cfg = get_smoke_config(arch)
+    pipe = _pipe(cfg)
+    step = tt.build_train_step(cfg, microbatches=2, base_lr=5e-3, warmup=2,
+                               total_steps=50, remat="full",
+                               compress_grads=True)
+
+    def batch(i):
+        b = pipe.torch_batch(i, "cpu")
+        if cfg.frontend == "vision_stub":
+            b["image_embeds"] = torch.randn(
+                8, cfg.num_patches, cfg.d_model,
+                generator=torch.Generator().manual_seed(i))
+        return b
+
+    def fresh():
+        return tt.init_train_state(tm.init_params(cfg, seed=0,
+                                                  device="cpu"))
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_auto_mesh((1, 1), ("data", "model"), device_type="cpu")
+        placed = tt.place_train_state(fresh(), state_shardings(cfg, mesh))
+        local = fresh()
+        with use_mesh(mesh):
+            placed, pm = step(placed, batch(0))
+        local, lm = step(local, batch(0))
+        assert all(torch.equal(pm[k], lm[k]) for k in lm), (pm, lm)
+        for part in ("params", "m", "v"):
+            got = (placed.params if part == "params"
+                   else getattr(placed.opt, part))
+            want = (local.params if part == "params"
+                    else getattr(local.opt, part))
+            for n, w in want.items():
+                assert torch.equal(got[n].full_tensor(), w), (part, n)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_the_launcher_on_two_ranks_resumes_on_one(tmp_path):

@@ -23,10 +23,15 @@ Held:
     through ``run_cell``;
   * at one rank, a traced mesh step's FLOPs equal a real CPU step's
     ``FlopCounterMode`` count (dense, MoE, rwkv6), and its collectives are
-    one-rank sums only;
+    one-rank sums only (none for the dense step);
   * a smoke mesh step's collectives on 8 and 512 fake ranks, op for op and
-    byte for byte, as worked out from the placements and the microbatch
-    count;
+    byte for byte, as worked out from the placements, the shapes and the
+    microbatch count: the rwkv6 step's (weights gathered whole, gradients
+    all-reduced) and the dense step's (weights gathered along the
+    data-parallel axes per use, gradients reduce-scattered, the
+    activations' tensor- and sequence-parallel moves);
+  * each dense smoke train cell's peak a rank on 512 fake ranks below the
+    data-parallel step's (the dense step with ``TP_FAMILIES`` emptied);
   * the MoE ``train_4k`` cells listed as failures with the mesh step's
     ``NotImplementedError``, and ``main`` exiting 1.
 
@@ -79,6 +84,7 @@ from repro_torch.launch.inputs import abstract_cache, input_specs
 from repro_torch.launch.mesh import make_auto_mesh, make_production_mesh
 from repro_torch.models import LM, decode_state_specs
 from repro_torch.models.config import ModelConfig
+from repro_torch.training import step as tstep
 from repro_torch.training.step import param_shardings
 
 REPO = Path(__file__).resolve().parents[1]
@@ -404,10 +410,13 @@ def test_one_rank_trace_flops_match_a_real_cpu_step(family):
         mesh = make_auto_mesh((1, 1), ("data", "model"), device_type="cpu")
         traced = dr.lower_train_cell(cfg, cell, mesh)
         want = _expected_collectives(cfg, cell, mesh)
-    # one-rank sums only: a size-1 mesh dim gathers nothing
+    # one-rank sums only: a size-1 mesh dim gathers nothing (and DTensor
+    # moves nothing along one)
     assert traced["collective_ops"] == want.pop("ops")
     assert traced["collective_bytes"] == want
     assert want["all-gather"] == 0
+    if family == "dense":
+        assert not any(want.values())
 
     rng = np.random.default_rng(0)
     batch = {}
@@ -426,8 +435,17 @@ def test_one_rank_trace_flops_match_a_real_cpu_step(family):
 # collectives
 # --------------------------------------------------------------------------
 def _expected_collectives(cfg, cell, mesh) -> dict:
-    """The mesh step's collectives from the placements and the microbatch
-    count: each weight gathered whole, one ``all_gather_into_tensor`` a run
+    """The mesh step's collectives: the dense step's
+    (``_tp_step_collectives``) or the gather path's."""
+    if cfg.family in tstep.TP_FAMILIES:
+        return _tp_step_collectives(cfg, cell, mesh)
+    return _gather_step_collectives(cfg, cell, mesh)
+
+
+def _gather_step_collectives(cfg, cell, mesh) -> dict:
+    """The gather path's collectives (every family but ``TP_FAMILIES``)
+    from the placements and the microbatch count: each weight gathered
+    whole, one ``all_gather_into_tensor`` a run
     of adjacent mesh dims that shard the same tensor dim (DTensor gathers
     such a run over its flattened group at once), innermost run first,
     each output the block grown by the runs gathered so far (a run of size
@@ -469,10 +487,164 @@ def _expected_collectives(cfg, cell, mesh) -> dict:
     return out
 
 
+def _tp_step_collectives(cfg, cell, mesh) -> dict:
+    """The dense mesh step's collectives (``remat="full"``, a tokens-only
+    model whose sequence and projections divide by "model"), worked out
+    from the placements and the shapes.  A collective along a mesh dim of
+    size 1 is none; a move of a shard from one tensor dim to another is
+    an all-to-all of the block (``a2a`` below; the dry run traces the
+    card's route).  Per microbatch of R rows a rank, sequence s, compute
+    dtype of c bytes:
+
+      * weights: each use (each block's weights twice: the forward and its
+        recomputation) gathers the weight's "model" block along the
+        data-parallel axes in one all-gather (the embedding in float32,
+        the others cast first); the backward reduce-scatters the use's
+        gradient along each of those axes in turn, outermost first; a
+        replicated weight (the norms) all-reduces its gradient along every
+        mesh dim that cuts the activations;
+      * activations, on "model": the residual stream [R, s/m, d] is
+        gathered into each block's attention and MLP (and the head) and
+        their partial outputs reduce-scattered back; the projections'
+        ``("batch", "seq", "heads_fused")`` point and the MLP hidden's
+        ``("batch", "seq", "mlp")`` move their outputs from the cut heads
+        (or hidden dim) to the cut sequence, and the MLP's and the output
+        projection's products move them back; the scores' point cuts the
+        KV heads (q, k and v moved there) where they divide by "model",
+        else the query positions (k and v gathered); the logits move from
+        the cut vocabulary to the cut sequence.  The backward mirrors
+        each move (a gather's is a reduce-scatter and back, a move's a
+        move).  The recomputation stops after the block's last op that
+        saves a tensor, before the MLP's reduce-scatter;
+      * the loss: the token count summed over the row-cutting axes for the
+        denominator and for its metric, the loss made whole over every
+        cutting axis, and the last microbatch's ``ce`` and ``zloss`` too
+        (one all-reduce a mesh dim, the data-parallel axes' flattened group
+        in one where exactly they are summed over);
+      * the gradient norm: one ``allreduce_`` a mesh dim of the squares of
+        the leaves it cuts."""
+    from repro_torch.distributed.sharding import resolve_spec, use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.training.step import microbatch_specs
+
+    micro = cell.global_batch // cell.microbatch
+    sizes = dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+    names = list(mesh.mesh_dim_names)
+    m = sizes.get("model", 1)
+    data = [a for a in names if a in ("pod", "data") and sizes[a] > 1]
+    with use_mesh(mesh):
+        spec = microbatch_specs(input_specs(cfg, cell), micro)["tokens"]
+        rows_axes = [a for a in dr.spec_axes(spec[0]) if sizes[a] > 1]
+        scores = resolve_spec(
+            (cell.microbatch, cfg.n_kv_heads,
+             cfg.n_heads // cfg.n_kv_heads, cell.seq_len, cell.seq_len),
+            ("batch", "kv_heads", None, "q_seq", None))
+    r = cell.microbatch // math.prod(sizes[a] for a in rows_axes)
+    s, d, V, ff = cell.seq_len, cfg.d_model, cfg.vocab_size, cfg.d_ff
+    q_w, kv_w = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    c = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    out = dict.fromkeys(dr.KINDS, 0)
+    ops = dict.fromkeys(dr.KINDS, 0)
+
+    def add(kind, nbytes, n=1):
+        out[kind] += n * nbytes
+        ops[kind] += n
+
+    def a2a(nbytes, n=1):
+        """A move of a tensor of ``nbytes`` bytes between two of its
+        dims cut along "model": each rank's block in, its new block out."""
+        add("all-to-all", nbytes // m, n)
+
+    def summed(axes, nbytes, n=1):
+        """A partial sum over ``axes`` made whole."""
+        live = [a for a in axes if sizes[a] > 1]
+        k = 1 if len(data) > 1 and live == data else len(live)
+        add("all-reduce", nbytes, n * k)
+
+    by_name = param_shardings(LM(cfg, "meta"), state_shardings(cfg, mesh)[0])
+    weights = dict(LM(cfg, "meta").named_parameters())
+    cut_axes = {}
+    for name, sh in by_name.items():
+        cut_axes[name] = [a for a, p in zip(names, sh.placements)
+                          if not p.is_replicate() and sizes[a] > 1]
+        w = weights[name]
+        if w.dim() == 1:                     # a norm, replicated
+            summed(rows_axes + (["model"] if m > 1 else []),
+                   4 * w.numel(), micro)
+            continue
+        block = w.numel() // (m if "model" in cut_axes[name] else 1)
+        nbytes = 4 if name == "embed.embedding" else c
+        uses = 2 if name.startswith("layers.") else 1
+        if any(a in data for a in cut_axes[name]):
+            add("all-gather", block * nbytes, uses * micro)
+        for a in data:
+            if a in cut_axes[name]:
+                block //= sizes[a]
+                add("reduce-scatter", block * nbytes, micro)
+
+    if m > 1:
+        assert cfg.frontend == "tokens" and s % m == 0
+        assert all("model" in cut_axes[f"layers.0.attn.{w}"]
+                   for w in ("wq", "wk", "wv", "wo"))
+        heads_cut = scores[1] == "model"
+        assert heads_cut or scores[3] == "model"
+        res, res_m = r * s * d * c, r * s // m * d * c
+        qb, kvb = r * s * q_w * c, r * s * kv_w * c
+        fb = r * s * ff * c
+
+        def qkv(n):
+            a2a(qb, n)
+            a2a(kvb, 2 * n)
+
+        # the embedding's partial rows into the residual, and back
+        add("reduce-scatter", r * s // m * d * 4, micro)
+        add("all-gather", r * s * d * 4, micro)
+        for _ in range(cfg.n_layers):
+            for recompute in (False, True):
+                add("all-gather", res, 2 * micro)          # block inputs
+                qkv(micro)                                 # their points
+                if heads_cut:
+                    qkv(micro)
+                else:
+                    add("all-gather", kvb, 2 * micro)      # k, v whole
+                    a2a(qb, micro)                         # out → heads
+                a2a(fb, 2 * micro)                         # mlp point
+                add("reduce-scatter", res_m, (1 if recompute else 2) * micro)
+            # the backward
+            add("reduce-scatter", res_m, 2 * micro)
+            qkv(micro)
+            if heads_cut:
+                qkv(micro)
+            else:
+                add("reduce-scatter", r * s // m * kv_w * c, 2 * micro)
+                a2a(qb, micro)
+            add("all-gather", res, 2 * micro)
+            a2a(fb, 2 * micro)
+        # the head: its input gathered, the logits moved; and back
+        add("all-gather", res, micro)
+        a2a(r * s * V * c, 2 * micro)
+        add("reduce-scatter", res_m, micro)
+    loss_axes = rows_axes + (["model"] if m > 1 else [])
+    summed(rows_axes, 4, 2 * micro)
+    summed(loss_axes, 4, micro + 2)
+    for a in names:
+        n = sum(a in cut for cut in cut_axes.values())
+        if n:
+            add("all-reduce", 4 * n)
+    out["ops"] = ops
+    return out
+
+
+# (4, 2): qwen3-smoke's 2 KV heads take "model" (the scores' point cuts
+# the heads); on the others the query positions do
+@pytest.mark.parametrize("family", ["dense", "rwkv6"])
 @pytest.mark.parametrize("shape,axes", [SMOKE_MESH, ((2, 16, 16), (
-    "pod", "data", "model"))], ids=["8", "512"])
-def test_mesh_step_collectives_follow_the_placements(shape, axes):
-    cfg = get_smoke_config(SMOKE_ARCH)
+    "pod", "data", "model")), ((4, 2), ("data", "model"))],
+    ids=["8", "512", "8-heads"])
+def test_mesh_step_collectives_follow_the_placements(shape, axes, family):
+    cfg = get_smoke_config(SMOKE_ARCH if family == "dense"
+                           else FAMILIES[family])
+    assert cfg.family == family
     with dr.fake_world(math.prod(shape)):
         mesh = make_auto_mesh(shape, axes, device_type="cpu")
         got = dr.lower_train_cell(cfg, SMOKE_CELL, mesh)
@@ -481,6 +653,29 @@ def test_mesh_step_collectives_follow_the_placements(shape, axes):
     assert got["collective_bytes"] == want
     assert got["collective_ops"]["all-gather"] > 0
     assert got["collective_ops"]["all-reduce"] > 2
+    if family == "dense":
+        assert got["collective_ops"]["reduce-scatter"] > 0
+
+
+DENSE_ARCHS = [a for a in ARCHS if get_smoke_config(a).family == "dense"]
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_train_cell_peak_is_below_the_data_parallel_steps(
+        arch, monkeypatch):
+    """The smoke train cell on the (2, 16, 16) production mesh: each rank's
+    peak under the dense step below the same cell's under the gather path
+    (``TP_FAMILIES`` emptied), which gathers every weight whole and keeps a
+    whole float32 gradient accumulator."""
+    cfg = get_smoke_config(arch)
+    peaks = {}
+    for tag, families in (("tp", tstep.TP_FAMILIES), ("dp", ())):
+        monkeypatch.setattr(tstep, "TP_FAMILIES", families)
+        with dr.fake_world(512):
+            mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+            peaks[tag] = dr.lower_train_cell(
+                cfg, SMOKE_CELL, mesh)["memory"]["peak_bytes"]
+    assert 0 < peaks["tp"] < peaks["dp"], peaks
 
 
 # --------------------------------------------------------------------------
