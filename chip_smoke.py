@@ -250,10 +250,14 @@ profiled (wall and device ms, idle share, kernels, host op events).
 ``lm_dist_gather``: the same on the gather path (the mesh step of every
 family but the dense one: whole weights gathered once a step, gradients
 all-reduced), rwkv6-1.6b at full width with 2 layers (``LM_DIST_GATHER``),
-bitwise the one-device step.  ``lm_dist_launcher``: the launcher as rank 0 of 1 under
-``COORDINATOR_ADDRESS`` (a ``file://`` rendezvous) once uninterrupted,
-once SIGKILLed when ``step_3`` appears and restarted; the resumed run's
-final checkpoint bitwise the uninterrupted one's.  ``lm_dist_multi``:
+bitwise the one-device step, and again for Moonlight at full width with
+2 layers (``LM_DIST_MOE``; its MoE layers on one row block), with its
+``dropped_frac`` on both runs, the mesh run's state held on the host
+while the one-device run's is on the card.  ``lm_dist_launcher``: the
+launcher as rank 0 of 1 under ``COORDINATOR_ADDRESS`` (a ``file://``
+rendezvous) once uninterrupted, once SIGKILLed when ``step_3`` appears
+and restarted; the resumed run's final checkpoint bitwise the
+uninterrupted one's.  ``lm_dist_multi``:
 with ``LM_DIST_MULTI["ranks"]`` cards, that many NCCL ranks on a (2, 2)
 data × model mesh, float32, each of ``LM_DIST_MULTI_CASES`` against one
 rank within ``tests/helpers/distributed_lm_check.py``'s bounds, with step
@@ -261,8 +265,11 @@ ms, the collectives of a step by op and a profiled step (device and NCCL
 ms, host op events): smollm-135m through the dense step
 (tensor-parallel products over "model"; its 3 KV heads do not divide by
 2, so its attention cuts the query positions) and through the gather
-path, and rwkv6-1.6b at 2 layers through the gather path; with fewer
-cards a line saying it did not run and why.  Counts set to 0
+path, rwkv6-1.6b at 2 layers through the gather path, and Moonlight at
+2 layers through the gather path on 2 batch shards (its capacity,
+first-come positions and load balance over both shards' rows; both runs'
+``dropped_frac`` and whether any token dropped); with fewer cards a line
+saying it did not run and why.  Counts set to 0
 before the phase and read after: ``lm_dist_launches`` (0, checked).
 ``lm_dryrun``: the dry run.  ``lm_dryrun_cli``: ``python -m
 repro_torch.launch.dryrun`` on smollm-135m's ``decode_32k`` on both
@@ -2940,14 +2947,23 @@ LM_DIST = {"arch": "smollm-135m", "global_batch": 8, "seq_len": 256,
 # at full width, its depth cut to lm_train's 2 layers, LM_DIST's traffic
 # for 3 steps
 LM_DIST_GATHER = {"arch": "rwkv6-1.6b", "n_layers": 2, "steps": 3}
+# MoE on the gather path: Moonlight at full width, 2 of its 48 layers as
+# LM_TRAIN_FAMILIES takes it, LM_DIST's traffic for 3 steps (2,048 tokens
+# a microbatch: capacity 240 a layer); its 22 GB state is held on the host
+# while the one-device run's is on the card
+LM_DIST_MOE = {"arch": "moonshot-v1-16b-a3b", "n_layers": 2, "steps": 3}
 LM_DIST_MULTI = {"ranks": 4, "mesh": (2, 2), "axes": ("data", "model"),
                  "steps": 3, "timeout_s": 600}
 # the (2, 2) cases: the launcher's model through its own (dense) step and,
 # for comparison, through the gather path (TP_FAMILIES emptied in the
-# ranks), and the gather path's own family at LM_DIST_GATHER's depth
+# ranks), the gather path's own family at LM_DIST_GATHER's depth, and
+# Moonlight at LM_DIST_MOE's on 2 batch shards (each MoE layer's capacity,
+# first-come positions and load balance over both shards' rows)
 LM_DIST_MULTI_CASES = (("smollm-135m", None, "dense"),
                        ("smollm-135m", None, "gather"),
                        (LM_DIST_GATHER["arch"], LM_DIST_GATHER["n_layers"],
+                        "gather"),
+                       (LM_DIST_MOE["arch"], LM_DIST_MOE["n_layers"],
                         "gather"))
 LM_DIST_LOSS_RTOL = 1e-4
 LM_DIST_PARAM_RTOL, LM_DIST_PARAM_ATOL = 2e-3, 2e-4
@@ -2973,13 +2989,16 @@ def lm_whole(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST) -> dict:
+def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST, offload=False) -> dict:
     """``cfg``'s mesh step at world size 1 (inside ``nccl_world``): the
     state placed on the (1, 1) host mesh by the logical rules, ``t``'s
     steps timed, then the same steps on one device from the same weights;
-    every tensor of the two final states and every loss bitwise equal.
-    Returns the line's numbers and, under ``"run"``, what a caller goes on
-    with (the mesh step, the one-device step, both states, the batches)."""
+    every tensor of the two final states and every loss (and a MoE
+    model's last ``dropped_frac``) bitwise equal.  With ``offload`` the
+    mesh run's final state is copied to the host and freed before the
+    one-device run.  Returns the line's numbers and, under ``"run"``, what
+    a caller goes on with (the mesh step, the one-device step, both states
+    (the mesh run's None with ``offload``), the batches)."""
     from repro_torch import models as tm
     from repro_torch import training as tt
     from repro_torch.distributed import use_mesh
@@ -2993,9 +3012,16 @@ def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    last = {}
+
     def mesh_step(state, batch):
         with use_mesh(mesh):
-            return step(state, batch)
+            state, last["mesh"] = step(state, batch)
+        return state, last["mesh"]
+
+    def local_step(state, batch):
+        state, last["local"] = step(state, batch)
+        return state, last["local"]
 
     placed, mesh_ms, mesh_losses, _ = lm_train_steps(
         torch, mesh_step, placed, batches, t["steps"])
@@ -3004,18 +3030,31 @@ def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST) -> dict:
         x.numel() * x.element_size() for x in (
             y.to_local() if hasattr(y, "to_local") else y
             for y in lm_state_tensors(placed)))
+    got = lm_state_tensors(placed)
+    if offload:
+        got = [lm_whole(a).detach().cpu() for a in got]
+        placed = None
+        torch.cuda.empty_cache()
     _, _, local = lm_dist_setup(torch, tm, tt, cfg, dev, t)
     local, local_ms, local_losses, _ = lm_train_steps(
-        torch, step, local, batches, t["steps"])
-    got, want = lm_state_tensors(placed), lm_state_tensors(local)
+        torch, local_step, local, batches, t["steps"])
+    want = lm_state_tensors(local)
     check(len(got) == len(want) and all(
-        lm_bitwise(torch, lm_whole(a), b) for a, b in zip(got, want)),
+        lm_bitwise(torch, lm_whole(a), b.to(a.device))
+        for a, b in zip(got, want)),
         f"lm dist: {cfg.name}'s mesh step at world size 1 is not bitwise "
         f"the one-device step")
     check(mesh_losses == local_losses, f"lm dist: {cfg.name}'s losses "
           f"{mesh_losses} on the mesh, {local_losses} on one device")
+    dropped = {}
+    if "dropped_frac" in last["local"]:
+        dropped = {"dropped_frac": float(last["mesh"]["dropped_frac"]),
+                   "one_device_dropped_frac": float(
+                       last["local"]["dropped_frac"])}
+        check(dropped["dropped_frac"] == dropped["one_device_dropped_frac"],
+              f"lm dist: {cfg.name}'s dropped_frac {dropped}")
     del got, want
-    return {
+    return {**dropped,
         "mesh": mesh_sizes(mesh), "world_size": 1, "backend": "nccl",
         "losses": mesh_losses, "mesh_step_ms": mesh_ms,
         "local_step_ms": local_ms,
@@ -3074,21 +3113,22 @@ def lm_dist_step_line(torch, card, dev) -> dict:
             "counted_step": counted, **card}
 
 
-def lm_dist_gather_line(torch, card, dev) -> dict:
-    """``lm_dist_one_rank`` of ``LM_DIST_GATHER``'s model (a family the
-    dense step does not take) at ``LM_DIST``'s traffic: the gather path's
-    mesh step bitwise the one-device step on the card."""
+def lm_dist_gather_line(torch, card, dev, g=LM_DIST_GATHER,
+                        offload=False) -> dict:
+    """``lm_dist_one_rank`` of ``g``'s model (a family the dense step does
+    not take; ``LM_DIST_GATHER``'s or ``LM_DIST_MOE``'s) at ``LM_DIST``'s
+    traffic: the gather path's mesh step bitwise the one-device step on
+    the card."""
     import dataclasses
 
     from repro_torch import training as tt
     from repro_torch.configs import get_config
-    g = LM_DIST_GATHER
     full = get_config(g["arch"])
     cfg = dataclasses.replace(full, n_layers=g["n_layers"])
     check(lm_step_path(tt, cfg) == "gather",
           f"lm dist: {cfg.name} no longer takes the gather path")
     t = {**LM_DIST, "steps": g["steps"]}
-    line = lm_dist_one_rank(torch, cfg, dev, t)
+    line = lm_dist_one_rank(torch, cfg, dev, t, offload)
     del line["run"]
     torch.cuda.empty_cache()
     return {"lm_dist_gather": cfg.name, "family": cfg.family,
@@ -3197,7 +3237,7 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
                 with use_mesh(mesh):
                     return step(s, batch)
 
-            ms, losses = [], []
+            ms, losses, dropped = [], [], []
             for b in batches:
                 dist.barrier()
                 torch.cuda.synchronize()
@@ -3206,6 +3246,7 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(metrics["loss"]))
+                dropped.append(float(metrics.get("dropped_frac", 0.0)))
             peak = torch.cuda.max_memory_allocated()
             params = {n: lm_whole(p).detach().cpu().numpy()
                       for n, p in state.params.items()}
@@ -3224,6 +3265,7 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
                                 if ev.device_type != DeviceType.CUDA)}
             if rank == 0:
                 np.savez(f"{out}.{i}.npz", losses=np.asarray(losses),
+                         dropped=np.asarray(dropped),
                          ms=np.asarray(ms), peak=np.asarray(peak),
                          meta=np.asarray(json.dumps({
                              "collective_counts": counts,
@@ -3240,9 +3282,10 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
 def lm_dist_multi_line(torch, card) -> list[dict]:
     """With ``LM_DIST_MULTI["ranks"]`` cards: each of
     ``LM_DIST_MULTI_CASES`` on the (2, 2) mesh against the same float32
-    steps on one card, the loss within ``LM_DIST_LOSS_RTOL`` and every
-    parameter within the helper's bounds; with fewer, a line saying it
-    did not run."""
+    steps on one card, the loss within ``LM_DIST_LOSS_RTOL``, every
+    parameter within the helper's bounds and, for a MoE model, each
+    step's ``dropped_frac`` (exact counts over the microbatch) equal;
+    with fewer, a line saying it did not run."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3258,7 +3301,8 @@ def lm_dist_multi_line(torch, card) -> list[dict]:
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "rank0"
         ctx = mp.start_processes(
-            lm_dist_multi_rank, args=(str(Path(tmp) / "store"), str(out)),
+            lm_dist_multi_rank,
+            args=(str(Path(tmp) / "store"), str(out)),
             nprocs=t["ranks"], join=False, start_method="spawn")
         deadline = time.perf_counter() + t["timeout_s"]
         while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
@@ -3276,10 +3320,11 @@ def lm_dist_multi_line(torch, card) -> list[dict]:
         cfg = lm_dist_multi_config(arch, n_layers)
         step, batches, state = lm_dist_setup(
             torch, tm, tt, cfg, "cuda", {**LM_DIST, "steps": t["steps"]})
-        losses = []
+        losses, dropped = [], []
         for i in range(t["steps"]):
             state, metrics = step(state, batches[i])
             losses.append(float(metrics["loss"]))
+            dropped.append(float(metrics.get("dropped_frac", 0.0)))
         worst = 0.0
         for name, p in state.params.items():
             want = p.detach().cpu().numpy()
@@ -3293,6 +3338,9 @@ def lm_dist_multi_line(torch, card) -> list[dict]:
         rel = abs(got["losses"][-1] - losses[-1]) / abs(losses[-1])
         check(rel <= LM_DIST_LOSS_RTOL, f"lm dist: {cfg.name}'s loss "
               f"{got['losses']} on the mesh ({path}), {losses} on one rank")
+        check(got["dropped"].tolist() == dropped,
+              f"lm dist: {cfg.name}'s dropped_frac {got['dropped']} on the "
+              f"mesh ({path}), {dropped} on one rank")
         del state, step, batches
         torch.cuda.empty_cache()
         lines.append({
@@ -3303,6 +3351,11 @@ def lm_dist_multi_line(torch, card) -> list[dict]:
             "step_path": path, "backend": "nccl",
             "losses": got["losses"].tolist(), "one_rank_losses": losses,
             "loss_rel_gap": rel, "param_max_abs_gap": worst,
+            **({"dropped_frac": got["dropped"].tolist(),
+                "one_rank_dropped_frac": dropped,
+                "tokens_dropped": bool(max(dropped) > 0
+                                       or got["dropped"].max() > 0)}
+               if cfg.family == "moe" else {}),
             "step_ms": got["ms"].tolist(),
             "step_ms_median": float(np.median(got["ms"][1:])),
             "peak_allocated_bytes_rank0": int(got["peak"]),
@@ -4196,14 +4249,17 @@ def main() -> int:
         dist_line = lm_dist_step_line(torch, card, dev)
         log(json.dumps(dist_line))
         log(json.dumps(lm_dist_gather_line(torch, card, dev)))
+        log(json.dumps(lm_dist_gather_line(torch, card, dev, LM_DIST_MOE,
+                                           offload=True)))
     log(json.dumps(lm_dist_launcher_line(card)))
     for line in lm_dist_multi_line(torch, card):
         log(json.dumps(line))
     dist_k = {name: k.launches for name, (_, _, k) in kernels.items()}
     check(not any(dist_k.values()),
           f"the distributed LM phase launched a kernel of the port: {dist_k}")
-    log(f"lm_dist: {LM_DIST['arch']}'s mesh step (dense) and "
-        f"{LM_DIST_GATHER['arch']}'s (the gather path) on a one-rank NCCL "
+    log(f"lm_dist: {LM_DIST['arch']}'s mesh step (dense), "
+        f"{LM_DIST_GATHER['arch']}'s and {LM_DIST_MOE['arch']}'s (the "
+        f"gather path) on a one-rank NCCL "
         f"(1, 1) mesh bitwise the one-device step; the launcher under "
         f"COORDINATOR_ADDRESS killed after step {LM_CKPT_KILL_AT} resumed "
         f"bitwise; no kernel of the port launched ({dist_k}), in "

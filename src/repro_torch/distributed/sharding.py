@@ -34,6 +34,11 @@ reference's annotation points, ``match`` puts one value in another's
 placements (the residual stream's), and ``local_apply`` runs a function
 on each rank's blocks of operands laid out for it (``models.layers
 .matmul`` and the attention core).
+
+On the gather path (every other family's mesh step) a rank computes its
+block of whole rows of a microbatch on whole weights; ``row_blocks`` tells
+a layer that reads the whole microbatch (MoE) which block it holds and
+which group holds the others.
 """
 
 from __future__ import annotations
@@ -108,6 +113,34 @@ def use_mesh(mesh, rules: dict | None = None):
     finally:
         _state.mesh = prev_mesh
         _state.rules = prev_rules
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlocks:
+    """What a layer that reads a whole microbatch (MoE's capacity and
+    first-come positions) must know on the gather path: its input is row
+    block ``index`` of ``count`` equal blocks of the microbatch, in row
+    order, and ``group`` is the process group of the ranks holding the
+    ``count`` blocks (``index`` is not a rank of it)."""
+    index: int
+    count: int
+    group: Any
+
+
+def current_row_blocks() -> RowBlocks | None:
+    return getattr(_state, "row_blocks", None)
+
+
+@contextlib.contextmanager
+def row_blocks(blocks: RowBlocks | None):
+    """Sets (per thread, as ``use_mesh``) the row blocks of the
+    microbatch that the code under it computes; None: the whole."""
+    prev = getattr(_state, "row_blocks", None)
+    _state.row_blocks = blocks
+    try:
+        yield
+    finally:
+        _state.row_blocks = prev
 
 
 @contextlib.contextmanager
@@ -257,22 +290,30 @@ def local_block(full: torch.Tensor, spec: tuple, mesh,
     mesh coordinate by default) holds under ``spec``: along each dim, block
     ``Σ c[a]·(sizes of the axes listed after a)`` of ``Π sizes`` equal
     blocks, as JAX cuts it.  A view of ``full``."""
-    if coordinate is None:
-        coordinate = mesh.get_coordinate()
-    sizes = mesh_sizes(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, coordinate))
     index = []
     for d, entry in enumerate(spec):
-        n, b = 1, 0
-        for a in spec_axes(entry):
-            b = b * sizes[a] + coord[a]
-            n *= sizes[a]
+        b, n = block_of(entry, mesh, coordinate)
         if full.shape[d] % n:
             raise ValueError(f"dim {d} of {tuple(full.shape)} does not split "
                              f"into {n} blocks ({spec})")
         size = full.shape[d] // n
         index.append(slice(b * size, (b + 1) * size))
     return full[tuple(index)]
+
+
+def block_of(entry, mesh, coordinate=None) -> tuple[int, int]:
+    """``(b, n)``: a dim cut by a spec's ``entry`` is ``n`` equal blocks,
+    and the rank at ``coordinate`` (this rank's by default) holds block
+    ``b = Σ c[a]·(sizes of the axes listed after a)``, as JAX cuts it."""
+    if coordinate is None:
+        coordinate = mesh.get_coordinate()
+    sizes = mesh_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, coordinate))
+    n, b = 1, 0
+    for a in spec_axes(entry):
+        b = b * sizes[a] + coord[a]
+        n *= sizes[a]
+    return b, n
 
 
 def mesh_device(mesh) -> torch.device:

@@ -380,8 +380,13 @@ def lower_train_cell(cfg, cell, mesh, rules=None) -> dict:
     ``mesh`` (a fake world's): the state placed by ``state_shardings``,
     ``build_train_step(cfg, microbatches=global_batch // microbatch,
     remat="full")`` run under ``use_mesh(mesh, rules)``.  A MoE model on
-    more than one batch shard raises the mesh step's
-    ``NotImplementedError``."""
+    more than one batch shard takes the gather path's row blocks: one
+    ``allreduce_`` of the ``[blocks, experts]`` int32 count table a layer
+    and microbatch, and again in each block's recomputation; each rank
+    runs the experts on whole weights over an ``[e, cap]`` buffer whose
+    capacity is the whole microbatch's, so its FLOPs count the whole
+    microbatch's expert work (the gather path's cost, which
+    expert-parallel compute removes: ``training.step._EP_ITEM``)."""
     micro = max(1, cell.global_batch // max(cell.microbatch, 1))
     step_fn = build_train_step(cfg, microbatches=micro, remat="full")
     batch_abs = input_specs(cfg, cell)

@@ -47,8 +47,10 @@ from torch.utils.checkpoint import (
 
 from repro_torch.distributed.sharding import (
     current_mesh,
+    current_row_blocks,
     current_rules,
     match,
+    row_blocks,
     shard,
     use_mesh,
 )
@@ -95,21 +97,23 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 def _run(remat: str, fn, *args):
     """``fn(*args)``, a block of ``forward``, under the policy ``remat``.
-    Under a mesh the block re-enters the caller's mesh and rules each time
-    it runs: its recomputation runs in the backward, which autograd runs on
-    a thread of its own for a CUDA device (``use_mesh`` is per thread)."""
+    Under a mesh the block re-enters the caller's mesh, rules and row
+    blocks each time it runs: its recomputation runs in the backward, which
+    autograd runs on a thread of its own for a CUDA device (``use_mesh``
+    and ``row_blocks`` are per thread)."""
     if remat == "none":
         return fn(*args)
     mesh = current_mesh()
     if mesh is not None:
-        fn = functools.partial(_on_mesh, mesh, current_rules(), fn)
+        fn = functools.partial(_on_mesh, mesh, current_rules(),
+                               current_row_blocks(), fn)
     extra = {} if remat == "full" else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_matmuls)}
     return checkpoint(fn, *args, use_reentrant=False, **extra)
 
 
-def _on_mesh(mesh, rules, fn, *args):
-    with use_mesh(mesh, rules):
+def _on_mesh(mesh, rules, blocks, fn, *args):
+    with use_mesh(mesh, rules), row_blocks(blocks):
         return fn(*args)
 
 

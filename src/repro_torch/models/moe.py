@@ -9,6 +9,13 @@ trash row of dropped tokens, the experts as batched einsums, a gather +
 gate-weighted combine, the shared expert, and the aux values
 ``load_balance``, ``router_z`` and ``dropped_frac``.
 
+On the gather path of the mesh train step a rank holds one row block of
+each microbatch (``distributed.sharding.row_blocks``), and ``moe_apply``
+computes what the whole microbatch gives its rows, as the reference does
+on the whole: the capacity from every block's tokens, first-come
+positions over the microbatch in row order (one exchange of per-expert
+counts a layer), and the aux values over every token.
+
 ``load_stats`` is expert load as ``SELECT expert, COUNT(*) GROUP BY
 expert`` through the query engine's ``group_by_sum``: on the card it
 launches the segmented-sum kernel K3.
@@ -17,8 +24,10 @@ launches the segmented-sum kernel K3.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from repro_torch.distributed.sharding import current_row_blocks
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -73,26 +82,74 @@ def route(p: MoE, cfg: ModelConfig, xt, dtype):
     return logits, probs, gate, expert_idx
 
 
+def first_come(flat_e, e: int, blocks=None):
+    """Each assignment's place in its expert, first come first served in
+    row order, for assignments ``flat_e`` (expert ids in (token, choice)
+    order) of row block ``blocks.index`` of ``blocks.count`` (of the whole
+    microbatch where ``blocks`` is None).  Returns ``(pos,
+    at, counts, total)``: ``pos`` each assignment's stable position among
+    the block's assignments to its expert and ``at`` its position in the
+    microbatch (``pos`` plus the earlier blocks' assignments to the
+    expert), both int32; ``counts`` the block's assignments per expert
+    (float32) and ``total`` the microbatch's (int32)."""
+    n_assign = flat_e.numel()
+    dev = flat_e.device
+    # a stable sort by expert gives first-come-first-served positions
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    pos_sorted = torch.arange(n_assign, device=dev) - seg_start[sorted_e]
+    pos = torch.zeros(n_assign, dtype=torch.int32, device=dev)
+    pos[order] = pos_sorted.to(torch.int32)
+    # counts by index_add_, as the reference's scatter-add: bincount on the
+    # card reads its input's maximum back to the host
+    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, torch.ones(n_assign, dtype=torch.float32, device=dev))
+    if blocks is None:
+        return pos, pos, counts, counts.to(torch.int32)
+    table = torch.zeros((blocks.count, e), dtype=torch.int32, device=dev)
+    table[blocks.index] = counts.to(torch.int32)
+    dist.all_reduce(table, group=blocks.group)
+    before = table[:blocks.index].sum(dim=0, dtype=torch.int32)
+    return (pos, pos + before[flat_e], counts,
+            table.sum(dim=0, dtype=torch.int32))
+
+
 def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
-    """x: [B, S, D] → ([B, S, D], aux dict of float32 scalars)."""
+    """x: [B, S, D] → ([B, S, D], aux dict of float32 scalars).
+
+    Under ``row_blocks`` ``x`` is block ``i`` of ``n`` equal row blocks
+    of a microbatch of ``t = n·B·S`` tokens, and the capacity is ``t``'s.
+    Each block's per-expert assignment counts are summed over the group in
+    one ``all_reduce`` (each rank writes row ``i`` of a zero ``[n, e]``
+    int32 table, so the group's rank order does not matter), and an
+    assignment's position is its stable position in the block plus the
+    counts of the blocks before it.  A rank scatters its kept assignments
+    at their positions in the block (each below its position in the
+    microbatch, so below the capacity) and runs the experts on its own
+    ``[e, cap]`` buffer.  ``density`` and ``dropped_frac`` come from the
+    summed counts: whole and equal on every rank.  ``load_balance`` and
+    ``router_z`` read every token's router output and carry gradient, so
+    each rank returns its share (its tokens' sums over ``t``); summed over
+    the group they are the microbatch's values and gradients.  Outside
+    ``row_blocks`` (one device, or a mesh whose batch axes leave the rows
+    whole) ``x`` is the whole microbatch, ``n`` is 1, and the same
+    formulas give the whole values.
+    """
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    cap = _capacity(cfg, t)
+    blocks = current_row_blocks()
+    n = 1 if blocks is None else blocks.count
+    cap = _capacity(cfg, n * t)
     xt = x.reshape(t, d)
     logits, probs, gate, expert_idx = route(p, cfg, xt, dtype)
 
-    # position of each (token, choice) within its expert: a stable sort by
-    # expert gives first-come-first-served positions; over capacity drops
+    # position of each (token, choice) within its expert, first come first
+    # served over the microbatch; over capacity drops
     n_assign = t * k
     flat_e = expert_idx.reshape(n_assign)
-    sorted_e, order = torch.sort(flat_e, stable=True)
-    seg_start = torch.searchsorted(sorted_e,
-                                   torch.arange(e, device=x.device))
-    pos_sorted = torch.arange(n_assign, device=x.device) - seg_start[sorted_e]
-    pos = torch.zeros(n_assign, dtype=torch.int32, device=x.device)
-    pos[order] = pos_sorted.to(torch.int32)
-    keep = pos < cap
+    pos, at, _, total = first_come(flat_e, e, blocks)
+    keep = at < cap
 
     # scatter into the buffer by linear row index; row cap is the trash
     flat_pos = torch.where(keep, pos, cap)
@@ -116,15 +173,13 @@ def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
         out = out + mlp_apply(p.shared, xt, dtype)
 
     # aux losses (Switch-style load balance + router z-loss)
-    # counts by index_add_, as the reference's scatter-add: bincount on the
-    # card reads its input's maximum back to the host
-    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, flat_e, torch.ones(n_assign, dtype=torch.float32, device=x.device))
-    density = counts / t
+    lse = torch.logsumexp(logits, -1)
+    density = total.to(torch.float32) / (n * t)
+    kept = torch.clamp(total, max=cap).sum().to(torch.float32)
     aux = {
-        "load_balance": e * torch.sum(density * probs.mean(dim=0)),
-        "router_z": torch.mean(torch.square(torch.logsumexp(logits, -1))),
-        "dropped_frac": 1.0 - keep.to(torch.float32).mean(),
+        "load_balance": e * torch.sum(density * (probs.sum(dim=0) / (n * t))),
+        "router_z": torch.sum(torch.square(lse)) / (n * t),
+        "dropped_frac": 1.0 - kept / (n * n_assign),
     }
     return out.reshape(b, s, d), aux
 

@@ -38,15 +38,18 @@ once for the forward and the backward and compute their rows on whole
 weights; the losses divide by the whole microbatch's token count, so the
 float32 gradients summed over the ranks holding the other rows are the
 microbatch's.  Ranks along axes that do not shard the batch compute the
-same rows.  A MoE model on more than one batch shard is refused: its
-capacity-bounded dispatch and its load-balance loss read the whole
-microbatch's tokens.
+same rows.  A MoE layer reads the whole microbatch (its capacity,
+first-come positions and load balance): the step tells it which row block
+the rank holds (``sharding.row_blocks``), it exchanges per-expert counts
+over the batch group, and its ``load_balance`` and ``router_z`` come back
+as this rank's shares, summed over the group with the losses.  Each rank
+still runs the experts on whole weights over its own ``[e, cap]`` buffer;
+expert-parallel compute on the placed weights is ``_EP_ITEM``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import torch
@@ -56,13 +59,15 @@ from torch.distributed.tensor import DTensor
 from repro_torch.distributed.compression import ef_int8_roundtrip
 from repro_torch.distributed.sharding import (
     NamedSharding,
+    RowBlocks,
+    block_of,
     current_mesh,
     current_rules,
     local_block,
     match,
     mesh_device,
-    mesh_sizes,
     resolve_spec,
+    row_blocks,
     spec_axes,
 )
 from repro_torch.models.config import ModelConfig
@@ -77,7 +82,7 @@ from repro_torch.training.optimizer import (
 )
 
 # the queue item that takes expert-parallel compute
-_EP_ITEM = "ROADMAP.md §1 item 5b"
+_EP_ITEM = "ROADMAP.md §1 item 5b-ii"
 # the families whose mesh step computes on the placed weights
 TP_FAMILIES = ("dense",)
 
@@ -246,32 +251,32 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                                                     specs, mesh)
             return update(state, grads, loss_sum, metrics, state.shardings)
         axes = spec_axes(specs["tokens"][0])
-        shards = math.prod(mesh_sizes(mesh)[a] for a in axes)
-        if cfg.family == "moe" and shards > 1:
-            raise NotImplementedError(
-                f"a MoE model on {shards} batch shards: its capacity-bounded "
-                f"dispatch and load-balance loss read the whole microbatch's "
-                f"tokens; expert-parallel compute is {_EP_ITEM}")
         group = _batch_group(mesh, axes)
+        index, count = block_of(specs["tokens"][0], mesh)
         with torch.no_grad():       # each weight gathered once
             full = {n: p.full_tensor() for n, p in state.params.items()}
         compute = LM(cfg, "meta")
         compute.load_state_dict(full, assign=True)
         compute.requires_grad_(True)
         del full
-        g_acc, loss_sum, metrics = grads_of(
-            compute, batch, lambda mb: {
-                k: local_block(v, specs[k], mesh) for k, v in mb.items()},
-            group)
+        with row_blocks(RowBlocks(index, count, group) if count > 1
+                        else None):
+            g_acc, loss_sum, metrics = grads_of(
+                compute, batch, lambda mb: {
+                    k: local_block(v, specs[k], mesh) for k, v in mb.items()},
+                group)
         del compute
         if group is not None:
-            # the microbatches' gradients and losses summed over the ranks
-            # holding the other rows
+            # the microbatches' gradients, losses and (MoE) load-balance
+            # shares summed over the ranks holding the other rows
             for g in g_acc:
                 dist.all_reduce(g, group=group)
-            sums = torch.stack([loss_sum, metrics["ce"], metrics["zloss"]])
+            shares = [n for n in ("ce", "zloss", "load_balance")
+                      if n in metrics]
+            sums = torch.stack([loss_sum, *(metrics[n] for n in shares)])
             dist.all_reduce(sums, group=group)
-            loss_sum, metrics["ce"], metrics["zloss"] = sums.unbind()
+            loss_sum, *summed = sums.unbind()
+            metrics.update(zip(shares, summed))
         grads = dict(zip(state.params, torch._foreach_div(g_acc, m)))
         del g_acc
         return update(state, grads, loss_sum, metrics, state.shardings)

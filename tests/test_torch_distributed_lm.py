@@ -32,7 +32,17 @@ written by its checkpointer.  Held:
     port-written one on the JAX package's (4,2) against the port's;
   * every rank's copy of a replicated block bitwise equal to every other's;
   * ``CompressedPsum`` over groups of 2 and 4 ranks against a numpy
-    oracle, and a MoE model on 4 and on 2 batch shards refused;
+    oracle;
+  * MoE on more than one batch shard: mixtral-smoke and moonshot-smoke on
+    (2,2,2) (4 batch shards of one 16-token row; tokens drop, so which
+    ones depends on the order across the ranks), 2 steps against the
+    one-device run and the JAX package's (2,2,2) run at the helper's
+    bounds, ``dropped_frac`` equal in all three; mixtral-smoke on (2,4)
+    under ``remat="full"`` against one device;
+  * C1, the int8 round trip (``compress_grads=True``): along the
+    one-device run, each step also taken on (2,2,2) from the same state,
+    in both packages; the first moments at most one quantum an entry
+    apart;
   * a placed gradient's int8 round trip and norm those of the whole;
   * the dense mesh step computes on the placed weights: qwen3-smoke's
     (2,2,2) run above goes through it (its 2 KV heads take "model"), and
@@ -46,8 +56,9 @@ written by its checkpointer.  Held:
     annotation cuts the fused heads, the logits' the vocabulary), against
     one device.
 
-And in the test process, on a one-rank ``gloo`` group: every dense smoke
-config's mesh step on the (1,1) mesh bitwise equal to its one-device step.
+And in the test process, on a one-rank ``gloo`` group: every dense and
+MoE smoke config's mesh step on the (1,1) mesh bitwise equal to its
+one-device step.
 
 Then ``launch/train.py`` at 2 ranks under ``COORDINATOR_ADDRESS=file://``
 checkpoints at step 3, resumes at world size 1 and ends within the
@@ -65,7 +76,14 @@ in another order than one device (each rank's rows, then ``all_reduce``),
 so it is not bitwise; at one rank it is (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).  On the (8, 1) host mesh a microbatch's 4 rows do not
 divide by 8 batch shards, so each rank computes them all: its four steps
-are bitwise the one-device run's.  The launcher (bfloat16 compute) ended
+are bitwise the one-device run's.  MoE on (2,2,2): losses equal to the
+one-device run's and the JAX run's (relative gap 0.0), parameters within
+3.0e-8 of the one-device run's and 8.9e-5 (mixtral) / 2.8e-6 (moonshot)
+of the JAX run's; ``dropped_frac`` 0.203125 and 0.3515625 in all three
+runs; on (2,4) under remat the loss within 1.6e-7.  C1: each package
+moved one entry by one quantum at 2 of the 4 steps (JAX 0.99999 /
+1.00000 quanta, the port 0.99999 / 1.00000); at the other steps every
+entry within 3.9e-4 of a quantum.  The launcher (bfloat16 compute) ended
 14 of its 70,896 parameter entries, all among the embedding's 12,288,
 beyond the helper's parameter bound, by up to 6.5e-4: AdamW's sign on
 round-off gradients (the launcher test's docstring); ``LAUNCH_FAR``
@@ -101,8 +119,17 @@ MESHES = {"2x2x2": ((2, 2, 2), ("pod", "data", "model")),
 OVERRIDE = {"embed": ("data", "pod")}
 LOSS_RTOL = 1e-4
 PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-4
-# the meshes a MoE model is refused on, and their batch shards
-MOE_MESHES = {"2x2x2": 4, "2x4": 2}
+# the MoE smoke configs of the spawn, their steps on (2,2,2), and the mesh
+# of 2 batch shards that mixtral-smoke also runs on under remat="full"
+MOE_ARCHS = ("mixtral-8x22b", "moonshot-v1-16b-a3b")
+MOE_STEPS = 2
+MOE_REMAT_MESH = ((2, 4), ("data", "model"))
+# AdamW's first-moment decay: one step from a zero-free state moves the
+# first moment by (1 - B1) times the clipped round-tripped gradient
+B1 = 0.9
+# a quantum is max|g|/127 of a leaf; the scales of the two runs differ by
+# the round-off of max|g|
+QUANTUM_SLACK = 1e-3
 # the launcher's parameter entries (of 70,896) allowed beyond the helper's
 # bound: AdamW's sign on round-off gradients in bfloat16 (14 observed)
 LAUNCH_FAR = 32
@@ -162,6 +189,16 @@ def _jax_side(tmp: Path) -> None:
             out[f"{tag}|param|0/{k}"] = np.asarray(v)
 
     meshes = {n: make_mesh(*MESHES[n]) for n in MESHES}
+    for arch in MOE_ARCHS:
+        moe = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        moe_state = Checkpointer(tmp / f"init_{arch}").restore(
+            like=init_train_state(abstract_params(moe)[0]))
+        s, m = run_steps(moe, meshes["2x2x2"], moe_state, TokenPipeline(
+            vocab_size=moe.vocab_size, seq_len=16, global_batch=8, seed=42),
+            MOE_STEPS)
+        keep(f"jax222|{arch}", s, m)
+        out[f"jax222|{arch}|dropped_frac"] = np.asarray(m["dropped_frac"])
+    _jax_quanta(cfg, meshes["2x2x2"], state0, pipe, out)
     kv1 = dataclasses.replace(get_smoke_config(KV1_ARCH), dtype="float32")
     kv1_state = Checkpointer(tmp / "init_kv1").restore(
         like=init_train_state(abstract_params(kv1)[0]))
@@ -205,6 +242,59 @@ def _jax_side(tmp: Path) -> None:
     np.savez(tmp / "jax.npz", **out)
 
 
+def _jax_quanta(cfg, mesh, state, pipe, out: dict) -> None:
+    """C1 on the JAX package: along its one-device run with the int8 round
+    trip (``compress_grads=True``), each step taken also on ``mesh`` from
+    the same state; ``_quanta`` of the two first moments into ``out``."""
+    import jax
+    from distributed_lm_check import state_shardings
+
+    from repro.distributed.sharding import use_mesh
+    from repro.training import build_train_step
+    step_fn = build_train_step(cfg, microbatches=2, base_lr=5e-3, warmup=2,
+                               total_steps=50, remat="none",
+                               compress_grads=True)
+    sh = state_shardings(cfg, mesh)
+
+    def on_mesh(s, b):
+        with use_mesh(mesh):
+            return step_fn(s, b)
+
+    one = jax.jit(step_fn)
+    placed = jax.jit(on_mesh, in_shardings=(sh, None),
+                     out_shardings=(sh, None))
+    for i in range(STEPS):
+        batch = pipe.jax_batch(i)
+        got, _ = placed(jax.device_put(state, sh), batch)
+        new, _ = one(state, batch)
+        out[f"quanta|jax|{i}"] = np.asarray(_quanta(
+            [np.asarray(x) for x in jax.tree.leaves(state.opt.m)],
+            [np.asarray(x) for x in jax.tree.leaves(new.opt.m)],
+            [np.asarray(x) for x in jax.tree.leaves(got.opt.m)]))
+        state = new
+
+
+def _quanta(prev: list, one: list, mesh: list) -> tuple[float, int]:
+    """From one step's first moments, leaf by leaf (``prev`` before it,
+    ``one`` after it on one device, ``mesh`` after it on the mesh): the
+    largest gap between the two runs' round-tripped gradients in quanta of
+    the leaf (its largest |clipped gradient| over 127), and the entries
+    whose gap is over half a quantum (a rounding that went the other
+    way)."""
+    worst, moved = 0.0, 0
+    for p, a, b in zip(prev, one, mesh):
+        # (1 - B1) times the clipped round-tripped gradient
+        step = np.abs(a.astype(np.float64) - B1 * p.astype(np.float64))
+        unit = step.max() / 127
+        if unit == 0:
+            assert np.array_equal(a, b)
+            continue
+        gap = np.abs(a.astype(np.float64) - b.astype(np.float64)) / unit
+        worst = max(worst, float(gap.max()))
+        moved += int((gap > 0.5).sum())
+    return worst, moved
+
+
 # ---------------------------------------------------------------------------
 # the port side: one spawn of 8 ranks
 # ---------------------------------------------------------------------------
@@ -213,10 +303,11 @@ def _port_config(arch: str = "qwen3-14b"):
     return dataclasses.replace(get_smoke_config(arch), dtype="float32")
 
 
-def _port_step(cfg):
+def _port_step(cfg, remat: str = "none", compress: bool = False):
     from repro_torch.training import build_train_step
     return build_train_step(cfg, microbatches=2, base_lr=5e-3, warmup=2,
-                            total_steps=50, remat="none")
+                            total_steps=50, remat=remat,
+                            compress_grads=compress)
 
 
 def _pipe(cfg, seq_len: int = 16):
@@ -232,12 +323,11 @@ def _port_worker(rank: int, tmp: str) -> None:
     from repro_torch import training as tt
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.checkpoint.checkpointer import _flatten
-    from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import CompressedPsum
     from repro_torch.distributed.sharding import LOGICAL_RULES, use_mesh
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.launch.mesh import make_auto_mesh, make_host_mesh
-    from repro_torch.models import LM, init_params
+    from repro_torch.models import LM
 
     torch.set_num_threads(1)
     # DTensor warns that a dim sharded over two mesh dims gathers in two
@@ -390,21 +480,40 @@ def _port_worker(rank: int, tmp: str) -> None:
             out[f"psum|{size}|{r}|out"] = got["w"].numpy()
             out[f"psum|{size}|{r}|res"] = res["w"].numpy()
 
-    # a MoE model on 4 and on 2 batch shards
-    moe = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
-                              dtype="float32")
-    meshes["2x4"] = make_auto_mesh((2, 4), ("data", "model"),
-                                   device_type="cpu")
-    for tag in MOE_MESHES:
-        state = tt.place_train_state(
-            tt.init_train_state(init_params(moe, seed=0, device="cpu")),
-            state_shardings(moe, meshes[tag]))
-        try:
+    # the MoE smoke configs on (2,2,2), 4 batch shards of one row each;
+    # mixtral-smoke on (2,4), 2 batch shards, under remat="full"
+    meshes["2x4"] = make_auto_mesh(*MOE_REMAT_MESH, device_type="cpu")
+    for arch, tag, remat in [(a, "2x2x2", "none") for a in MOE_ARCHS] + [
+            (MOE_ARCHS[0], "2x4", "full")]:
+        moe = _port_config(arch)
+        s = Checkpointer(tmp / f"init_{arch}").restore(
+            like=tt.init_train_state(LM(moe, "meta")),
+            shardings=state_shardings(moe, meshes[tag]))
+        moe_pipe = _pipe(moe)
+        moe_step = _port_step(moe, remat)
+        for i in range(MOE_STEPS):
             with use_mesh(meshes[tag]):
-                _port_step(moe)(state, _pipe(moe).torch_batch(0, "cpu"))
-            out[f"moe_refused|{tag}"] = np.asarray("")
-        except NotImplementedError as exc:
-            out[f"moe_refused|{tag}"] = np.asarray(str(exc))
+                s, m = moe_step(s, moe_pipe.torch_batch(i, "cpu"))
+        keep(f"port{tag.replace('x', '')}|{arch}", s, m)
+        out[f"port{tag.replace('x', '')}|{arch}|dropped_frac"] = \
+            m["dropped_frac"].numpy()
+
+    # C1: along the one-device run with the int8 round trip, each step
+    # also taken on (2,2,2) from the same state
+    cstep = _port_step(cfg, compress=True)
+    whole = init.restore(like=like, shardings=torch.device("cpu"))
+    for i in range(STEPS):
+        batch = pipe.torch_batch(i, "cpu")
+        prev = [t.clone() for t in whole.opt.m.values()]
+        placed = tt.place_train_state(whole, state_shardings(
+            cfg, meshes["2x2x2"]))
+        with use_mesh(meshes["2x2x2"]):
+            placed, _ = cstep(placed, batch)
+        whole, _ = cstep(whole, batch)
+        out[f"quanta|port|{i}"] = np.asarray(_quanta(
+            [t.numpy() for t in prev],
+            [t.numpy() for t in whole.opt.m.values()],
+            [t.full_tensor().numpy() for t in placed.opt.m.values()]))
     np.savez(tmp / f"port_{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -445,7 +554,8 @@ def runs(tmp_path_factory):
     from repro_torch.models import LM
 
     tmp = tmp_path_factory.mktemp("dlm")
-    for arch, d in (("qwen3-14b", "init"), (KV1_ARCH, "init_kv1")):
+    for arch, d in (("qwen3-14b", "init"), (KV1_ARCH, "init_kv1"),
+                    *((a, f"init_{a}") for a in MOE_ARCHS)):
         jcfg = dataclasses.replace(jsmoke(arch), dtype="float32")
         JCheckpointer(tmp / d).save(0, jinit_state(jinit_params(
             jax.random.PRNGKey(0), jcfg)[0]), async_=False)
@@ -480,6 +590,7 @@ def runs(tmp_path_factory):
                 if k.startswith("0/"):
                     one[f"{tag}|param|{k}"] = (torch.stack(leaf) if isinstance(
                         leaf, list) else leaf).detach().numpy()
+            return metrics
 
         cpu = torch.device("cpu")
         run(Checkpointer(tmp / "init").restore(like=like, shardings=cpu), 0,
@@ -490,6 +601,13 @@ def runs(tmp_path_factory):
         run(Checkpointer(tmp / "init_kv1").restore(
             like=tt.init_train_state(LM(kv1, "meta")), shardings=cpu), 0,
             KV1_STEPS, "one|kv1", step=_port_step(kv1), pipe=_pipe(kv1))
+        for arch in MOE_ARCHS:
+            moe = _port_config(arch)
+            one[f"one|{arch}|dropped_frac"] = run(
+                Checkpointer(tmp / f"init_{arch}").restore(
+                    like=tt.init_train_state(LM(moe, "meta")),
+                    shardings=cpu), 0, MOE_STEPS, f"one|{arch}",
+                step=_port_step(moe), pipe=_pipe(moe))["dropped_frac"].numpy()
         while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
             if time.monotonic() > deadline:
                 for p in ctx.processes:
@@ -718,30 +836,86 @@ def test_compressed_psum_matches_a_numpy_oracle(runs, size):
                                            want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("mesh", sorted(MOE_MESHES))
-def test_moe_on_more_than_one_batch_shard_is_refused(runs, mesh):
-    _, port, _, _ = runs
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_on_four_batch_shards_matches_both_runs(runs, arch):
+    """A MoE smoke config on (2,2,2): each rank holds one row of 16 tokens
+    of a microbatch, and its capacity, first-come positions and load
+    balance are the whole microbatch's.  Tokens drop at this traffic, so
+    which ones depends on the order across the ranks: the loss and the
+    parameters within the helper's bounds of the port's one-device run
+    and of the JAX package's (2,2,2) run, and ``dropped_frac`` (summed
+    over the layers, the last microbatch's) equal on every rank and in
+    all three runs."""
+    jax_out, port, one, _ = runs
+    tag = f"port222|{arch}"
+    for want in (one[f"one|{arch}|loss"], jax_out[f"jax222|{arch}|loss"]):
+        np.testing.assert_allclose(port[0][f"{tag}|loss"], want,
+                                   rtol=LOSS_RTOL)
+    _close_params(_params(port[0], tag), _params(one, f"one|{arch}"))
+    _close_params(_params(port[0], tag), _params(jax_out, f"jax222|{arch}"))
+    dropped = one[f"one|{arch}|dropped_frac"]
+    assert float(dropped) > 0
+    assert float(jax_out[f"jax222|{arch}|dropped_frac"]) == float(dropped)
     for out in port:
-        msg = str(out[f"moe_refused|{mesh}"])
-        assert f"{MOE_MESHES[mesh]} batch shards" in msg
-        assert "ROADMAP.md §1 item 5" in msg
+        assert out[f"{tag}|dropped_frac"].tobytes() == dropped.tobytes()
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_moe_on_two_batch_shards_under_remat_matches_one_device(runs):
+    """mixtral-smoke on (2,4) under ``remat="full"``: each block's
+    recomputation exchanges the expert counts again (every rank in the
+    same order); held against the one-device run (``remat="none"``, whose
+    gradients are bitwise those under "full")."""
+    _, port, one, _ = runs
+    arch = MOE_ARCHS[0]
+    tag = f"port24|{arch}"
+    np.testing.assert_allclose(port[0][f"{tag}|loss"],
+                               one[f"one|{arch}|loss"], rtol=LOSS_RTOL)
+    _close_params(_params(port[0], tag), _params(one, f"one|{arch}"))
+    for out in port:
+        assert out[f"{tag}|dropped_frac"].tobytes() == \
+            one[f"one|{arch}|dropped_frac"].tobytes()
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_the_int8_round_trip_on_a_mesh_moves_at_most_one_quantum(runs,
+                                                                 package):
+    """C1: with ``compress_grads=True``, each of the 4 steps of the
+    one-device run taken also on (2,2,2) from the same state.  The mesh
+    sums the gradient in another order, so an entry whose gradient lies
+    at a rounding boundary of the int8 round trip can round the other
+    way: one quantum (the leaf's largest |gradient| over 127), never
+    more.  The JAX package's own (2,2,2) run moves such quanta too; over
+    a trajectory they compound, which is why a compressed multi-rank run
+    leaves the uncompressed runs' bounds."""
+    jax_out, port, _, _ = runs
+    runs_ = [jax_out] if package == "jax" else port
+    moved = 0
+    for out in runs_:
+        for i in range(STEPS):
+            worst, n = out[f"quanta|{package}|{i}"]
+            assert worst <= 1 + QUANTUM_SLACK, (i, worst)
+            moved += int(n)
+    if package == "jax":
+        assert moved > 0
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
 def test_one_rank_mesh_step_is_bitwise_the_one_device_step(arch, tmp_path):
-    """Each dense smoke config (in its bfloat16) on the (1,1) mesh of a
-    one-rank ``gloo`` group: a step of 2 microbatches under
+    """Each dense and MoE smoke config (in its bfloat16) on the (1,1) mesh
+    of a one-rank ``gloo`` group: a step of 2 microbatches under
     ``remat="full"`` with the int8 round trip, every weight and moment
-    bitwise the one-device step's.  Every DTensor op is then local."""
+    bitwise the one-device step's.  Every DTensor op is then local, and a
+    MoE layer on one row block runs the one-device ops."""
     _one_rank_against_one_device(arch, tmp_path)
 
 
 def test_a_backward_on_its_own_thread_recomputes_on_the_mesh(tmp_path,
                                                              monkeypatch):
     """On a card autograd runs the backward on a thread of its own, where
-    the caller's ``use_mesh`` is not set, and a block under remat is
-    recomputed there: ``torch.autograd.grad`` moved to a new thread, the
-    one-rank mesh step stays bitwise the one-device step."""
+    the caller's ``use_mesh`` and ``row_blocks`` are not set, and a block
+    under remat is recomputed there: ``torch.autograd.grad`` moved to a
+    new thread, the one-rank mesh step of a dense and of a MoE smoke
+    config stays bitwise the one-device step."""
     import threading
     grad = torch.autograd.grad
 
@@ -755,7 +929,8 @@ def test_a_backward_on_its_own_thread_recomputes_on_the_mesh(tmp_path,
         return out[0]
 
     monkeypatch.setattr(torch.autograd, "grad", on_a_thread)
-    _one_rank_against_one_device("h2o-danube-3-4b", tmp_path)
+    for arch in ("h2o-danube-3-4b", MOE_ARCHS[0]):
+        _one_rank_against_one_device(arch, tmp_path)
 
 
 def _one_rank_against_one_device(arch: str, tmp_path) -> None:
@@ -787,7 +962,7 @@ def _one_rank_against_one_device(arch: str, tmp_path) -> None:
                                                   device="cpu"))
 
     dist.init_process_group("gloo", store=dist.FileStore(
-        str(tmp_path / "store"), 1), rank=0, world_size=1)
+        str(tmp_path / f"store-{arch}"), 1), rank=0, world_size=1)
     try:
         mesh = make_auto_mesh((1, 1), ("data", "model"), device_type="cpu")
         placed = tt.place_train_state(fresh(), state_shardings(cfg, mesh))

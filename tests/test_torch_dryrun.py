@@ -27,13 +27,13 @@ Held:
   * a smoke mesh step's collectives on 8 and 512 fake ranks, op for op and
     byte for byte, as worked out from the placements, the shapes and the
     microbatch count: the rwkv6 step's (weights gathered whole, gradients
-    all-reduced) and the dense step's (weights gathered along the
+    all-reduced), the MoE step's (the same, plus each MoE layer's count
+    table all-reduced over the batch shards in the forward and in its
+    recomputation) and the dense step's (weights gathered along the
     data-parallel axes per use, gradients reduce-scattered, the
     activations' tensor- and sequence-parallel moves);
   * each dense smoke train cell's peak a rank on 512 fake ranks below the
-    data-parallel step's (the dense step with ``TP_FAMILIES`` emptied);
-  * the MoE ``train_4k`` cells listed as failures with the mesh step's
-    ``NotImplementedError``, and ``main`` exiting 1.
+    data-parallel step's (the dense step with ``TP_FAMILIES`` emptied).
 
 FLOPs: ``FlopCounterMode`` counts matrix products (``mm``, ``bmm``,
 ``addmm``, convolutions, attention) at ``2·M·N·K``, and the reference's
@@ -452,8 +452,16 @@ def _gather_step_collectives(cfg, cell, mesh) -> dict:
     1 moves nothing and issues none); then, where the batch axes cut a
     microbatch's rows (even into one block), one ``allreduce_`` of its
     token count (4 B) a microbatch, one of each weight's float32 gradient
-    and one of the three summed losses."""
-    from repro_torch.distributed.sharding import spec_axes, use_mesh
+    and one of the three summed losses (four for MoE: its load-balance
+    share).  A MoE model whose rows are cut into ``n > 1`` blocks adds,
+    for each MoE layer and microbatch, one ``allreduce_`` of the
+    ``[n, experts]`` int32 count table in the forward and one in the
+    block's recomputation (``remat="full"``)."""
+    from repro_torch.distributed.sharding import (
+        mesh_sizes,
+        spec_axes,
+        use_mesh,
+    )
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.training.step import microbatch_specs
 
@@ -479,10 +487,17 @@ def _gather_step_collectives(cfg, cell, mesh) -> dict:
             ops["all-gather"] += 1
     with use_mesh(mesh):
         spec = microbatch_specs(input_specs(cfg, cell), micro)
-    if spec_axes(spec["tokens"][0]):
+    axes = spec_axes(spec["tokens"][0])
+    if axes:
+        losses = 4 if cfg.family == "moe" else 3
         out["all-reduce"] = 4 * micro + 4 * sum(
-            w.numel() for w in weights.values()) + 12
+            w.numel() for w in weights.values()) + 4 * losses
         ops["all-reduce"] = micro + len(weights) + 1
+    blocks = math.prod(mesh_sizes(mesh)[a] for a in axes)
+    if cfg.family == "moe" and blocks > 1:
+        n = 2 * micro * cfg.n_layers
+        out["all-reduce"] += n * blocks * cfg.n_experts * 4
+        ops["all-reduce"] += n
     out["ops"] = ops
     return out
 
@@ -636,8 +651,9 @@ def _tp_step_collectives(cfg, cell, mesh) -> dict:
 
 
 # (4, 2): qwen3-smoke's 2 KV heads take "model" (the scores' point cuts
-# the heads); on the others the query positions do
-@pytest.mark.parametrize("family", ["dense", "rwkv6"])
+# the heads); on the others the query positions do.  The MoE step's rows
+# are cut into 2, 32 and 4 blocks
+@pytest.mark.parametrize("family", ["dense", "rwkv6", "moe"])
 @pytest.mark.parametrize("shape,axes", [SMOKE_MESH, ((2, 16, 16), (
     "pod", "data", "model")), ((4, 2), ("data", "model"))],
     ids=["8", "512", "8-heads"])
@@ -679,24 +695,8 @@ def test_dense_train_cell_peak_is_below_the_data_parallel_steps(
 
 
 # --------------------------------------------------------------------------
-# main
+# the collective recorder and the fake world
 # --------------------------------------------------------------------------
-def test_moe_train_cells_are_listed_as_failures(tmp_path, monkeypatch):
-    out = tmp_path / "dryrun.json"
-    monkeypatch.setattr(sys, "argv", [
-        "dryrun", "--arch", "mixtral-8x22b", "--shape", "train_4k",
-        "--mesh", "multi", "--out", str(out)])
-    with pytest.raises(SystemExit) as exit_:
-        dr.main()
-    assert exit_.value.code == 1
-    rec = json.loads(out.read_text())
-    assert rec["results"] == []
-    assert [f[:3] for f in rec["failures"]] == [
-        ["mixtral-8x22b", "train_4k", True]]
-    for f in rec["failures"]:
-        assert f[3].startswith("NotImplementedError(") and "MoE" in f[3]
-
-
 def test_collectives_are_recorded_by_kind_and_an_unknown_one_fails():
     with dr.fake_world(4):
         with dr.CollectiveMode() as comm:

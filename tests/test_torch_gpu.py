@@ -1232,15 +1232,17 @@ def test_mesh_service_at_world_size_1_matches_local_service(nccl_mesh):
 
 
 @pytest.mark.parametrize("arch,dense", [("smollm-135m", True),
-                                        ("rwkv6-1.6b", False)])
+                                        ("rwkv6-1.6b", False),
+                                        ("mixtral-8x22b", False)])
 def test_lm_mesh_step_at_world_size_1_is_the_local_step(nccl_mesh, arch,
                                                         dense):
     """The smoke config's train step on a one-rank NCCL (1, 1) host mesh,
     its state placed by the logical rules (DTensors of the whole arrays),
     bitwise the one-device step's: losses and every tensor of the state.
     A dense model computes on its placed weights (its blocks'
-    recomputation runs on autograd's device thread); rwkv6 takes the
-    gather path (whole weights, all-reduced gradients)."""
+    recomputation runs on autograd's device thread); rwkv6 and MoE take
+    the gather path (whole weights, all-reduced gradients; MoE on one row
+    block runs the one-device ops)."""
     from repro_torch.distributed import use_mesh
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.launch.mesh import make_host_mesh
