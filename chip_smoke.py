@@ -247,13 +247,19 @@ every tensor of the two states and every loss bitwise equal; step ms
 (median, p90) mesh against local, peak bytes, the placed state's bytes
 and the FLOPs of a step per rank, and one mesh and one local step
 profiled (wall and device ms, idle share, kernels, host op events).
-``lm_dist_gather``: the same on the gather path (the mesh step of every
-family but the dense one: whole weights gathered once a step, gradients
+``lm_dist_gather``: the same on the gather path (the mesh step of the
+recurrent families: whole weights gathered once a step, gradients
 all-reduced), rwkv6-1.6b at full width with 2 layers (``LM_DIST_GATHER``),
-bitwise the one-device step, and again for Moonlight at full width with
-2 layers (``LM_DIST_MOE``; its MoE layers on one row block), with its
-``dropped_frac`` on both runs, the mesh run's state held on the host
-while the one-device run's is on the card.  ``lm_dist_launcher``: the
+bitwise the one-device step.  ``lm_dist_moe``: Moonlight at full width
+with 2 layers (``LM_DIST_MOE``) through the placed step (the dense
+step's attention; each MoE layer's experts on their blocks of the
+expert dim, its buffer reduce-scattered onto them and gathered back),
+bitwise the one-device step, with its ``dropped_frac`` on both runs, the
+mesh run's state held on the host while the one-device run's is on the
+card; one placed and one local step profiled (device ms, idle share,
+host op events); then the same model through the gather path
+(``TP_FAMILIES`` emptied), bitwise too; step ms placed against one
+device and against the gather path.  ``lm_dist_launcher``: the
 launcher as rank 0 of 1 under ``COORDINATOR_ADDRESS`` (a ``file://``
 rendezvous) once uninterrupted, once SIGKILLed when ``step_3`` appears
 and restarted; the resumed run's final checkpoint bitwise the
@@ -266,9 +272,10 @@ ms, host op events): smollm-135m through the dense step
 (tensor-parallel products over "model"; its 3 KV heads do not divide by
 2, so its attention cuts the query positions) and through the gather
 path, rwkv6-1.6b at 2 layers through the gather path, and Moonlight at
-2 layers through the gather path on 2 batch shards (its capacity,
-first-come positions and load balance over both shards' rows; both runs'
-``dropped_frac`` and whether any token dropped); with fewer cards a line
+2 layers on 2 batch shards (its capacity, first-come positions and load
+balance over both shards' rows; both runs' ``dropped_frac`` and whether
+any token dropped) through the gather path and through the placed step
+(32 experts a rank, ``d_ff`` 704 a rank); with fewer cards a line
 saying it did not run and why.  Counts set to 0
 before the phase and read after: ``lm_dist_launches`` (0, checked).
 ``lm_dryrun``: the dry run.  ``lm_dryrun_cli``: ``python -m
@@ -307,6 +314,7 @@ not hold the port's ``src/repro_torch`` beside the script.  Needs a CUDA GPU of 
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import re
@@ -2942,15 +2950,16 @@ def lm_ckpt_lines(torch, card, dev) -> list[dict]:
 LM_DIST = {"arch": "smollm-135m", "global_batch": 8, "seq_len": 256,
            "seed": 1234, "steps": 6, "base_lr": 3e-4, "warmup": 6,
            "microbatches": 1, "remat": "full"}
-# the gather path (the step of rwkv6, mamba2, the hybrid and MoE: whole
+# the gather path (the step of rwkv6, mamba2 and the hybrid: whole
 # weights gathered once a step, float32 gradients all-reduced): rwkv6-1.6b
 # at full width, its depth cut to lm_train's 2 layers, LM_DIST's traffic
 # for 3 steps
 LM_DIST_GATHER = {"arch": "rwkv6-1.6b", "n_layers": 2, "steps": 3}
-# MoE on the gather path: Moonlight at full width, 2 of its 48 layers as
-# LM_TRAIN_FAMILIES takes it, LM_DIST's traffic for 3 steps (2,048 tokens
-# a microbatch: capacity 240 a layer); its 22 GB state is held on the host
-# while the one-device run's is on the card
+# MoE through the placed step, then the gather path: Moonlight at full
+# width, 2 of its 48 layers as LM_TRAIN_FAMILIES takes it, LM_DIST's
+# traffic for 3 steps (2,048 tokens a microbatch: capacity 240 a layer);
+# its 22 GB state is held on the host while the one-device run's is on
+# the card
 LM_DIST_MOE = {"arch": "moonshot-v1-16b-a3b", "n_layers": 2, "steps": 3}
 LM_DIST_MULTI = {"ranks": 4, "mesh": (2, 2), "axes": ("data", "model"),
                  "steps": 3, "timeout_s": 600}
@@ -2958,13 +2967,17 @@ LM_DIST_MULTI = {"ranks": 4, "mesh": (2, 2), "axes": ("data", "model"),
 # for comparison, through the gather path (TP_FAMILIES emptied in the
 # ranks), the gather path's own family at LM_DIST_GATHER's depth, and
 # Moonlight at LM_DIST_MOE's on 2 batch shards (each MoE layer's capacity,
-# first-come positions and load balance over both shards' rows)
+# first-come positions and load balance over both shards' rows) through
+# the gather path and through the placed step ("dense": TP_FAMILIES kept;
+# 32 experts a rank, d_ff 704 a rank)
 LM_DIST_MULTI_CASES = (("smollm-135m", None, "dense"),
                        ("smollm-135m", None, "gather"),
                        (LM_DIST_GATHER["arch"], LM_DIST_GATHER["n_layers"],
                         "gather"),
                        (LM_DIST_MOE["arch"], LM_DIST_MOE["n_layers"],
-                        "gather"))
+                        "gather"),
+                       (LM_DIST_MOE["arch"], LM_DIST_MOE["n_layers"],
+                        "dense"))
 LM_DIST_LOSS_RTOL = 1e-4
 LM_DIST_PARAM_RTOL, LM_DIST_PARAM_ATOL = 2e-3, 2e-4
 
@@ -3070,9 +3083,25 @@ def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST, offload=False) -> dict:
 
 def lm_step_path(tt, cfg) -> str:
     """Which mesh step ``cfg`` takes: the dense step on its placed weights
-    or the gather path."""
-    return ("dense: placed weights" if cfg.family in tt.step.TP_FAMILIES
-            else "gather")
+    (a MoE layer's experts on their blocks) or the gather path."""
+    if cfg.family not in tt.step.TP_FAMILIES:
+        return "gather"
+    return "dense: placed weights" + (
+        ", experts on their blocks" if cfg.family == "moe" else "")
+
+
+def lm_step_profile(torch, fn, state, batch) -> dict:
+    """One step ``fn(state, batch)`` profiled (``profile_rows``): wall and
+    device ms, idle share, kernels, host op events."""
+    from torch.autograd import DeviceType
+    wall_ms, rows, averages = profile_rows(
+        torch, lambda s: fn(s, batch), state)
+    busy = sum(r[1] for r in rows)
+    return {"profiled_wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1 - busy / wall_ms,
+            "kernels": sum(r[2] for r in rows),
+            "host_ops": sum(ev.count for ev in averages
+                            if ev.device_type != DeviceType.CUDA)}
 
 
 def lm_dist_step_line(torch, card, dev) -> dict:
@@ -3080,7 +3109,6 @@ def lm_dist_step_line(torch, card, dev) -> dict:
     more mesh step counted (FLOPs, collectives) and one mesh and one local
     step profiled."""
     from repro_torch.configs import get_config
-    from torch.autograd import DeviceType
     cfg = get_config(LM_DIST["arch"])
     line = lm_dist_one_rank(torch, cfg, dev)
     mesh_step, step, placed, local, batches = line.pop("run")
@@ -3094,18 +3122,9 @@ def lm_dist_step_line(torch, card, dev) -> dict:
     counted = {"flops": flops.get_total_flops(), "collective_counts": {
         op.__name__: n for op, n in comm.get_comm_counts().items()}}
     # where a step's time goes: one mesh and one local step profiled
-    profiles = {}
-    for tag, fn, state in (("mesh", mesh_step, placed),
-                           ("local", step, local)):
-        wall_ms, rows, averages = profile_rows(
-            torch, lambda s, fn=fn: fn(s, batches[0]), state)
-        busy = sum(r[1] for r in rows)
-        profiles[tag] = {
-            "profiled_wall_ms": wall_ms, "device_ms": busy,
-            "idle_share": 1 - busy / wall_ms,
-            "kernels": sum(r[2] for r in rows),
-            "host_ops": sum(ev.count for ev in averages
-                            if ev.device_type != DeviceType.CUDA)}
+    profiles = {tag: lm_step_profile(torch, fn, state, batches[0])
+                for tag, fn, state in (("mesh", mesh_step, placed),
+                                       ("local", step, local))}
     del placed, local, step, mesh_step, batches
     torch.cuda.empty_cache()
     return {"lm_dist_step": cfg.name, "traffic": LM_DIST, **line,
@@ -3113,12 +3132,10 @@ def lm_dist_step_line(torch, card, dev) -> dict:
             "counted_step": counted, **card}
 
 
-def lm_dist_gather_line(torch, card, dev, g=LM_DIST_GATHER,
-                        offload=False) -> dict:
-    """``lm_dist_one_rank`` of ``g``'s model (a family the dense step does
-    not take; ``LM_DIST_GATHER``'s or ``LM_DIST_MOE``'s) at ``LM_DIST``'s
-    traffic: the gather path's mesh step bitwise the one-device step on
-    the card."""
+def lm_dist_gather_line(torch, card, dev, g=LM_DIST_GATHER) -> dict:
+    """``lm_dist_one_rank`` of ``g``'s model (a family the placed step
+    does not take) at ``LM_DIST``'s traffic: the gather path's mesh step
+    bitwise the one-device step on the card."""
     import dataclasses
 
     from repro_torch import training as tt
@@ -3128,13 +3145,77 @@ def lm_dist_gather_line(torch, card, dev, g=LM_DIST_GATHER,
     check(lm_step_path(tt, cfg) == "gather",
           f"lm dist: {cfg.name} no longer takes the gather path")
     t = {**LM_DIST, "steps": g["steps"]}
-    line = lm_dist_one_rank(torch, cfg, dev, t, offload)
+    line = lm_dist_one_rank(torch, cfg, dev, t)
     del line["run"]
     torch.cuda.empty_cache()
     return {"lm_dist_gather": cfg.name, "family": cfg.family,
             "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
             "traffic": {k: v for k, v in t.items() if k != "arch"},
             **line, **card}
+
+
+def lm_dist_moe_line(torch, card, dev, g=LM_DIST_MOE) -> dict:
+    """``g``'s MoE model at ``LM_DIST``'s traffic through the placed step
+    (``lm_dist_one_rank``, its state on the host for the one-device run),
+    bitwise the one-device step; one local step and one placed step (on a
+    fresh placed state) profiled; then the gather path (``TP_FAMILIES``
+    emptied), bitwise too; step ms placed against one device and against
+    the gather path."""
+    import dataclasses
+
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    full = get_config(g["arch"])
+    cfg = dataclasses.replace(full, n_layers=g["n_layers"])
+    check(lm_step_path(tt, cfg).startswith("dense"),
+          f"lm dist: {cfg.name} does not take the placed step")
+    t = {**LM_DIST, "steps": g["steps"]}
+    line = lm_dist_one_rank(torch, cfg, dev, t, offload=True)
+    _, step, _, local, batches = line.pop("run")
+    profiles = {"local": lm_step_profile(torch, step, local, batches[0])}
+    del local
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    _, _, whole = lm_dist_setup(torch, tm, tt, cfg, dev, t)
+    placed = tt.place_train_state(whole, state_shardings(cfg, mesh))
+    del whole
+
+    def mesh_step(state, batch):
+        with use_mesh(mesh):
+            return step(state, batch)
+
+    profiles["mesh"] = lm_step_profile(torch, mesh_step, placed, batches[0])
+    del placed, step, batches
+    torch.cuda.empty_cache()
+    families = tt.step.TP_FAMILIES
+    tt.step.TP_FAMILIES = ()
+    try:
+        check(lm_step_path(tt, cfg) == "gather",
+              f"lm dist: {cfg.name} does not take the gather path")
+        gather = lm_dist_one_rank(torch, cfg, dev, t, offload=True)
+    finally:
+        tt.step.TP_FAMILIES = families
+    del gather["run"]
+    torch.cuda.empty_cache()
+    check(gather["dropped_frac"] == line["dropped_frac"],
+          f"lm dist: {cfg.name}'s dropped_frac {line['dropped_frac']} "
+          f"placed, {gather['dropped_frac']} on the gather path")
+    return {"lm_dist_moe": cfg.name, "family": cfg.family,
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+            "traffic": {k: v for k, v in t.items() if k != "arch"},
+            **line, "profiles": profiles,
+            "placed_over_local": line["mesh_step_ms_median"]
+            / line["local_step_ms_median"],
+            "placed_over_gather": line["mesh_step_ms_median"]
+            / gather["mesh_step_ms_median"],
+            "gather": {k: gather[k] for k in (
+                "step_path", "mesh_step_ms", "mesh_step_ms_median",
+                "local_step_ms_median", "peak_allocated_bytes_per_rank",
+                "dropped_frac", "bitwise_vs_one_device")}, **card}
 
 
 def lm_dist_launcher_line(card) -> dict:
@@ -3211,10 +3292,10 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
     from repro_torch import models as tm
     from repro_torch import training as tt
     from repro_torch.distributed import use_mesh
+    from repro_torch.launch.dryrun import CollectiveMode
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.launch.mesh import make_auto_mesh
     from torch.autograd import DeviceType
-    from torch.distributed.tensor.debug import CommDebugMode
     t = LM_DIST_MULTI
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", store=dist.FileStore(store, t["ranks"]),
@@ -3250,10 +3331,11 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
             peak = torch.cuda.max_memory_allocated()
             params = {n: lm_whole(p).detach().cpu().numpy()
                       for n, p in state.params.items()}
-            with CommDebugMode() as comm:
+            # (CommDebugMode's module tracker fails on a MoE layer that
+            # is recomputed under remat)
+            with CollectiveMode() as comm:
                 state, _ = mesh_step(state, batches[0])
-            counts = {op.__name__: n
-                      for op, n in comm.get_comm_counts().items()}
+            counts = dict(collections.Counter(n for n, _ in comm.records))
             wall, rows, averages = profile_rows(
                 torch, lambda s: mesh_step(s, batches[0]), state)
             profile = {
@@ -4249,8 +4331,7 @@ def main() -> int:
         dist_line = lm_dist_step_line(torch, card, dev)
         log(json.dumps(dist_line))
         log(json.dumps(lm_dist_gather_line(torch, card, dev)))
-        log(json.dumps(lm_dist_gather_line(torch, card, dev, LM_DIST_MOE,
-                                           offload=True)))
+        log(json.dumps(lm_dist_moe_line(torch, card, dev)))
     log(json.dumps(lm_dist_launcher_line(card)))
     for line in lm_dist_multi_line(torch, card):
         log(json.dumps(line))
@@ -4258,8 +4339,8 @@ def main() -> int:
     check(not any(dist_k.values()),
           f"the distributed LM phase launched a kernel of the port: {dist_k}")
     log(f"lm_dist: {LM_DIST['arch']}'s mesh step (dense), "
-        f"{LM_DIST_GATHER['arch']}'s and {LM_DIST_MOE['arch']}'s (the "
-        f"gather path) on a one-rank NCCL "
+        f"{LM_DIST_MOE['arch']}'s (placed, and on the gather path) and "
+        f"{LM_DIST_GATHER['arch']}'s (the gather path) on a one-rank NCCL "
         f"(1, 1) mesh bitwise the one-device step; the launcher under "
         f"COORDINATOR_ADDRESS killed after step {LM_CKPT_KILL_AT} resumed "
         f"bitwise; no kernel of the port launched ({dist_k}), in "

@@ -24,21 +24,29 @@ before a more major one in the mesh takes a ``_StridedShard`` whose split
 factor is the product of those more major axes' sizes (``placements``);
 ``local_block`` cuts a rank's block by its mesh coordinate as JAX does.
 
-Computing on a mesh (the dense family's mesh train step): the weights are
-DTensors of each rank's block, and ``weight_use`` gives a weight as one
-use reads it: gathered along the data-parallel axes (those of the
-``"batch"`` rule, whose ranks hold other rows), still cut along the
-others ("model"); the backward of that gather reduce-scatters the
+Computing on a mesh (the dense and MoE families' mesh train step): the
+weights are DTensors of each rank's block, and ``weight_use`` gives a
+weight as one use reads it: gathered along the data-parallel axes (those
+of the ``"batch"`` rule, whose ranks hold other rows), still cut along
+the others ("model"); the backward of that gather reduce-scatters the
 weight's gradient.  ``shard`` places an activation at one of the
 reference's annotation points, ``match`` puts one value in another's
 placements (the residual stream's), and ``local_apply`` runs a function
 on each rank's blocks of operands laid out for it (``models.layers
 .matmul`` and the attention core).
 
-On the gather path (every other family's mesh step) a rank computes its
-block of whole rows of a microbatch on whole weights; ``row_blocks`` tells
-a layer that reads the whole microbatch (MoE) which block it holds and
-which group holds the others.
+The MoE layer's expert weights take ``expert_weight_use``: still cut
+along the mesh dims that cut their expert dim, gathered along the other
+data-parallel axes, so that each rank runs its own experts (or its slice
+of their capacity) on a buffer cut the same way; ``redistribute_stepwise``
+moves its buffers one mesh dim at a time (reduce-scatters onto the expert
+blocks, gathers back).  ``row_blocks`` tells the MoE layer, which reads
+the whole microbatch (capacity, first-come positions, load balance),
+which row block of it the rank holds and which group holds the others:
+the mesh step sets it on the placed path and on the gather path alike.
+
+On the gather path (the recurrent families' mesh step) a rank computes
+its block of whole rows of a microbatch on whole weights.
 """
 
 from __future__ import annotations
@@ -118,7 +126,7 @@ def use_mesh(mesh, rules: dict | None = None):
 @dataclasses.dataclass(frozen=True)
 class RowBlocks:
     """What a layer that reads a whole microbatch (MoE's capacity and
-    first-come positions) must know on the gather path: its input is row
+    first-come positions) must know on a mesh: its rank's rows are row
     block ``index`` of ``count`` equal blocks of the microbatch, in row
     order, and ``group`` is the process group of the ranks holding the
     ``count`` blocks (``index`` is not a rank of it)."""
@@ -365,14 +373,29 @@ def weight_use(w, dtype=None):
     first: it is elementwise, so the gathered bits are the same, and the
     gather moves the compute dtype's bytes.  The backward sums the use's
     gradient over those axes into each rank's block (a reduce-scatter)."""
+    return _use(w, dtype, experts=False)
+
+
+def expert_weight_use(w, dtype=None):
+    """An expert weight (dim 0 its experts) as one use of the placed MoE
+    layer reads it: ``weight_use``'s cast and gather, but still cut along
+    each mesh dim that cuts its expert dim, where the layer's buffer is
+    cut the same way (``models.moe._placed_moe``).  The backward
+    reduce-scatters the use's gradient along the gathered axes only."""
+    return _use(w, dtype, experts=True)
+
+
+def _use(w, dtype, experts: bool):
     if dtype is not None:
         w = w.to(dtype)
     mesh = current_mesh()
     if mesh is None or not isinstance(w, DTensor):
         return w
     data = set(spec_axes(current_rules().get("batch")))
-    use = tuple(Replicate() if name in data else p for name, p in zip(
-        w.device_mesh.mesh_dim_names, w.placements))
+    use = tuple(Replicate() if name in data
+                and not (experts and p.is_shard(0)) else p
+                for name, p in zip(w.device_mesh.mesh_dim_names,
+                                   w.placements))
     return w if use == w.placements else _WeightUse.apply(w, use)
 
 
@@ -398,6 +421,54 @@ class _WeightUse(torch.autograd.Function):
                 step[i] = p
                 g = g.redistribute(mesh, step)
         return g, None
+
+
+def redistribute_stepwise(t, target):
+    """The DTensor ``t`` in placements ``target``, one mesh dim at a time
+    (``_steps``).  DTensor's one-shot plans all-reduce where a
+    reduce-scatter does: for several partial dims, and in the backward of
+    a gather along one mesh dim while another is partial.  The backward
+    puts the gradient in ``t``'s placements the same way (a partial
+    placement of ``t`` takes a replicated gradient)."""
+    target = tuple(target)
+    return t if target == tuple(t.placements) else _Stepwise.apply(t,
+                                                                  target)
+
+
+def _steps(t, target):
+    """``t`` moved to ``target`` one mesh dim at a time: its partial sums
+    first, outermost mesh dim first (each a reduce-scatter, or an
+    all-reduce where ``target`` replicates), then the blocks it cuts from
+    whole dims (local), then its gathers, innermost first, and any move of
+    a cut between tensor dims last."""
+    mesh = t.device_mesh
+    cur = list(t.placements)
+    n = len(cur)
+    order = ([i for i in range(n) if cur[i].is_partial()]
+             + [i for i in range(n) if cur[i].is_replicate()
+                and target[i].is_shard()]
+             + [i for i in reversed(range(n)) if cur[i].is_shard()
+                and target[i].is_replicate()])
+    for i in order:
+        if cur[i] != target[i]:
+            cur[i] = target[i]
+            t = t.redistribute(mesh, tuple(cur))
+    if tuple(cur) != tuple(target):
+        t = t.redistribute(mesh, tuple(target))
+    return t
+
+
+class _Stepwise(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, t, target):
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in t.placements)
+        return _steps(t, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _steps(g, ctx.placements), None
 
 
 def match(y, x):
@@ -457,10 +528,11 @@ def local_apply(fn, args, in_placements, out_placements):
     """``fn(*args)`` on each rank's blocks.  Each operand is redistributed
     to its placements in ``in_placements`` (a plain tensor is taken as the
     same on every rank), ``fn`` runs on the local blocks, and its output
-    becomes a DTensor of ``out_placements``.  An operand replicated on a
-    mesh dim where the output is not has a partial gradient there: every
-    rank's block of the output read all of it.  Without a DTensor operand
-    it is ``fn(*args)``."""
+    becomes a DTensor of ``out_placements`` (each of its outputs, where it
+    returns a tuple).  An operand replicated on a mesh dim where the
+    output is not has a partial gradient there: every rank's block of the
+    output read all of it.  Without a DTensor operand it is
+    ``fn(*args)``."""
     mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
                 None)
     if mesh is None:
@@ -479,5 +551,8 @@ def local_apply(fn, args, in_placements, out_placements):
             Partial() if p.is_replicate() and not o.is_replicate() else p
             for p, o in zip(pl, out_placements))
         local.append(a.to_local(grad_placements=grad))
-    return DTensor.from_local(fn(*local), mesh, out_placements,
-                              run_check=False)
+    out = fn(*local)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, out_placements,
+                                        run_check=False) for o in out)
+    return DTensor.from_local(out, mesh, out_placements, run_check=False)

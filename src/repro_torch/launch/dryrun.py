@@ -349,11 +349,29 @@ class PeakTracker(MemTracker):
             torch.device(device), {}).get("Total", 0)
 
 
+class _GlobalOnly:
+    """``FlopCounterMode``'s module tracker, every op counted under
+    "Global" and no hooks installed.  ``ModuleTracker`` puts grad hooks on
+    each module call's inputs and outputs, whose closures form reference
+    cycles with autograd nodes; those keep a checkpointed block's
+    recomputed tensors alive until Python's garbage collector runs (the
+    MoE layer is the one module a block calls), a peak of the tracer's own
+    making (one MoE block's recomputation a layer)."""
+    parents = frozenset({"Global"})
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args) -> None:
+        pass
+
+
 def _traced(fn, device, held, args_bytes: int) -> dict:
     """Runs ``fn()`` once under the counters: FLOPs, the collectives, and
     the peak of the live tensors on ``device``, ``held`` (tensors that live
     before the call) included."""
     flops = FlopCounterMode(display=False)
+    flops.mod_tracker = _GlobalOnly()
     comm = CollectiveMode()
     mem = PeakTracker()
     mem.track_external(*held)
@@ -379,14 +397,15 @@ def lower_train_cell(cfg, cell, mesh, rules=None) -> dict:
     """One mesh step of ``cfg`` on ``cell``'s batch, traced on this rank of
     ``mesh`` (a fake world's): the state placed by ``state_shardings``,
     ``build_train_step(cfg, microbatches=global_batch // microbatch,
-    remat="full")`` run under ``use_mesh(mesh, rules)``.  A MoE model on
-    more than one batch shard takes the gather path's row blocks: one
-    ``allreduce_`` of the ``[blocks, experts]`` int32 count table a layer
-    and microbatch, and again in each block's recomputation; each rank
-    runs the experts on whole weights over an ``[e, cap]`` buffer whose
-    capacity is the whole microbatch's, so its FLOPs count the whole
-    microbatch's expert work (the gather path's cost, which
-    expert-parallel compute removes: ``training.step._EP_ITEM``)."""
+    remat="full")`` run under ``use_mesh(mesh, rules)``.  A MoE model
+    takes the placed step: each rank runs the experts of its own block of
+    the expert dim (or, where the experts do not divide by their axes, as
+    mixtral-8x22b's 8 on 16 or 32 ranks, every expert on its own slice of
+    the capacity, the weights gathered along the freed axis) on a
+    ``[e, cap]`` buffer whose capacity is the whole microbatch's; on more
+    than one batch shard one ``allreduce_`` of the ``[blocks, experts]``
+    int32 count table a layer and microbatch, and again in each block's
+    recomputation."""
     micro = max(1, cell.global_batch // max(cell.microbatch, 1))
     step_fn = build_train_step(cfg, microbatches=micro, remat="full")
     batch_abs = input_specs(cfg, cell)

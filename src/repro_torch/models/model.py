@@ -25,11 +25,12 @@ RWKV block and each Mamba2 layer is one ``torch.utils.checkpoint``.
 ``prefill``, ``decode_step`` and ``init_decode_state`` run under
 ``torch.inference_mode``.
 
-``forward`` of a dense model also runs on a mesh, on DTensor weights (the
-mesh train step): the embedded inputs take the reference's ``("batch",
-"seq", "act_embed")`` annotation, the residual stream keeps that
-placement (each block's attention and MLP outputs are summed into it),
-and the layers compute on each rank's blocks (``models.layers``).
+``forward`` of a dense or MoE model also runs on a mesh, on DTensor
+weights (the mesh train step): the embedded inputs take the reference's
+``("batch", "seq", "act_embed")`` annotation, the residual stream keeps
+that placement (each block's attention and MLP or MoE outputs are put in
+it and summed into it), and the layers compute on each rank's blocks
+(``models.layers``, ``models.moe``).
 """
 
 from __future__ import annotations
@@ -281,22 +282,24 @@ def _block(bp: Block, cfg: ModelConfig, x, pos, is_global: bool, mode: str,
     x, h2 = add_rms_norm(x, match(a, x), bp.ln2, cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = bp.mlp(cfg, h2, dtype)
-        return x + y, aux
+        return x + match(y, x), aux
     return x + match(mlp_apply(bp.mlp, h2, dtype), x), None
 
 
 def _dense_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,
                  remat: str = "none"):
     """The blocks in order; "train" sums the MoE aux values over the
-    layers.  Returns (x, aux)."""
+    layers (on a mesh DTensors in the layers' placements), zeros for a
+    dense model.  Returns (x, aux)."""
     dtype = cfg.compute_dtype
-    aux = _zero_aux(x.device)
+    aux = None
     for i, (lp, ig) in enumerate(zip(model.layers, _is_global_pattern(cfg))):
         x, layer_aux = _run(remat, _block, lp, cfg, x, pos, ig, mode, cache,
                             i, dtype)
         if mode == "train" and layer_aux is not None:
-            aux = {n: aux[n] + layer_aux[n] for n in aux}
-    return x, aux
+            aux = layer_aux if aux is None else {
+                n: aux[n] + layer_aux[n] for n in aux}
+    return x, _zero_aux(x.device) if aux is None else aux
 
 
 def _rwkv_stack(model: LM, cfg: ModelConfig, x, pos, mode: str, cache,

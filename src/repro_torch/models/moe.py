@@ -9,12 +9,16 @@ trash row of dropped tokens, the experts as batched einsums, a gather +
 gate-weighted combine, the shared expert, and the aux values
 ``load_balance``, ``router_z`` and ``dropped_frac``.
 
-On the gather path of the mesh train step a rank holds one row block of
-each microbatch (``distributed.sharding.row_blocks``), and ``moe_apply``
-computes what the whole microbatch gives its rows, as the reference does
-on the whole: the capacity from every block's tokens, first-come
-positions over the microbatch in row order (one exchange of per-expert
-counts a layer), and the aux values over every token.
+On a mesh the layer reads the whole microbatch: its capacity, first-come
+positions over the microbatch in row order and aux values are the whole
+microbatch's, whichever row block of it a rank holds
+(``distributed.sharding.row_blocks``; one exchange of per-expert counts
+a layer).  The mesh train step on placed weights hands it a DTensor
+residual stream (``_placed_moe``): the experts stay cut along their
+expert dim, and the tokens move to the ranks holding their experts'
+buffer blocks and back at the reference's ``shard()`` points.  On the
+gather path each rank runs the experts on whole weights over its own
+``[e, cap]`` buffer (``moe_apply`` on a plain tensor).
 
 ``load_stats`` is expert load as ``SELECT expert, COUNT(*) GROUP BY
 expert`` through the query engine's ``group_by_sum``: on the card it
@@ -26,8 +30,20 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import current_row_blocks
+from repro_torch.distributed.sharding import (
+    current_row_blocks,
+    expert_weight_use,
+    local_apply,
+    match,
+    placements,
+    redistribute_stepwise,
+    replicated_like,
+    resolve_spec,
+    spec_axes,
+    weight_use,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -73,11 +89,16 @@ def route(p: MoE, cfg: ModelConfig, xt, dtype):
     lower expert index, as ``jax.lax.top_k`` breaks them: a stable
     descending sort keeps equal probabilities in index order, where
     ``torch.topk`` promises no order."""
-    logits = matmul(xt, p.router.to(dtype)).to(torch.float32)
+    return _route(xt, p.router.to(dtype), cfg.top_k)
+
+
+def _route(xt, router, k: int):
+    """``route`` with the router weight in use (cast) given."""
+    logits = matmul(xt, router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate = top.values[:, :cfg.top_k]
-    expert_idx = top.indices[:, :cfg.top_k]
+    gate = top.values[:, :k]
+    expert_idx = top.indices[:, :k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return logits, probs, gate, expert_idx
 
@@ -114,6 +135,48 @@ def first_come(flat_e, e: int, blocks=None):
             table.sum(dim=0, dtype=torch.int32))
 
 
+# --------------------------------------------------------------------------
+# the layer's stages, on whole tensors or on one rank's blocks
+# --------------------------------------------------------------------------
+def _dispatch(xt, lin, e: int, cap: int, k: int, dtype):
+    """Each (token, choice) of ``xt`` [t, d] scattered to buffer row
+    ``lin`` of a zero ``[e·(cap+1), d]`` buffer (row ``cap`` of each expert
+    the trash row of dropped tokens), which is returned without its trash
+    rows: ``[e, cap, d]``."""
+    d = xt.shape[-1]
+    buf = torch.zeros((e * (cap + 1), d), dtype=dtype, device=xt.device)
+    buf[lin] = torch.repeat_interleave(xt, k, dim=0).to(dtype)
+    return buf.reshape(e, cap + 1, d)[:, :cap]
+
+
+def _experts(buf, wi, wg, wo):
+    """The batched per-expert SwiGLU of ``buf`` [e, cap, d]."""
+    h = einsum("ecd,edf->ecf", buf, wi)
+    g = einsum("ecd,edf->ecf", buf, wg)
+    return einsum("ecf,efd->ecd", silu(g) * h, wo)
+
+
+def _combine(out_buf, gate, lin_out, keep, k: int, dtype):
+    """Each (token, choice)'s row ``lin_out`` of ``out_buf`` [e, cap, d]
+    weighted by its gate (zero where dropped), summed over the choices:
+    [t, d]."""
+    d = out_buf.shape[-1]
+    w = (gate.reshape(-1) * keep).to(dtype)
+    rows = out_buf.reshape(-1, d)[lin_out] * w[:, None]
+    return rows.reshape(-1, k, d).sum(dim=1)
+
+
+def _aux(logits, probs, total, e: int, tokens: int):
+    """``load_balance`` and ``router_z`` of the tokens whose router
+    outputs are ``logits`` and ``probs`` [t, e], as their share of a
+    microbatch of ``tokens`` tokens whose summed assignment counts are
+    ``total``."""
+    density = total.to(torch.float32) / tokens
+    lse = torch.logsumexp(logits, -1)
+    return (e * torch.sum(density * (probs.sum(dim=0) / tokens)),
+            torch.sum(torch.square(lse)) / tokens)
+
+
 def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
     """x: [B, S, D] → ([B, S, D], aux dict of float32 scalars).
 
@@ -134,7 +197,12 @@ def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
     ``row_blocks`` (one device, or a mesh whose batch axes leave the rows
     whole) ``x`` is the whole microbatch, ``n`` is 1, and the same
     formulas give the whole values.
+
+    A DTensor ``x`` (the mesh step on placed weights) takes
+    ``_placed_moe``.
     """
+    if isinstance(x, DTensor):
+        return _placed_moe(p, cfg, x, dtype)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -146,42 +214,171 @@ def moe_apply(p: MoE, cfg: ModelConfig, x, dtype):
 
     # position of each (token, choice) within its expert, first come first
     # served over the microbatch; over capacity drops
-    n_assign = t * k
-    flat_e = expert_idx.reshape(n_assign)
+    flat_e = expert_idx.reshape(t * k)
     pos, at, _, total = first_come(flat_e, e, blocks)
     keep = at < cap
 
     # scatter into the buffer by linear row index; row cap is the trash
     flat_pos = torch.where(keep, pos, cap)
-    lin = flat_e * (cap + 1) + flat_pos
-    buf = torch.zeros((e * (cap + 1), d), dtype=dtype, device=x.device)
-    buf[lin] = torch.repeat_interleave(xt, k, dim=0).to(dtype)
-    buf = buf.reshape(e, cap + 1, d)[:, :cap]
-
-    # batched per-expert SwiGLU
-    h = einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
-    g = einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
-    out_buf = einsum("ecf,efd->ecd", silu(g) * h, p.wo.to(dtype))
-    out_buf = out_buf.reshape(e * cap, d)
-
-    # combine: gather each (token, choice) result, weight by gate
+    buf = _dispatch(xt, flat_e * (cap + 1) + flat_pos, e, cap, k, dtype)
+    out_buf = _experts(buf, p.wi.to(dtype), p.wg.to(dtype), p.wo.to(dtype))
     lin_out = flat_e * cap + torch.clamp(flat_pos, max=cap - 1)
-    w = (gate.reshape(n_assign) * keep).to(dtype)
-    out = (out_buf[lin_out] * w[:, None]).reshape(t, k, d).sum(dim=1)
+    out = _combine(out_buf, gate, lin_out, keep, k, dtype)
 
     if p.shared is not None:
         out = out + mlp_apply(p.shared, xt, dtype)
 
     # aux losses (Switch-style load balance + router z-loss)
-    lse = torch.logsumexp(logits, -1)
-    density = total.to(torch.float32) / (n * t)
+    load_balance, router_z = _aux(logits, probs, total, e, n * t)
+    return out.reshape(b, s, d), {
+        "load_balance": load_balance, "router_z": router_z,
+        "dropped_frac": _dropped_frac(total, cap, n * t * k)}
+
+
+def _dropped_frac(total, cap: int, n_assign: int):
     kept = torch.clamp(total, max=cap).sum().to(torch.float32)
-    aux = {
-        "load_balance": e * torch.sum(density * (probs.sum(dim=0) / (n * t))),
-        "router_z": torch.sum(torch.square(lse)) / (n * t),
-        "dropped_frac": 1.0 - kept / (n * n_assign),
-    }
-    return out.reshape(b, s, d), aux
+    return 1.0 - kept / n_assign
+
+
+def _placed_moe(p: MoE, cfg: ModelConfig, x, dtype):
+    """``moe_apply`` of a microbatch whose residual stream ``x`` [B, S, D]
+    is a DTensor (its rows cut over the batch axes that divide them, its
+    sequence over "model"), on the placed weights, at the reference's
+    ``shard()`` points:
+
+      * tokens: ``x`` gathered along "model" (``("batch", None, None)``),
+        so that every rank of a row block holds its rows whole and in the
+        microbatch's (row, position) order; the router's float32 logits
+        from the whole ``d`` on every such rank (the same product of the
+        same bits); the dispatched tokens are this rank's block of ``d``
+        ("dispatch_embed"), a slice of what it holds.  One all-gather of
+        the block's ``[rows, S, D]`` where the reference's
+        ``("batch", "dispatch_embed")`` point moves the sequence cut to
+        ``d`` and a ``d`` gather feeds the router;
+      * positions: the row block's first-come positions in the microbatch
+        (``first_come`` over ``row_blocks``, one ``[n, e]`` count table a
+        layer), the capacity the microbatch's;
+      * dispatch: each rank scatters its kept assignments at their
+        positions in the microbatch into a zero ``[e, cap, D/model]``
+        buffer (``(None, "dispatch_embed")``), a partial sum over the mesh
+        dims that cut the rows (the ranks' slots are disjoint), the same
+        on a batch axis the rows do not divide; the buffer is
+        reduce-scattered onto ``("experts", None, "act_embed")``, one mesh
+        dim at a time, and gathered along "model".  Each rank sends its
+        whole ``[e, cap, D/model]`` buffer into the reduce-scatter: 1/model
+        of the whole buffer, however few of its slots it filled (an
+        exchange of the rank's own assignments alone is a later change);
+      * experts: ``h`` and ``g`` (``("experts", None, "expert_mlp")``) and
+        ``wo``'s product on each rank's blocks, the weights as
+        ``expert_weight_use`` gives them: still cut along each mesh dim
+        that cuts their expert dim (the buffer's expert dim resolves the
+        same rule on the same ``e``), gathered along the other
+        data-parallel axes, cut along "model".  Where the experts do not
+        divide by their axes (mixtral's 8 on 16 or 32 ranks), the freed
+        axis cuts the weights' ``d`` and the buffer's capacity: the
+        weights are gathered along it, and each rank runs every expert
+        on its slice of the capacity;
+      * combine: ``wo``'s partial sums reduce-scattered over "model" onto
+        ``d`` and gathered along the axes that cut ``e`` or ``cap``
+        (``(None, "dispatch_embed")``: whole ``e·cap`` rows); each rank
+        reads its tokens' rows at their microbatch positions, weights
+        them by the gate and sums over ``k``; the caller puts the result
+        in the residual's placement;
+      * the shared expert: ``mlp_apply``, the dense block's MLP, on the
+        gathered rows (which its column-parallel products would gather;
+        the backward then sums the tokens' gradients in the one-device
+        order);
+      * aux: ``load_balance`` and ``router_z`` this rank's shares, partial
+        sums over the mesh dims that cut the rows and replicated on every
+        other (each rank of a row block holds the same tokens);
+        ``density`` and ``dropped_frac`` from the summed int32 counts,
+        replicated.
+
+    ``cfg.dispatch_reshard`` has no effect: the buffer always takes the
+    expert placement that every config's True asks for."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    blocks = current_row_blocks()
+    cap = _capacity(cfg, b * s)
+    # this rank's rows whole, and their block of d
+    rows = tuple(pl.is_shard(0) for pl in x.placements)
+    tok = tuple(Shard(0) if r else Replicate() for r in rows)
+    d_axes = spec_axes(resolve_spec((d,), ("dispatch_embed",))[0])
+    tok_d = tuple(Shard(2) if a in d_axes else pl
+                  for a, pl in zip(names, tok))
+    xw = x.redistribute(mesh, tok)
+
+    # the router whole ("embed", None: weight_use gathers it whole)
+    logits, probs, gate, expert_idx = local_apply(
+        lambda xl, r: _route(xl.reshape(-1, d), r, k),
+        (xw, weight_use(p.router, dtype)),
+        (tok, (Replicate(),) * mesh.ndim), tok)
+
+    flat_e = expert_idx.to_local().reshape(-1)
+    _, at, _, total = first_come(flat_e, e, blocks)
+    keep = at < cap
+    slot = torch.where(keep, at, cap)
+
+    # dispatch: disjoint slots of one [e, cap, d] buffer, summed onto the
+    # expert blocks
+    partial = tuple(Partial() if r else Replicate() for r in rows)
+    buf = local_apply(
+        lambda xl: _dispatch(xl.reshape(-1, xl.shape[-1]),
+                             flat_e * (cap + 1) + slot, e, cap, k, dtype),
+        (xw,), (tok_d,),
+        tuple(Shard(2) if a in d_axes else pl
+              for a, pl in zip(names, partial)))
+    buf = redistribute_stepwise(buf, placements(resolve_spec(
+        (e, cap, d), ("experts", None, "act_embed")), mesh))
+
+    wi, wg, wo = (expert_weight_use(w, dtype) for w in (p.wi, p.wg, p.wo))
+    out_pl = _expert_placements(buf, wi, wo)
+    out_buf = local_apply(_experts, (buf, wi, wg, wo), (
+        buf.placements, wi.placements, wg.placements, wo.placements),
+        out_pl)
+
+    # combine: whole e·cap rows, d cut as the dispatched tokens were
+    out_buf = redistribute_stepwise(out_buf, tuple(
+        Shard(2) if a in d_axes else Replicate() for a in names))
+    lin_out = flat_e * cap + torch.clamp(slot, max=cap - 1)
+    out = local_apply(
+        lambda ob, g: _combine(ob, g, lin_out, keep, k, dtype).reshape(
+            -1, s, ob.shape[-1]),
+        (out_buf, gate), (out_buf.placements, tok), tok_d)
+    out = match(out, x)
+    if p.shared is not None:
+        out = out + match(mlp_apply(p.shared, xw, dtype), x)
+
+    load_balance, router_z = local_apply(
+        lambda lg, pr: _aux(lg, pr, total, e, b * s), (logits, probs),
+        (tok, tok), partial)
+    return out, {
+        "load_balance": load_balance, "router_z": router_z,
+        "dropped_frac": replicated_like(
+            _dropped_frac(total, cap, b * s * k), x)}
+
+
+def _expert_placements(buf, wi, wo) -> tuple:
+    """The placements of the experts' output ``[e, cap, d]`` from the
+    buffer's and the weights' in use, mesh dim by mesh dim: cut as the
+    buffer's experts or capacity are, a partial sum where "model" cuts
+    ``d_ff``, whole elsewhere.  Any other layout raises."""
+    out = []
+    for bp, ip, op in zip(buf.placements, wi.placements, wo.placements):
+        if bp.is_shard(0) and ip.is_shard(0) and op.is_shard(0):
+            out.append(Shard(0))
+        elif bp.is_shard(1) and ip.is_replicate() and op.is_replicate():
+            out.append(Shard(1))
+        elif bp.is_replicate() and ip.is_shard(2) and op.is_shard(1):
+            out.append(Partial())
+        elif bp.is_replicate() and ip.is_replicate() and op.is_replicate():
+            out.append(Replicate())
+        else:
+            raise ValueError(f"experts on a buffer {buf.placements} and "
+                             f"weights {ip}, {op}: no block-local product")
+    return tuple(out)
 
 
 def load_stats(expert_idx, n_experts: int):

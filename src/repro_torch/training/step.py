@@ -23,28 +23,34 @@ axes that divide the row count (``microbatch_specs``; microbatch ``i`` is
 the same rows as on one device).  The norm, the clip and the int8 round
 trip see the whole gradient; AdamW updates each rank's blocks.
 
-A dense model (``TP_FAMILIES``) computes on its placed weights, as GSPMD
-partitions the reference: the microbatch enters as a DTensor, each use of
-a weight gathers it along the data-parallel axes only (``"model"`` stays
-cut: tensor-parallel products), the reference's ``shard`` annotations
-place the activations (the residual stream's sequence over ``"model"``),
-and the loss is the whole microbatch's.  The gradients come back in the
-weights' placements (each use's reduce-scatter) and accumulate in float32
-as each rank's blocks: no weight is gathered whole and no gradient
-accumulated whole.
+A dense or MoE model (``TP_FAMILIES``) computes on its placed weights,
+as GSPMD partitions the reference: the microbatch enters as a DTensor,
+each use of a weight gathers it along the data-parallel axes only
+(``"model"`` stays cut: tensor-parallel products), the reference's
+``shard`` annotations place the activations (the residual stream's
+sequence over ``"model"``), and the loss is the whole microbatch's.  A
+MoE layer's expert weights stay cut along the axes that cut their expert
+dim (``sharding.expert_weight_use``): its tokens move to the ranks
+holding their experts' buffer blocks and back at the reference's
+``shard()`` points (``models.moe``), and the step tells it which row
+block of the microbatch the rank holds (``sharding.row_blocks``), so
+that its capacity, first-come positions, ``density``, ``dropped_frac``
+and load balance are the whole microbatch's.  The gradients come back in
+the weights' placements (each use's reduce-scatter) and accumulate in
+float32 as each rank's blocks: no weight is gathered whole and no
+gradient accumulated whole.
 
-The other families (rwkv6, mamba2, the hybrid and MoE) gather each weight
-once for the forward and the backward and compute their rows on whole
-weights; the losses divide by the whole microbatch's token count, so the
-float32 gradients summed over the ranks holding the other rows are the
-microbatch's.  Ranks along axes that do not shard the batch compute the
-same rows.  A MoE layer reads the whole microbatch (its capacity,
-first-come positions and load balance): the step tells it which row block
-the rank holds (``sharding.row_blocks``), it exchanges per-expert counts
-over the batch group, and its ``load_balance`` and ``router_z`` come back
-as this rank's shares, summed over the group with the losses.  Each rank
-still runs the experts on whole weights over its own ``[e, cap]`` buffer;
-expert-parallel compute on the placed weights is ``_EP_ITEM``.
+The other families (rwkv6, mamba2 and the hybrid) take the gather path:
+each weight gathered once for the forward and the backward, their rows
+computed on whole weights; the losses divide by the whole microbatch's
+token count, so the float32 gradients summed over the ranks holding the
+other rows are the microbatch's.  Ranks along axes that do not shard the
+batch compute the same rows.  A MoE model takes it too where
+``TP_FAMILIES`` leaves "moe" out (the tests' and ``chip_smoke.py``'s
+comparison): its layer then exchanges per-expert counts over the batch
+group as above, returns its ``load_balance`` and ``router_z`` as this
+rank's shares, summed over the group with the losses, and runs the
+experts on whole weights over its own ``[e, cap]`` buffer.
 """
 
 from __future__ import annotations
@@ -81,10 +87,8 @@ from repro_torch.training.optimizer import (
     global_norm,
 )
 
-# the queue item that takes expert-parallel compute
-_EP_ITEM = "ROADMAP.md §1 item 5b-ii"
 # the families whose mesh step computes on the placed weights
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -181,9 +185,10 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
 
     def placed_grads(model, batch, specs, mesh):
         """``grads_of`` on the placed model itself (``TP_FAMILIES``): each
-        microbatch a DTensor of each rank's rows, the loss the whole
-        microbatch's, the float32 gradients accumulated as each rank's
-        blocks and returned as DTensors in the weights' placements."""
+        microbatch a DTensor of each rank's rows (``row_blocks`` says
+        which block of them, for MoE), the loss the whole microbatch's,
+        the float32 gradients accumulated as each rank's blocks and
+        returned as DTensors in the weights' placements."""
         weights = list(model.parameters())
         g_acc = [torch.zeros(w.to_local().shape, dtype=torch.float32,
                              device=w.device) for w in weights]
@@ -242,17 +247,19 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                              "(place_train_state, or Checkpointer.restore "
                              "with shardings)")
         specs = microbatch_specs(batch, m)
+        axes = spec_axes(specs["tokens"][0])
+        index, count = block_of(specs["tokens"][0], mesh)
         if cfg.family in TP_FAMILIES:
             # the data-parallel axes' flattened sub-mesh: DTensor gathers a
             # weight along them in one collective
             _batch_group(mesh, tuple(a for a in mesh.mesh_dim_names if a in
                                      spec_axes(current_rules()["batch"])))
-            grads, loss_sum, metrics = placed_grads(state.model, batch,
-                                                    specs, mesh)
+            with row_blocks(RowBlocks(index, count, _batch_group(mesh, axes))
+                            if count > 1 else None):
+                grads, loss_sum, metrics = placed_grads(state.model, batch,
+                                                        specs, mesh)
             return update(state, grads, loss_sum, metrics, state.shardings)
-        axes = spec_axes(specs["tokens"][0])
         group = _batch_group(mesh, axes)
-        index, count = block_of(specs["tokens"][0], mesh)
         with torch.no_grad():       # each weight gathered once
             full = {n: p.full_tensor() for n, p in state.params.items()}
         compute = LM(cfg, "meta")

@@ -33,12 +33,22 @@ written by its checkpointer.  Held:
   * every rank's copy of a replicated block bitwise equal to every other's;
   * ``CompressedPsum`` over groups of 2 and 4 ranks against a numpy
     oracle;
-  * MoE on more than one batch shard: mixtral-smoke and moonshot-smoke on
-    (2,2,2) (4 batch shards of one 16-token row; tokens drop, so which
-    ones depends on the order across the ranks), 2 steps against the
+  * MoE on more than one batch shard, on the gather path (``TP_FAMILIES``
+    emptied in the ranks): mixtral-smoke and moonshot-smoke on (2,2,2)
+    (4 batch shards of one 16-token row; tokens drop, so which ones
+    depends on the order across the ranks), 2 steps against the
     one-device run and the JAX package's (2,2,2) run at the helper's
     bounds, ``dropped_frac`` equal in all three; mixtral-smoke on (2,4)
     under ``remat="full"`` against one device;
+  * MoE through the placed step (experts on their blocks of the expert
+    dim): both smoke configs on (2,2,2) against the one-device run and
+    the JAX package's (2,2,2) run at the same bounds, ``dropped_frac``
+    bitwise in all three, every layer's routing bitwise equal on the two
+    "model" ranks of a row block; mixtral-smoke on (2,4,1), whose 4
+    experts do not divide by its 8 batch shards (the weights' d and the
+    buffer's capacity take "data"), on 16-row batches against one
+    device; one step of each counted through the placed step and the
+    gather path (FLOPs, the largest collective);
   * C1, the int8 round trip (``compress_grads=True``): along the
     one-device run, each step also taken on (2,2,2) from the same state,
     in both packages; the first moments at most one quantum an entry
@@ -57,8 +67,8 @@ written by its checkpointer.  Held:
     one device.
 
 And in the test process, on a one-rank ``gloo`` group: every dense and
-MoE smoke config's mesh step on the (1,1) mesh bitwise equal to its
-one-device step.
+MoE smoke config's mesh step (the placed step of both families) on the
+(1,1) mesh bitwise equal to its one-device step.
 
 Then ``launch/train.py`` at 2 ranks under ``COORDINATOR_ADDRESS=file://``
 checkpoints at step 3, resumes at world size 1 and ends within the
@@ -124,6 +134,16 @@ PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-4
 MOE_ARCHS = ("mixtral-8x22b", "moonshot-v1-16b-a3b")
 MOE_STEPS = 2
 MOE_REMAT_MESH = ((2, 4), ("data", "model"))
+# the placed step where the experts do not divide by their axes:
+# mixtral-smoke's 4 experts on (pod, data) = (2, 4) take "pod", and
+# "data" cuts the expert weights' d and the buffer's capacity; 16-row
+# batches, so that each microbatch's 8 rows divide by the batch shards
+MOE_UNEVEN_MESH = ((2, 4, 1), ("pod", "data", "model"))
+MOE_UNEVEN_ROWS = 16
+# the placed MoE runs' parameter entries allowed beyond the helper's bound
+# of the one-device run: AdamW's step on a round-off gradient (1 observed;
+# see test_the_placed_moe_step_matches_both_runs)
+MOE_FAR = 2
 # AdamW's first-moment decay: one step from a zero-free state moves the
 # first moment by (1 - B1) times the clipped round-tripped gradient
 B1 = 0.9
@@ -310,10 +330,10 @@ def _port_step(cfg, remat: str = "none", compress: bool = False):
                             compress_grads=compress)
 
 
-def _pipe(cfg, seq_len: int = 16):
+def _pipe(cfg, seq_len: int = 16, global_batch: int = 8):
     from repro_torch.data import TokenPipeline
     return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                         global_batch=8, seed=42)
+                         global_batch=global_batch, seed=42)
 
 
 def _port_worker(rank: int, tmp: str) -> None:
@@ -480,9 +500,11 @@ def _port_worker(rank: int, tmp: str) -> None:
             out[f"psum|{size}|{r}|out"] = got["w"].numpy()
             out[f"psum|{size}|{r}|res"] = res["w"].numpy()
 
-    # the MoE smoke configs on (2,2,2), 4 batch shards of one row each;
-    # mixtral-smoke on (2,4), 2 batch shards, under remat="full"
+    # the MoE smoke configs through the gather path (TP_FAMILIES emptied):
+    # on (2,2,2), 4 batch shards of one row each; mixtral-smoke on (2,4),
+    # 2 batch shards, under remat="full"
     meshes["2x4"] = make_auto_mesh(*MOE_REMAT_MESH, device_type="cpu")
+    tstep.TP_FAMILIES = ()
     for arch, tag, remat in [(a, "2x2x2", "none") for a in MOE_ARCHS] + [
             (MOE_ARCHS[0], "2x4", "full")]:
         moe = _port_config(arch)
@@ -497,6 +519,63 @@ def _port_worker(rank: int, tmp: str) -> None:
         keep(f"port{tag.replace('x', '')}|{arch}", s, m)
         out[f"port{tag.replace('x', '')}|{arch}|dropped_frac"] = \
             m["dropped_frac"].numpy()
+    tstep.TP_FAMILIES = paths
+
+    # the MoE smoke configs through the placed step on (2,2,2), each
+    # layer's routing recorded; mixtral-smoke on (2,4,1), whose 4 experts
+    # do not divide by its 8 batch shards, on 8-row microbatches
+    from repro_torch.distributed.sharding import resolve_spec
+    from repro_torch.models import moe as tmoe
+    routed = []
+    route = tmoe._route
+
+    def recorded(*args):
+        got = route(*args)
+        routed.append(got[3].detach().clone())
+        return got
+
+    tmoe._route = recorded
+    meshes["2x4x1"] = make_auto_mesh(*MOE_UNEVEN_MESH, device_type="cpu")
+    for arch, tag, rows in [(a, "2x2x2", 8) for a in MOE_ARCHS] + [
+            (MOE_ARCHS[0], "2x4x1", MOE_UNEVEN_ROWS)]:
+        moe = _port_config(arch)
+        s = Checkpointer(tmp / f"init_{arch}").restore(
+            like=tt.init_train_state(LM(moe, "meta")),
+            shardings=state_shardings(moe, meshes[tag]))
+        moe_pipe = _pipe(moe, global_batch=rows)
+        moe_step = _port_step(moe)
+        routed.clear()
+        for i in range(MOE_STEPS):
+            with use_mesh(meshes[tag]):
+                s, m = moe_step(s, moe_pipe.torch_batch(i, "cpu"))
+        name = f"ep{tag.replace('x', '')}|{arch}"
+        keep(name, s, m)
+        out[f"{name}|dropped_frac"] = m["dropped_frac"].numpy()
+        out[f"{name}|coord"] = np.asarray(meshes[tag].get_coordinate())
+        out[f"{name}|routed"] = torch.stack(routed).numpy()
+        cap = tmoe._capacity(moe, 16 * rows // 2)
+        with use_mesh(meshes[tag]):
+            out[f"{name}|specs"] = np.asarray([
+                str(s.shardings["layers.0.mlp.wi"].spec),
+                str(resolve_spec((moe.n_experts, cap, moe.d_model),
+                                 ("experts", None, "act_embed")))])
+    tmoe._route = route
+
+    # one MoE step counted, through the placed step and the gather path
+    for arch in MOE_ARCHS:
+        moe = _port_config(arch)
+        for tag, families in (("ep", paths), ("dp", ())):
+            tstep.TP_FAMILIES = families
+            s = Checkpointer(tmp / f"init_{arch}").restore(
+                like=tt.init_train_state(LM(moe, "meta")),
+                shardings=state_shardings(moe, meshes["2x2x2"]))
+            with FlopCounterMode(display=False) as flops, \
+                    dr.CollectiveMode() as comm, use_mesh(meshes["2x2x2"]):
+                _port_step(moe)(s, _pipe(moe).torch_batch(0, "cpu"))
+            out[f"flops|{tag}|{arch}"] = np.asarray(flops.get_total_flops())
+            out[f"largest_collective|{tag}|{arch}"] = np.asarray(
+                max(n for _, n in comm.records))
+        tstep.TP_FAMILIES = paths
 
     # C1: along the one-device run with the int8 round trip, each step
     # also taken on (2,2,2) from the same state
@@ -601,13 +680,16 @@ def runs(tmp_path_factory):
         run(Checkpointer(tmp / "init_kv1").restore(
             like=tt.init_train_state(LM(kv1, "meta")), shardings=cpu), 0,
             KV1_STEPS, "one|kv1", step=_port_step(kv1), pipe=_pipe(kv1))
-        for arch in MOE_ARCHS:
+        for arch, rows in [(a, 8) for a in MOE_ARCHS] + [
+                (MOE_ARCHS[0], MOE_UNEVEN_ROWS)]:
             moe = _port_config(arch)
-            one[f"one|{arch}|dropped_frac"] = run(
+            tag = f"one|{arch}" + ("" if rows == 8 else f"|{rows}")
+            one[f"{tag}|dropped_frac"] = run(
                 Checkpointer(tmp / f"init_{arch}").restore(
                     like=tt.init_train_state(LM(moe, "meta")),
-                    shardings=cpu), 0, MOE_STEPS, f"one|{arch}",
-                step=_port_step(moe), pipe=_pipe(moe))["dropped_frac"].numpy()
+                    shardings=cpu), 0, MOE_STEPS, tag,
+                step=_port_step(moe),
+                pipe=_pipe(moe, global_batch=rows))["dropped_frac"].numpy()
         while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
             if time.monotonic() > deadline:
                 for p in ctx.processes:
@@ -640,6 +722,25 @@ def _close_params(got: dict, want: dict) -> None:
     for k in got:
         np.testing.assert_allclose(got[k], want[k], rtol=PARAM_RTOL,
                                    atol=PARAM_ATOL, err_msg=k)
+
+
+def _close_params_but_flips(got: dict, want: dict, steps: int) -> None:
+    """``_close_params``, but for at most ``MOE_FAR`` entries, each within
+    the bound plus twice the run's summed learning rate: an entry whose
+    gradient is round-off, which AdamW's normalised update (its
+    denominator near ``eps`` once the gradient is clipped) turns into a
+    step whose size the round-off sets (the launcher test's rule)."""
+    from repro_torch.training.optimizer import cosine_schedule
+    lr = cosine_schedule(5e-3, 2, 50)
+    flips = 2 * sum(float(lr(torch.tensor(t))) for t in range(steps))
+    assert got and sorted(got) == sorted(want)
+    far = 0
+    for k in got:
+        gap = np.abs(got[k] - want[k])
+        bound = PARAM_ATOL + PARAM_RTOL * np.abs(want[k])
+        far += int((gap > bound).sum())
+        assert (gap <= bound + flips).all(), (k, gap.max())
+    assert far <= MOE_FAR, far
 
 
 def _index(jax_out: dict, idx_tag: str, key: str, coord) -> tuple:
@@ -876,6 +977,119 @@ def test_moe_on_two_batch_shards_under_remat_matches_one_device(runs):
             one[f"one|{arch}|dropped_frac"].tobytes()
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_the_placed_moe_step_matches_both_runs(runs, arch):
+    """A MoE smoke config on (2,2,2) through the placed step: each rank
+    runs the experts of its own block of the expert dim, on the tokens
+    the other ranks' rows sent there, its capacity, first-come positions
+    and load balance the whole microbatch's.  2 steps: the loss within
+    the helper's bound of the port's one-device run and of the JAX
+    package's (2,2,2) run, the parameters within the helper's bounds of
+    the JAX run and of the one-device run but for at most ``MOE_FAR``
+    entries whose AdamW step a round-off gradient set
+    (``_close_params_but_flips``); ``dropped_frac`` bitwise equal on every
+    rank and in all three runs, and tokens dropped.
+
+    The entry (observed on a CPU, torch 2.13): mixtral-smoke's
+    ``embed/embedding[188, 55]``, whose token first appears in step 1's
+    first microbatch.  Its gradient there is 5.31e-7 on one device and
+    2.80e-7 placed (float64: 2.92e-7) against the row's largest 0.15:
+    round-off of sums that cancel, which the tensor-parallel attention
+    orders otherwise.  Clipped by the global norm (11.4) it is near
+    AdamW's ``eps``, so the step it takes differs by 2.9e-4: the placed
+    run lands 2.9e-4 from the one-device run, 1.35× the bound.  The four
+    float32 runs of the entry spread over that much: one device
+    -0.006652, placed -0.006364, the JAX package on one device -0.006434
+    (itself 1.02× the bound from the port's one device) and on (2,2,2)
+    -0.006563.  Every other entry of both configs is within the bound."""
+    jax_out, port, one, _ = runs
+    tag = f"ep222|{arch}"
+    for want in (one[f"one|{arch}|loss"], jax_out[f"jax222|{arch}|loss"]):
+        np.testing.assert_allclose(port[0][f"{tag}|loss"], want,
+                                   rtol=LOSS_RTOL)
+    _close_params_but_flips(_params(port[0], tag),
+                            _params(one, f"one|{arch}"), MOE_STEPS)
+    _close_params(_params(port[0], tag), _params(jax_out, f"jax222|{arch}"))
+    dropped = one[f"one|{arch}|dropped_frac"]
+    assert float(dropped) > 0
+    assert jax_out[f"jax222|{arch}|dropped_frac"].astype(
+        np.float32).tobytes() == dropped.tobytes()
+    for out in port:
+        assert out[f"{tag}|dropped_frac"].tobytes() == dropped.tobytes()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_every_model_rank_of_a_row_block_routes_alike(runs, arch):
+    """On (2,2,2) the two "model" ranks of a row block hold the same
+    tokens and take the router's logits from the same whole ``d``: every
+    layer's ``expert_idx``, in the forward and in each recomputation,
+    bitwise equal on both (or their positions and buffers would
+    disagree)."""
+    _, port, _, _ = runs
+    tag = f"ep222|{arch}"
+    by_block: dict = {}
+    for out in port:
+        by_block.setdefault(tuple(out[f"{tag}|coord"][:2]), []).append(
+            out[f"{tag}|routed"])
+    assert len(by_block) == 4
+    for a, b in by_block.values():
+        assert a.shape[0] > 0 and np.array_equal(a, b)
+
+
+def test_the_placed_moe_step_where_the_experts_do_not_divide(runs):
+    """mixtral-smoke on (2,4,1): its 4 experts do not divide by (pod,
+    data) = 8, so they take "pod" and "data" cuts the expert weights' d
+    and the buffer's capacity, as mixtral-8x22b's 8 experts on the
+    production meshes: the weights gathered along "data", each rank
+    running its experts on its slice of their capacity.  2 steps of
+    16-row batches (8 rows a microbatch, one a batch shard) against one
+    device, ``dropped_frac`` bitwise."""
+    _, port, one, _ = runs
+    arch = MOE_ARCHS[0]
+    tag = f"ep241|{arch}"
+    wi, buf = port[0][f"{tag}|specs"]
+    assert wi == "('pod', 'data', 'model')" and buf == \
+        "('pod', 'data', None)", (wi, buf)
+    want = f"one|{arch}|{MOE_UNEVEN_ROWS}"
+    np.testing.assert_allclose(port[0][f"{tag}|loss"], one[f"{want}|loss"],
+                               rtol=LOSS_RTOL)
+    _close_params(_params(port[0], tag), _params(one, want))
+    dropped = one[f"{want}|dropped_frac"]
+    assert float(dropped) > 0
+    for out in port:
+        assert out[f"{tag}|dropped_frac"].tobytes() == dropped.tobytes()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_the_placed_moe_step_divides_the_flops(runs, arch):
+    """One MoE step on (2,2,2): a rank's FLOPs through the placed step at
+    most ``FLOPS_RATIO`` of the gather path's, where every rank runs the
+    whole ``[e, cap]`` buffer's experts on whole weights."""
+    _, port, _, _ = runs
+    for out in port:
+        ep, dp = int(out[f"flops|ep|{arch}"]), int(out[f"flops|dp|{arch}"])
+        assert 0 < ep <= FLOPS_RATIO * dp, (ep, dp)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_no_moe_collective_outputs_more_than_a_buffer_or_weight_block(
+        runs, arch):
+    """One MoE step on (2,2,2): no collective's output is larger than one
+    rank's expert buffer ``[e, cap, d/model]`` or the largest weight's
+    block over "model" (no expert weight is gathered along its expert
+    axes); the gather path's whole embedding is."""
+    from repro_torch.models import LM
+    from repro_torch.models.moe import _capacity
+    _, port, _, _ = runs
+    cfg = _port_config(arch)
+    block = max(w.numel() * 4 // 2 for w in LM(cfg, "meta").parameters())
+    buf = cfg.n_experts * _capacity(cfg, 4 * 16) * cfg.d_model // 2 * 4
+    for out in port:
+        assert 0 < int(out[f"largest_collective|ep|{arch}"]) <= max(block,
+                                                                    buf)
+        assert int(out[f"largest_collective|dp|{arch}"]) > max(block, buf)
+
+
 @pytest.mark.parametrize("package", ["jax", "port"])
 def test_the_int8_round_trip_on_a_mesh_moves_at_most_one_quantum(runs,
                                                                  package):
@@ -902,10 +1116,11 @@ def test_the_int8_round_trip_on_a_mesh_moves_at_most_one_quantum(runs,
 @pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
 def test_one_rank_mesh_step_is_bitwise_the_one_device_step(arch, tmp_path):
     """Each dense and MoE smoke config (in its bfloat16) on the (1,1) mesh
-    of a one-rank ``gloo`` group: a step of 2 microbatches under
-    ``remat="full"`` with the int8 round trip, every weight and moment
-    bitwise the one-device step's.  Every DTensor op is then local, and a
-    MoE layer on one row block runs the one-device ops."""
+    of a one-rank ``gloo`` group, through the placed step: a step of 2
+    microbatches under ``remat="full"`` with the int8 round trip, every
+    weight and moment bitwise the one-device step's.  Every DTensor op is
+    then local, and a MoE layer's blocks are the whole buffer and
+    weights, on which it runs the one-device ops in their order."""
     _one_rank_against_one_device(arch, tmp_path)
 
 

@@ -27,13 +27,18 @@ Held:
   * a smoke mesh step's collectives on 8 and 512 fake ranks, op for op and
     byte for byte, as worked out from the placements, the shapes and the
     microbatch count: the rwkv6 step's (weights gathered whole, gradients
-    all-reduced), the MoE step's (the same, plus each MoE layer's count
-    table all-reduced over the batch shards in the forward and in its
-    recomputation) and the dense step's (weights gathered along the
+    all-reduced), the dense step's (weights gathered along the
     data-parallel axes per use, gradients reduce-scattered, the
-    activations' tensor- and sequence-parallel moves);
+    activations' tensor- and sequence-parallel moves) and the MoE step's
+    (the dense step's attention; each MoE layer's count table all-reduced
+    over the batch shards in the forward and in its recomputation, its
+    buffer reduce-scattered onto the expert blocks and gathered back, the
+    expert weights gathered only along the axes that do not cut their
+    experts);
   * each dense smoke train cell's peak a rank on 512 fake ranks below the
-    data-parallel step's (the dense step with ``TP_FAMILIES`` emptied).
+    data-parallel step's (the dense step with ``TP_FAMILIES`` emptied),
+    and each MoE smoke train cell's on 8 fake ranks below the gather
+    path's.
 
 FLOPs: ``FlopCounterMode`` counts matrix products (``mm``, ``bmm``,
 ``addmm``, convolutions, attention) at ``2·M·N·K``, and the reference's
@@ -502,12 +507,96 @@ def _gather_step_collectives(cfg, cell, mesh) -> dict:
     return out
 
 
+def _steps_collectives(cur, target, nbytes: int, sizes: list) -> tuple:
+    """The collectives of ``sharding._steps`` moving a DTensor whose local
+    block is ``nbytes`` from placements ``cur`` to ``target`` (mesh dims of
+    ``sizes``): its partial sums, outermost first (a reduce-scatter onto a
+    cut, else an all-reduce), its local cuts, then its gathers, innermost
+    first; a mesh dim of size 1 moves nothing.  Returns ``([(kind,
+    bytes)], the block's bytes after)``."""
+    cur = list(cur)
+    n = len(cur)
+    order = ([i for i in range(n) if cur[i].is_partial()]
+             + [i for i in range(n) if cur[i].is_replicate()
+                and target[i].is_shard()]
+             + [i for i in reversed(range(n)) if cur[i].is_shard()
+                and target[i].is_replicate()])
+    out = []
+    for i in order:
+        if cur[i] == target[i] or sizes[i] == 1:
+            cur[i] = target[i]
+            continue
+        if cur[i].is_partial() and target[i].is_replicate():
+            out.append(("all-reduce", nbytes))
+        elif cur[i].is_partial():
+            nbytes //= sizes[i]
+            out.append(("reduce-scatter", nbytes))
+        elif cur[i].is_replicate():
+            nbytes //= sizes[i]
+        else:
+            nbytes *= sizes[i]
+            out.append(("all-gather", nbytes))
+        cur[i] = target[i]
+    assert tuple(cur) == tuple(target), (cur, target)
+    return out, nbytes
+
+
+def _moe_layer(cfg, cell, mesh, rows_spec) -> dict:
+    """The placements of one MoE layer's buffers (``models.moe
+    ._placed_moe``) and the collectives of its dispatch and combine, from
+    the shapes: the ``[e, cap, d]`` buffer's expert placement ``B``, the
+    experts' output ``O`` (a partial sum where "model" cuts ``d_ff``),
+    and the dispatch (its partial buffer onto ``B``) and combine (``O``
+    onto whole rows, ``d`` cut as the tokens are) with their backwards,
+    as ``_steps_collectives`` lists."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (
+        placements,
+        resolve_spec,
+        use_mesh,
+    )
+    from repro_torch.models.moe import _capacity
+    names = list(mesh.mesh_dim_names)
+    sizes = [int(n) for n in mesh.shape]
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    cap = _capacity(cfg, cell.microbatch * cell.seq_len)
+    c = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    with use_mesh(mesh):
+        B = placements(resolve_spec((e, cap, d), ("experts", None,
+                                                  "act_embed")), mesh)
+        wi = placements(resolve_spec((e, d, f), ("experts", None,
+                                                 "expert_mlp")), mesh)
+        d_axes = dr.spec_axes(resolve_spec((d,), ("dispatch_embed",))[0])
+    rows = dr.spec_axes(rows_spec)
+    O = tuple(b if b.is_shard() else Partial() if w.is_shard(2)
+              else Replicate() for b, w in zip(B, wi))
+    cut = math.prod(n for b, n in zip(B, sizes) if b.is_shard())
+    m_d = math.prod(n for a, n in zip(names, sizes) if a in d_axes)
+    start = tuple(Partial() if a in rows else Shard(2) if a in d_axes
+                  else Replicate() for a in names)
+    whole_rows = tuple(Shard(2) if a in d_axes else Replicate()
+                       for a in names)
+    grad_rows = tuple(Partial() if a in rows else p
+                      for a, p in zip(names, whole_rows))
+    grad_buf = tuple(Partial() if b.is_replicate() and o.is_partial() else b
+                     for b, o in zip(B, O))
+    unpartial = [Replicate() if p.is_partial() else p for p in start], \
+        [Replicate() if p.is_partial() else p for p in O]
+    buf, blk = e * cap * d // m_d * c, e * cap * d // cut * c
+    fwd = _steps_collectives(start, B, buf, sizes)[0] \
+        + _steps_collectives(O, whole_rows, blk, sizes)[0]
+    bwd = _steps_collectives(grad_rows, unpartial[1], buf, sizes)[0] \
+        + _steps_collectives(grad_buf, unpartial[0], blk, sizes)[0]
+    return {"B": B, "cap": cap, "fwd": fwd, "bwd": bwd}
+
+
 def _tp_step_collectives(cfg, cell, mesh) -> dict:
-    """The dense mesh step's collectives (``remat="full"``, a tokens-only
-    model whose sequence and projections divide by "model"), worked out
-    from the placements and the shapes.  A collective along a mesh dim of
-    size 1 is none; a move of a shard from one tensor dim to another is
-    an all-to-all of the block (``a2a`` below; the dry run traces the
+    """The dense and MoE mesh step's collectives (``remat="full"``, a
+    tokens-only model whose sequence and projections divide by "model"),
+    worked out from the placements and the shapes.  A collective along a
+    mesh dim of size 1 is none; a move of a shard from one tensor dim to
+    another is an all-to-all of the block (``a2a`` below; the dry run traces the
     card's route).  Per microbatch of R rows a rank, sequence s, compute
     dtype of c bytes:
 
@@ -537,7 +626,24 @@ def _tp_step_collectives(cfg, cell, mesh) -> dict:
         (one all-reduce a mesh dim, the data-parallel axes' flattened group
         in one where exactly they are summed over);
       * the gradient norm: one ``allreduce_`` a mesh dim of the squares of
-        the leaves it cuts."""
+        the leaves it cuts.
+
+    A MoE block's attention is the dense block's; its MoE layer
+    (``_moe_layer``) in place of the MLP: the residual gathered along
+    "model" (the second block input above); the router weight used as a
+    dense weight, its gradient reduce-scattered along the axes that cut
+    the rows; the expert weights gathered along the data-parallel axes
+    that do not cut their expert dim, their gradients reduce-scattered
+    along those that cut the buffer's capacity; where the rows are cut
+    into ``n > 1`` blocks, the ``[n, e]`` int32 count table all-reduced
+    in each pass; the dispatch and the combine; the output moved from
+    ``d`` to the sequence (in the recomputation too: the layer's aux
+    values come last, so it runs all of the layer); in the backward that
+    move mirrored, the tokens' ``d`` gradient gathered along "model" and
+    the gate's gradient [R·s, k] float32 all-reduced over it; the shared expert (Moonlight) as the
+    dense MLP without its input gather (it reads the gathered rows),
+    whose partial gradient the rows' gather reduce-scatters; and the
+    ``load_balance`` metric summed over the rows' axes."""
     from repro_torch.distributed.sharding import resolve_spec, use_mesh
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.training.step import microbatch_specs
@@ -576,6 +682,8 @@ def _tp_step_collectives(cfg, cell, mesh) -> dict:
         k = 1 if len(data) > 1 and live == data else len(live)
         add("all-reduce", nbytes, n * k)
 
+    moe = _moe_layer(cfg, cell, mesh, spec[0]) if cfg.family == "moe" \
+        else None
     by_name = param_shardings(LM(cfg, "meta"), state_shardings(cfg, mesh)[0])
     weights = dict(LM(cfg, "meta").named_parameters())
     cut_axes = {}
@@ -590,12 +698,31 @@ def _tp_step_collectives(cfg, cell, mesh) -> dict:
         block = w.numel() // (m if "model" in cut_axes[name] else 1)
         nbytes = 4 if name == "embed.embedding" else c
         uses = 2 if name.startswith("layers.") else 1
-        if any(a in data for a in cut_axes[name]):
+        gathered = [a for a in data if a in cut_axes[name]]
+        scattered = gathered
+        if moe is not None and name.split(".")[-2:-1] == ["mlp"] \
+                and w.dim() == 3:            # an expert weight
+            experts = [a for a, p in zip(names, sh.placements)
+                       if p.is_shard(0) and sizes[a] > 1]
+            block //= math.prod(sizes[a] for a in experts)
+            gathered = [a for a in gathered if a not in experts]
+            scattered = [a for a in gathered if moe["B"][
+                names.index(a)].is_shard(1)]
+        elif name.endswith("mlp.router"):
+            scattered = [a for a in gathered if a in rows_axes]
+        if gathered:
             add("all-gather", block * nbytes, uses * micro)
-        for a in data:
-            if a in cut_axes[name]:
-                block //= sizes[a]
-                add("reduce-scatter", block * nbytes, micro)
+        for a in scattered:
+            block //= sizes[a]
+            add("reduce-scatter", block * nbytes, micro)
+
+    if moe is not None:
+        blocks = math.prod(sizes[a] for a in rows_axes)
+        for _ in range(cfg.n_layers):
+            if blocks > 1:
+                add("all-reduce", blocks * cfg.n_experts * 4, 2 * micro)
+            for kind, nbytes in 2 * moe["fwd"] + moe["bwd"]:
+                add(kind, nbytes, micro)
 
     if m > 1:
         assert cfg.frontend == "tokens" and s % m == 0
@@ -606,6 +733,8 @@ def _tp_step_collectives(cfg, cell, mesh) -> dict:
         res, res_m = r * s * d * c, r * s // m * d * c
         qb, kvb = r * s * q_w * c, r * s * kv_w * c
         fb = r * s * ff * c
+        shared = cfg.n_shared_experts
+        sb = fb * shared
 
         def qkv(n):
             a2a(qb, n)
@@ -623,24 +752,42 @@ def _tp_step_collectives(cfg, cell, mesh) -> dict:
                 else:
                     add("all-gather", kvb, 2 * micro)      # k, v whole
                     a2a(qb, micro)                         # out → heads
-                a2a(fb, 2 * micro)                         # mlp point
-                add("reduce-scatter", res_m, (1 if recompute else 2) * micro)
+                if moe is None:
+                    a2a(fb, 2 * micro)                     # mlp point
+                    add("reduce-scatter", res_m,
+                        (1 if recompute else 2) * micro)
+                    continue
+                # (the aux values come last: the recomputation runs the
+                # whole layer)
+                add("reduce-scatter", res_m, micro)        # attention out
+                a2a(res, micro)                            # moe out → seq
+                if shared:
+                    a2a(sb, 2 * micro)                     # its mlp point
+                    add("reduce-scatter", res_m, micro)
             # the backward
-            add("reduce-scatter", res_m, 2 * micro)
+            if moe is None:
+                add("reduce-scatter", res_m, 2 * micro)
+                add("all-gather", res, 2 * micro)
+                a2a(fb, 2 * micro)
+            else:
+                add("reduce-scatter", res_m, (1 + bool(shared)) * micro)
+                add("all-gather", res, (2 + bool(shared)) * micro)
+                a2a(res, micro)
+                add("all-reduce", r * s * cfg.top_k * 4, micro)   # gate
+                if shared:
+                    a2a(sb, 2 * micro)
             qkv(micro)
             if heads_cut:
                 qkv(micro)
             else:
                 add("reduce-scatter", r * s // m * kv_w * c, 2 * micro)
                 a2a(qb, micro)
-            add("all-gather", res, 2 * micro)
-            a2a(fb, 2 * micro)
         # the head: its input gathered, the logits moved; and back
         add("all-gather", res, micro)
         a2a(r * s * V * c, 2 * micro)
         add("reduce-scatter", res_m, micro)
     loss_axes = rows_axes + (["model"] if m > 1 else [])
-    summed(rows_axes, 4, 2 * micro)
+    summed(rows_axes, 4, 2 * micro + (moe is not None))
     summed(loss_axes, 4, micro + 2)
     for a in names:
         n = sum(a in cut for cut in cut_axes.values())
@@ -692,6 +839,27 @@ def test_dense_train_cell_peak_is_below_the_data_parallel_steps(
             peaks[tag] = dr.lower_train_cell(
                 cfg, SMOKE_CELL, mesh)["memory"]["peak_bytes"]
     assert 0 < peaks["tp"] < peaks["dp"], peaks
+
+
+MOE_ARCHS = [a for a in ARCHS if get_smoke_config(a).family == "moe"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_cell_peak_is_below_the_gather_paths(arch, monkeypatch):
+    """The smoke train cell on the 8-rank (2, 4) mesh: each rank's peak
+    with the experts on their placed blocks below the same cell's on the
+    gather path (``TP_FAMILIES`` emptied: whole weights, a whole float32
+    gradient accumulator and the whole ``[e, cap]`` buffer's experts)."""
+    cfg = get_smoke_config(arch)
+    assert cfg.family in tstep.TP_FAMILIES
+    peaks = {}
+    for tag, families in (("ep", tstep.TP_FAMILIES), ("dp", ())):
+        monkeypatch.setattr(tstep, "TP_FAMILIES", families)
+        with dr.fake_world(8):
+            mesh = make_auto_mesh(*SMOKE_MESH, device_type="cpu")
+            peaks[tag] = dr.lower_train_cell(
+                cfg, SMOKE_CELL, mesh)["memory"]["peak_bytes"]
+    assert 0 < peaks["ep"] < peaks["dp"], peaks
 
 
 # --------------------------------------------------------------------------

@@ -1231,24 +1231,25 @@ def test_mesh_service_at_world_size_1_matches_local_service(nccl_mesh):
     assert msvc.metrics_v2()["gauges"]["mesh_devices"] == 1
 
 
-@pytest.mark.parametrize("arch,dense", [("smollm-135m", True),
-                                        ("rwkv6-1.6b", False),
-                                        ("mixtral-8x22b", False)])
+@pytest.mark.parametrize("arch,placed", [("smollm-135m", True),
+                                         ("rwkv6-1.6b", False),
+                                         ("mixtral-8x22b", True)])
 def test_lm_mesh_step_at_world_size_1_is_the_local_step(nccl_mesh, arch,
-                                                        dense):
+                                                        placed):
     """The smoke config's train step on a one-rank NCCL (1, 1) host mesh,
     its state placed by the logical rules (DTensors of the whole arrays),
     bitwise the one-device step's: losses and every tensor of the state.
-    A dense model computes on its placed weights (its blocks'
-    recomputation runs on autograd's device thread); rwkv6 and MoE take
-    the gather path (whole weights, all-reduced gradients; MoE on one row
-    block runs the one-device ops)."""
+    A dense or MoE model computes on its placed weights (its blocks'
+    recomputation runs on autograd's device thread; a MoE layer's blocks
+    are the whole buffer and weights, on which it runs the one-device
+    ops); rwkv6 takes the gather path (whole weights, all-reduced
+    gradients)."""
     from repro_torch.distributed import use_mesh
     from repro_torch.launch.inputs import state_shardings
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training.step import TP_FAMILIES
     cfg = get_smoke_config(arch)
-    assert (cfg.family in TP_FAMILIES) == dense
+    assert (cfg.family in TP_FAMILIES) == placed
     mesh = make_host_mesh()
     step = ttr.build_train_step(cfg, microbatches=2, base_lr=1e-2, warmup=2,
                                 total_steps=10, remat="full",
