@@ -259,7 +259,16 @@ mesh run's state held on the host while the one-device run's is on the
 card; one placed and one local step profiled (device ms, idle share,
 host op events); then the same model through the gather path
 (``TP_FAMILIES`` emptied), bitwise too; step ms placed against one
-device and against the gather path.  ``lm_dist_launcher``: the
+device and against the gather path.  ``lm_dist_serve``: smollm-135m at
+full width and depth served through partitioned serving on the same
+one-rank mesh: its bfloat16 weights and caches placed by
+``launch.inputs.serving_shardings``, the launcher's traffic (its first
+wave through ``greedy_generate``, every wave greedy step by step), tokens
+and every step's logits bitwise the one-device run's on the same
+bfloat16 weights, with
+prefill and decode-step ms placed against one device, the peak, and one
+profiled decode step of each (device ms, idle share, host op events).
+``lm_dist_launcher``: the
 launcher as rank 0 of 1 under ``COORDINATOR_ADDRESS`` (a ``file://``
 rendezvous) once uninterrupted, once SIGKILLed when ``step_3`` appears
 and restarted; the resumed run's final checkpoint bitwise the
@@ -275,8 +284,14 @@ path, rwkv6-1.6b at 2 layers through the gather path, and Moonlight at
 2 layers on 2 batch shards (its capacity, first-come positions and load
 balance over both shards' rows; both runs' ``dropped_frac`` and whether
 any token dropped) through the gather path and through the placed step
-(32 experts a rank, ``d_ff`` 704 a rank); with fewer cards a line
-saying it did not run and why.  Counts set to 0
+(32 experts a rank, ``d_ff`` 704 a rank); then, in the same ranks,
+partitioned serving in float32 (``LM_DIST_MULTI_SERVE``; each a
+teacher-forced run's logits within ``LM_TOL`` of one card's and a greedy
+run's tokens equal but for near-ties, rank 0's peak and cache bytes
+beside one card's): smollm-135m at ``LM_CHECK``'s traffic (the cache's
+head dim over "model"), one ``LM_LONG`` prompt (batch 1: its sequence
+over "data") and qwen3-14b at 4 of its 40 layers (its 8 KV heads over
+"model"); with fewer cards a line saying it did not run and why.  Counts set to 0
 before the phase and read after: ``lm_dist_launches`` (0, checked).
 ``lm_dryrun``: the dry run.  ``lm_dryrun_cli``: ``python -m
 repro_torch.launch.dryrun`` on smollm-135m's ``decode_32k`` on both
@@ -2017,29 +2032,58 @@ def lm_n_waves(traffic: dict) -> int:
     return -(-traffic["n_requests"] // traffic["n_slots"])
 
 
-def lm_step_ms(torch, tm, model, cfg, toks, max_len: int,
-               n_decode: int) -> list:
-    """The steps ``ServeEngine.run_wave`` runs for the slots ``toks``
-    (greedy, no EOS): one prefill, then ``n_decode`` decode steps into a
-    cache of ``max_len``, through the public ``prefill``/``decode_step``,
-    each synchronised and timed on the host, its logits checked finite
-    after the timing.  Returns the ms of each step, the prefill first."""
+def lm_serve_steps(torch, model, cfg, toks, max_len: int, n_decode: int,
+                   mesh=None, forced=None):
+    """One prefill of the slots ``toks`` and ``n_decode`` decode steps
+    into a cache of ``max_len``, each synchronised and timed on the host,
+    fed the greedy tokens (``lm_serving.greedy_tokens``) or, teacher
+    forced, the columns of ``forced``, as ``ServeEngine.run_wave`` runs
+    them for the slots (no EOS), through the public ``prefill`` /
+    ``decode_step``; the logits checked finite after the timing.  On ``mesh`` the model is placed
+    (``launch.inputs.place_params``), its caches and prompt are placed by
+    the serving shardings, and each step runs under ``use_mesh``.
+    Returns (each step's ms, its logits as CPU copies taken after the
+    timing, the bytes of this rank's caches)."""
+    from repro_torch import models as tm
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.inputs import (
+        batch_shardings,
+        place_cache,
+        serving_shardings,
+    )
+    from repro_torch.models.lm_serving import greedy_tokens
     dev = model.final_norm.device
-    cache = tm.init_decode_state(cfg, toks.shape[0], max_len, dev)
-    cur, ms = torch.as_tensor(toks, device=dev), []
+    rows = toks.shape[0]
+    cache = tm.init_decode_state(cfg, rows, max_len, dev)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if mesh is not None:
+        cache = place_cache(cache, serving_shardings(cfg, mesh, rows,
+                                                     max_len)[1])
+        batch = {k: sh.distribute(batch[k])
+                 for k, sh in batch_shardings(mesh, batch).items()}
+    scope = (lambda: use_mesh(mesh)) if mesh is not None \
+        else contextlib.nullcontext
+    cache_bytes = sum((t.to_local() if mesh is not None else t).numel()
+                      * t.element_size() for k, t in cache.items()
+                      if k != "pos")
+    ms, logits = [], []
     for i in range(1 + n_decode):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i == 0:
-            logits, cache = tm.prefill(model, cfg, {"tokens": cur}, cache)
-        else:
-            logits, cache = tm.decode_step(model, cfg, cur, cache)
+        with scope():
+            if i == 0:
+                out, cache = tm.prefill(model, cfg, batch, cache)
+            else:
+                out, cache = tm.decode_step(model, cfg, cur, cache)
+            if i < n_decode:
+                cur = (greedy_tokens(out) if forced is None
+                       else torch.as_tensor(forced[:, i:i + 1], device=dev))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        check(bool(torch.isfinite(logits).all()),
+        logits.append(lm_whole(out).cpu())
+        check(bool(torch.isfinite(logits[-1]).all()),
               f"lm {cfg.name} step {i}: non-finite logits")
-        cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-    return ms
+    return ms, logits, cache_bytes
 
 
 def lm_serve(torch, lms, model, cfg, traffic: dict, seed: int):
@@ -2080,15 +2124,16 @@ def lm_serve(torch, lms, model, cfg, traffic: dict, seed: int):
 
 def lm_wave_steps(torch, tm, model, cfg, traffic: dict, prompts,
                   waves) -> None:
-    """Each served wave's steps again, one by one (``lm_step_ms``), for
-    its prefill's time and its per-token decode times."""
+    """Each served wave's steps again, one by one (``lm_serve_steps``),
+    for its prefill's time and its per-token decode times."""
     t, n = traffic, traffic["n_slots"]
     for w, wave in enumerate(waves):
         slots = np.zeros((n, t["prompt_len"]), np.int32)
         for i, p in enumerate(prompts[w * n:(w + 1) * n]):
             slots[i] = p
-        ms = lm_step_ms(torch, tm, model, cfg, slots,
-                        t["prompt_len"] + t["max_new"] + 8, t["max_new"] - 1)
+        ms, _, _ = lm_serve_steps(torch, model, cfg, slots,
+                                  t["prompt_len"] + t["max_new"] + 8,
+                                  t["max_new"] - 1)
         wave.update(prefill_ms=ms[0], decode_ms=ms[1:])
 
 
@@ -2980,6 +3025,15 @@ LM_DIST_MULTI_CASES = (("smollm-135m", None, "dense"),
                         "dense"))
 LM_DIST_LOSS_RTOL = 1e-4
 LM_DIST_PARAM_RTOL, LM_DIST_PARAM_ATOL = 2e-3, 2e-4
+# partitioned serving on the (2, 2) mesh, float32, against one card: each
+# case (arch, depth or None, traffic, rows or None for the traffic's
+# slots) is a teacher-forced run (logits) and a greedy one (tokens);
+# smollm-135m at LM_CHECK's traffic cuts the cache's head dim over
+# "model", one LM_LONG prompt (batch 1) its sequence over "data", and
+# qwen3-14b at 4 of its 40 layers its 8 KV heads over "model"
+LM_DIST_MULTI_SERVE = (("smollm-135m", None, LM_CHECK, None),
+                       ("smollm-135m", None, LM_LONG, 1),
+                       ("qwen3-14b", 4, LM_CHECK, None))
 
 
 def lm_dist_setup(torch, tm, tt, cfg, dev, t=LM_DIST):
@@ -3000,6 +3054,14 @@ def lm_dist_setup(torch, tm, tt, cfg, dev, t=LM_DIST):
 def lm_whole(t):
     """A DTensor gathered whole; any other tensor as it is."""
     return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def lm_host_copy(t) -> np.ndarray:
+    """``t`` (a DTensor gathered whole) as a numpy copy on the host.  On
+    the CPU ``.cpu()`` returns the tensor itself, and a replicated
+    DTensor's ``full_tensor()`` its local block: a capture taken without
+    the copy would follow the steps that update the weight in place."""
+    return lm_whole(t).detach().to("cpu", copy=True).numpy()
 
 
 def lm_dist_one_rank(torch, cfg, dev, t=LM_DIST, offload=False) -> dict:
@@ -3218,6 +3280,105 @@ def lm_dist_moe_line(torch, card, dev, g=LM_DIST_MOE) -> dict:
                 "dropped_frac", "bitwise_vs_one_device")}, **card}
 
 
+def lm_serve_copy(torch, tm, model, dtype):
+    """A one-device model holding ``model``'s weights in ``dtype``."""
+    copy = tm.LM(model.cfg, "meta")
+    copy.load_state_dict({n: w.to(dtype) for n, w in
+                          model.state_dict().items()}, assign=True)
+    return copy
+
+
+def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC) -> dict:
+    """smollm-135m at full width and depth served through the placed path
+    on the one-rank NCCL (1, 1) mesh (inside ``nccl_world``): its
+    bfloat16 weights and caches placed by ``serving_shardings``, the first
+    wave of ``t`` through ``greedy_generate`` placed and on one device
+    (the same bfloat16 weights), the tokens equal; then each wave greedy
+    step by step (``lm_serve_steps``), every step's logits and tokens
+    bitwise equal, placed and one-device step ms; the placed run's peak;
+    one placed and one one-device decode step profiled (wall and device
+    ms, idle share, host op events)."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import mesh_sizes
+    from repro_torch.launch.inputs import (
+        place_cache,
+        place_params,
+        serving_shardings,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm_serving as lms
+    cfg = get_config("smollm-135m")
+    mesh = make_host_mesh()
+    n, max_len = t["n_slots"], t["prompt_len"] + t["max_new"] + 8
+    master = tm.init_params(cfg, seed=LM_SEED, device=dev)
+    placed = place_params(master, serving_shardings(cfg, mesh, n,
+                                                    max_len)[0])
+    local = lm_serve_copy(torch, tm, master, torch.bfloat16)
+    del master
+    torch.cuda.empty_cache()
+    prompts = lm_prompts(t["n_requests"], t["prompt_len"], cfg.vocab_size,
+                         LM_SEED)
+    steps = {"placed": [], "local": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in range(lm_n_waves(t)):
+        slots = np.stack(prompts[w * n:(w + 1) * n]).astype(np.int32)
+        if w == 0:      # the entry point, once (the replay below is greedy)
+            with use_mesh(mesh):
+                got = lms.greedy_generate(placed, cfg, slots, t["max_new"])
+            want = lms.greedy_generate(local, cfg, slots, t["max_new"])
+            check(np.array_equal(got, want), "lm dist serve: the placed "
+                  "greedy_generate's tokens are not the one-device tokens")
+        runs = {tag: lm_serve_steps(torch, m, cfg, slots, max_len,
+                                    t["max_new"] - 1, mesh=ms)
+                for tag, m, ms in (("placed", placed, mesh),
+                                   ("local", local, None))}
+        check(all(lm_bitwise(torch, a, b) for a, b in zip(
+            runs["placed"][1], runs["local"][1])), f"lm dist serve: wave "
+              f"{w}'s placed logits are not bitwise the one-device logits")
+        for tag in steps:
+            steps[tag].append(runs[tag][0])
+    peak = torch.cuda.max_memory_allocated()
+    placed_cache = runs["placed"][2]
+    cur = torch.as_tensor(np.stack(prompts[:n]).astype(np.int32)[:, :1],
+                          device=dev)
+    profiles = {}
+    for tag, m, ms in (("placed", placed, mesh), ("local", local, None)):
+        cache = tm.init_decode_state(cfg, n, max_len, dev)
+        if ms is not None:
+            cache = place_cache(cache, serving_shardings(cfg, mesh, n,
+                                                         max_len)[1])
+
+        def step(c, m=m, ms=ms):
+            with (use_mesh(ms) if ms is not None
+                  else contextlib.nullcontext()):
+                return tm.decode_step(m, cfg, cur, c)
+
+        profiles[tag] = lm_step_profile(torch, lambda c, _, f=step: f(c),
+                                        cache, None)
+    del placed, local
+    torch.cuda.empty_cache()
+    decode = {tag: [x for wave in v for x in wave[1:]]
+              for tag, v in steps.items()}
+    return {"lm_dist_serve": cfg.name, "mesh": mesh_sizes(mesh),
+            "world_size": 1, "backend": "nccl", "traffic": t,
+            "weights": "bfloat16, placed by serving_shardings",
+            "tokens_equal": True, "logits_bitwise": True,
+            "prefill_ms": {tag: [wave[0] for wave in v]
+                           for tag, v in steps.items()},
+            "decode_ms_median": {tag: statistics.median(v)
+                                 for tag, v in decode.items()},
+            "decode_ms_p90": {tag: float(np.percentile(v, 90))
+                              for tag, v in decode.items()},
+            "placed_over_local_decode": statistics.median(decode["placed"])
+            / statistics.median(decode["local"]),
+            "peak_allocated_bytes": peak,
+            "placed_cache_bytes": placed_cache,
+            "profiles_decode_step": profiles, **card}
+
+
 def lm_dist_launcher_line(card) -> dict:
     """``python -m repro_torch.launch.train --steps 6 --ckpt-every 3`` as
     rank 0 of 1 under ``COORDINATOR_ADDRESS`` (a ``file://`` rendezvous,
@@ -3329,7 +3490,7 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
                 losses.append(float(metrics["loss"]))
                 dropped.append(float(metrics.get("dropped_frac", 0.0)))
             peak = torch.cuda.max_memory_allocated()
-            params = {n: lm_whole(p).detach().cpu().numpy()
+            params = {n: lm_host_copy(p)
                       for n, p in state.params.items()}
             # (CommDebugMode's module tracker fails on a MoE layer that
             # is recomputed under remat)
@@ -3356,9 +3517,65 @@ def lm_dist_multi_rank(rank: int, store: str, out: str) -> None:
             del state, step, batches, params
             torch.cuda.empty_cache()
             dist.barrier()
+        tt.step.TP_FAMILIES = families
+        lm_dist_multi_serve_rank(torch, mesh, rank, out, "cuda")
     finally:
         tt.step.TP_FAMILIES = families
         dist.destroy_process_group()
+
+
+def lm_dist_multi_serve_rank(torch, mesh, rank: int, out: str,
+                             dev) -> None:
+    """This rank's share of each ``LM_DIST_MULTI_SERVE`` case on ``mesh``
+    (every rank calls it): the float32 model placed by
+    ``serving_shardings``, a teacher-forced run and a greedy one; rank 0
+    writes the logits, tokens, step ms, peak and cache bytes to ``out``
+    with the case's index."""
+    import torch.distributed as dist
+
+    from repro_torch import models as tm
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.inputs import place_params, serving_shardings
+    from repro_torch.models import lm_serving as lms
+    for j, (arch, n_layers, traffic, rows) in enumerate(LM_DIST_MULTI_SERVE):
+        cfg = lm_dist_multi_config(arch, n_layers)
+        prompts, forced, max_len = lm_dist_serve_inputs(cfg, traffic, rows)
+        master = tm.init_params(cfg, seed=LM_SEED, device=dev)
+        placed = place_params(master, serving_shardings(
+            cfg, mesh, prompts.shape[0], max_len)[0], dtype=None)
+        del master
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, logits, cache_bytes = lm_serve_steps(
+            torch, placed, cfg, prompts, max_len, forced.shape[1],
+            mesh=mesh, forced=forced)
+        with use_mesh(mesh):
+            toks = lms.greedy_generate(placed, cfg, prompts,
+                                       traffic["max_new"])
+        peak = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            np.savez(f"{out}.serve{j}.npz", toks=toks, ms=np.asarray(ms),
+                     peak=np.asarray(peak),
+                     cache_bytes=np.asarray(cache_bytes),
+                     logits=torch.stack(logits).double().numpy())
+        del placed, logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def lm_dist_serve_inputs(cfg, traffic: dict, rows):
+    """(prompts [rows, prompt_len] int32, teacher-forced tokens [rows,
+    teacher_forced (4 where ``traffic`` names none)], the cache's length)
+    of a ``LM_DIST_MULTI_SERVE`` case; ``rows`` None: the traffic's
+    slots."""
+    rows = rows or traffic["n_slots"]
+    n_forced = traffic.get("teacher_forced", 4)
+    rng = np.random.default_rng(LM_SEED + 4)
+    toks = rng.integers(0, cfg.vocab_size, (rows, traffic["prompt_len"]
+                                            + n_forced)).astype(np.int32)
+    plen = traffic["prompt_len"]
+    return (toks[:, :plen], toks[:, plen:],
+            plen + max(n_forced, traffic["max_new"]) + 8)
 
 
 def lm_dist_multi_line(torch, card) -> list[dict]:
@@ -3393,10 +3610,13 @@ def lm_dist_multi_line(torch, card) -> list[dict]:
                     p.kill()
                 check(False, f"lm dist: the {t['ranks']}-rank mesh run "
                       f"timed out")
-        runs = []
+        runs, serves = [], []
         for i in range(len(LM_DIST_MULTI_CASES)):
             with np.load(f"{out}.{i}.npz") as z:
                 runs.append({k: z[k] for k in z.files})
+        for j in range(len(LM_DIST_MULTI_SERVE)):
+            with np.load(f"{out}.serve{j}.npz") as z:
+                serves.append({k: z[k] for k in z.files})
     lines = []
     for (arch, n_layers, path), got in zip(LM_DIST_MULTI_CASES, runs):
         cfg = lm_dist_multi_config(arch, n_layers)
@@ -3442,6 +3662,62 @@ def lm_dist_multi_line(torch, card) -> list[dict]:
             "step_ms_median": float(np.median(got["ms"][1:])),
             "peak_allocated_bytes_rank0": int(got["peak"]),
             **json.loads(str(got["meta"])), **card})
+    lines += lm_dist_multi_serve_lines(torch, card, serves)
+    return lines
+
+
+def lm_dist_multi_serve_lines(torch, card, serves: list,
+                              dev="cuda") -> list[dict]:
+    """Each ``LM_DIST_MULTI_SERVE`` case's (2, 2) run (``serves``, rank
+    0's) against the same float32 weights on one card: every
+    teacher-forced step's logits within ``LM_TOL`` of the largest
+    |logit|, the greedy tokens equal but for near-ties
+    (``lm_same_tokens``); rank 0's peak and cache bytes beside one
+    card's."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_serving as lms
+    t = LM_DIST_MULTI
+    lines = []
+    for (arch, n_layers, traffic, rows), got in zip(LM_DIST_MULTI_SERVE,
+                                                    serves):
+        cfg = lm_dist_multi_config(arch, n_layers)
+        prompts, forced, max_len = lm_dist_serve_inputs(cfg, traffic, rows)
+        model = tm.init_params(cfg, seed=LM_SEED, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, logits, cache_bytes = lm_serve_steps(
+            torch, model, cfg, prompts, max_len, forced.shape[1],
+            forced=forced)
+        want = lms.greedy_generate(model, cfg, prompts, traffic["max_new"])
+        peak = torch.cuda.max_memory_allocated()
+        errs = []
+        for a, b in zip(got["logits"], logits):
+            b = b.double().numpy()
+            errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+        check(max(errs) <= LM_TOL, f"lm dist serve: {cfg.name} on the "
+              f"{t['mesh']} mesh: logits {errs} off one card's")
+        ties = sum(lm_same_tokens(torch, tm, model, cfg, p,
+                                  got["toks"][i].tolist(), want[i].tolist(),
+                                  f"{cfg.name} on {t['mesh']}, row {i}")
+                   for i, p in enumerate(prompts))
+        del model
+        torch.cuda.empty_cache()
+        lines.append({
+            "lm_dist_multi_serve": cfg.name, "dtype": "float32",
+            "reduced": None if n_layers is None else {
+                "n_layers": [get_config(arch).n_layers, n_layers]},
+            "mesh": dict(zip(t["axes"], t["mesh"])), "ranks": t["ranks"],
+            "rows": int(prompts.shape[0]),
+            "prompt_len": int(prompts.shape[1]), "max_len": max_len,
+            "teacher_forced_steps": int(forced.shape[1]),
+            "greedy_tokens": int(want.size), "near_ties": ties,
+            "tol": LM_TOL, "logits_rel_err": errs,
+            "step_ms": got["ms"].tolist(), "one_card_step_ms": ms,
+            "peak_allocated_bytes": {"rank0": int(got["peak"]),
+                                     "one_card": peak},
+            "cache_bytes": {"rank0": int(got["cache_bytes"]),
+                            "one_card": cache_bytes}, **card})
     return lines
 
 
@@ -4332,6 +4608,7 @@ def main() -> int:
         log(json.dumps(dist_line))
         log(json.dumps(lm_dist_gather_line(torch, card, dev)))
         log(json.dumps(lm_dist_moe_line(torch, card, dev)))
+        log(json.dumps(lm_dist_serve_line(torch, card, dev)))
     log(json.dumps(lm_dist_launcher_line(card)))
     for line in lm_dist_multi_line(torch, card):
         log(json.dumps(line))
@@ -4341,7 +4618,9 @@ def main() -> int:
     log(f"lm_dist: {LM_DIST['arch']}'s mesh step (dense), "
         f"{LM_DIST_MOE['arch']}'s (placed, and on the gather path) and "
         f"{LM_DIST_GATHER['arch']}'s (the gather path) on a one-rank NCCL "
-        f"(1, 1) mesh bitwise the one-device step; the launcher under "
+        f"(1, 1) mesh bitwise the one-device step; smollm-135m served on "
+        f"placed weights and caches bitwise the one-device run; the "
+        f"launcher under "
         f"COORDINATOR_ADDRESS killed after step {LM_CKPT_KILL_AT} resumed "
         f"bitwise; no kernel of the port launched ({dist_k}), in "
         f"{time.perf_counter() - t0:.1f} s")

@@ -493,6 +493,48 @@ def block_start(t, dim: int) -> int:
     return first * (t.shape[dim] // n)
 
 
+def block_ranges(t) -> list[tuple[int, int]]:
+    """``(first, size)`` of this rank's block of the DTensor ``t`` along
+    each dim (``block_start`` and the local block's size)."""
+    local = t.to_local().shape
+    return [(block_start(t, d), local[d]) for d in range(t.ndim)]
+
+
+def take_block(t, ranges: dict):
+    """This rank's block of the DTensor ``t`` cut to the global ``ranges``
+    (dim → ``(first, size)``), each within the block: a view of the local
+    block, no communication.  Raises ``ValueError`` where the block does
+    not hold a range."""
+    index = []
+    for d, (first, size) in enumerate(block_ranges(t)):
+        lo, n = ranges.get(d, (first, size))
+        if not first <= lo <= lo + n <= first + size:
+            raise ValueError(f"dim {d}: this rank holds [{first}, "
+                             f"{first + size}), not [{lo}, {lo + n})")
+        index.append(slice(lo - first, lo - first + n))
+    return t.to_local()[tuple(index)]
+
+
+def write_block(dst, src, dim: int, start: int) -> None:
+    """Writes the DTensor ``src``, standing at ``start`` along ``dim`` of
+    the DTensor ``dst``, into this rank's block of ``dst`` in place: where
+    its block of ``dim`` meets ``src``'s positions, from its own block of
+    ``src``, which must hold all of ``dst``'s block along every other dim
+    (a value the ranks of a mesh dim that cuts ``dst`` there hold whole,
+    or one cut as ``dst`` is).  No communication; a rank whose block
+    holds none of ``src``'s positions writes nothing."""
+    (d0, dn), (s0, sn) = block_ranges(dst)[dim], block_ranges(src)[dim]
+    lo, hi = max(d0, start + s0), min(d0 + dn, start + s0 + sn)
+    if lo >= hi:
+        return
+    out = dst.to_local()
+    index = [slice(None)] * dst.ndim
+    index[dim] = slice(lo - d0, hi - d0)
+    ranges = {d: r for d, r in enumerate(block_ranges(dst)) if d != dim}
+    ranges[dim] = (lo - start, hi - lo)
+    out[tuple(index)] = take_block(src, ranges).to(out.dtype)
+
+
 def block_take(take, ids, block, first: int, dim: int):
     """``take(i, block)`` for the ids of ``ids`` that fall in ``block``, a
     block of a table that starts at id ``first`` along ``dim`` (``i`` their

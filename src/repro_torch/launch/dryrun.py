@@ -20,11 +20,15 @@ A train cell is one mesh step (``training.step``, ``microbatches =
 global_batch // microbatch``, ``remat="full"``) traced on rank 0: every
 rank holds equal blocks (``resolve_spec`` shards a dim only by axes that
 divide it) and runs the same step, so rank 0's numbers are every rank's.
-The port has no partitioned serving (``ROADMAP.md`` §1 item 5c): a prefill
-or decode cell's per-rank argument bytes come from the placements of its
-bfloat16 parameters and caches, and its FLOPs and memory from tracing
-``prefill`` / ``decode_step`` on the whole cell on one fake device; the
-record says so (``"scope": "cell"``), and it has no collectives.
+A dense model's prefill or decode cell (``SERVE_FAMILIES``) is traced the
+same way, ``"scope": "rank"``: ``prefill`` or ``decode_step`` (at
+position 0 of a fresh cache, which it attends whole) under ``use_mesh``
+on rank 0, from its bfloat16 parameters and caches placed as the
+reference places them (``launch.inputs.serving_shardings``) and its
+batch by the batch rule.  The other families' serving cells are traced
+whole on one fake device (``"scope": "cell"``, the whole cell's memory
+under ``"cell_memory"``, no collectives): their per-rank argument bytes
+come from the placements alone.
 
 What has no counterpart: the reference's ``bytes_accessed`` (XLA's cost
 analysis) and ``generated_code_bytes`` (there is no compiled program),
@@ -93,7 +97,10 @@ from repro_torch.launch.inputs import (
     abstract_params,
     batch_shardings,
     input_specs,
+    place_cache,
+    place_params,
     sds,
+    serving_shardings,
     state_shardings,
     to_named_shardings,
 )
@@ -101,6 +108,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import LM, decode_step, prefill
 from repro_torch.training import init_train_state
 from repro_torch.training.step import (
+    TP_FAMILIES,
     _batch_group,
     build_train_step,
     microbatch_specs,
@@ -108,6 +116,8 @@ from repro_torch.training.step import (
 )
 
 DEVICE_BYTES = 80 * 10**9   # one H100's device memory
+# the families whose serving cells are traced on a rank of the mesh
+SERVE_FAMILIES = ("dense",)
 
 # the reference's collective kinds (its HLO op names), and the torch ops of
 # each: c10d's in-place ops and the functional collectives DTensor issues
@@ -472,10 +482,13 @@ def _serve_trace(cfg, cell) -> dict:
 
 
 def _lower_serve_cell(cfg, cell, mesh, rules=None) -> dict:
-    """A serving cell: per-rank argument bytes from the placements on
-    ``mesh``; FLOPs and memory of the whole cell on one fake device
-    (``_serve_trace``; the port has no partitioned serving), under
+    """A serving cell: a dense model's traced on this rank of ``mesh``
+    (``_lower_placed_serve_cell``); another family's with per-rank
+    argument bytes from the placements on ``mesh`` and the FLOPs and
+    memory of the whole cell on one fake device (``_serve_trace``), under
     ``"cell_memory"``, with ``"scope": "cell"``."""
+    if cfg.family in SERVE_FAMILIES:
+        return _lower_placed_serve_cell(cfg, cell, mesh, rules)
     args = argument_bytes(cfg, cell, mesh, rules)
     out = copy.deepcopy(_serve_trace(cfg, cell))
     out["cell_memory"] = out.pop("memory")
@@ -486,6 +499,49 @@ def _lower_serve_cell(cfg, cell, mesh, rules=None) -> dict:
                      "output_bytes": None, "temp_bytes": None,
                      "peak_bytes": None, "device_bytes": DEVICE_BYTES}
     out["scope"] = "cell"
+    return out
+
+
+def _lower_placed_serve_cell(cfg, cell, mesh, rules=None) -> dict:
+    """``prefill`` (a prefill cell) or ``decode_step`` (a decode cell, at
+    position 0 of a fresh cache) of a dense model traced on this rank of
+    ``mesh`` under ``use_mesh(mesh, rules)``: its bfloat16 parameters and
+    caches placed by ``serving_shardings``, its batch by
+    ``batch_shardings``, each rank holding its blocks.  The per-rank
+    memory, FLOPs and collectives of the cell, ``"scope": "rank"``."""
+    args = argument_bytes(cfg, cell, mesh, rules)
+    pshard, cshard = serving_shardings(cfg, mesh, cell.global_batch,
+                                       cell.seq_len, rules)
+    batch_abs = input_specs(cfg, cell)
+    bshard = batch_shardings(mesh, batch_abs)
+    cshapes, _ = abstract_cache(cfg, cell.global_batch, cell.seq_len)
+    dev = mesh_device(mesh)
+    with FakeTensorMode():
+        model = place_params(LM(cfg, dev), pshard)
+        cache = place_cache(_fake_like(
+            {k: v for k, v in cshapes.items() if k != "pos"}, dev), cshard)
+        batch = {k: bshard[k].distribute(v)
+                 for k, v in _fake_like(batch_abs, dev).items()}
+        held = [t.to_local() for t in [*model.parameters(),
+                                       *cache.values(), *batch.values()]]
+        # pos: the reference's 0-d int32 leaf, a host int here
+        placed = _local_bytes(held) + 4
+        if placed != args["total"]:
+            raise AssertionError(f"placed serving arguments {placed} B, "
+                                 f"their shardings give {args['total']} B")
+        cache["pos"] = 0
+
+        def run():
+            with use_mesh(mesh, rules):
+                if cell.kind == "prefill":
+                    return prefill(model, cfg, batch, cache)
+                return decode_step(model, cfg, batch["tokens"], cache)
+
+        out = _traced(run, dev, held, args["total"])
+    out["memory"].update(params_bytes=args["params"],
+                         cache_bytes=args["cache"],
+                         batch_bytes=args["batch"])
+    out["scope"] = "rank"
     return out
 
 
@@ -562,21 +618,27 @@ def main():
                 print(f"[dryrun] skip {arch} × {shape} (long_500k is for "
                       f"sub-quadratic archs only)")
                 continue
-            # a train cell's meshes are two traces; a serving cell's
-            # meshes share one (``_serve_trace``), so they run together
-            if SHAPES[shape].kind == "train":
+            # a train or dense serving cell's meshes are two traces;
+            # another serving cell's meshes share one (``_serve_trace``),
+            # so they run together
+            if SHAPES[shape].kind == "train" \
+                    or get_config(arch).family in SERVE_FAMILIES:
                 jobs += [(arch, shape, [mp]) for mp in meshes]
             else:
                 jobs.append((arch, shape, meshes))
     # one process a job (each its own fake world), as many at once as
     # this process may use cores (a trace is single-threaded Python), the
-    # longest kinds of trace started first; results in job order
+    # longest kinds of trace started first: train cells, the gather path's
+    # (whole weights and gradients, the recurrent scans' many ops: 2,000–
+    # 2,500 s each on 8 busy cores) before the placed step's; results in
+    # job order
     results, failures = [], []
     if jobs:
         workers = min(len(jobs), len(os.sched_getaffinity(0)))
         first = {"train": 0, "prefill": 1, "decode": 2}
-        order = sorted(range(len(jobs)),
-                       key=lambda i: first[SHAPES[jobs[i][1]].kind])
+        order = sorted(range(len(jobs)), key=lambda i: (
+            first[SHAPES[jobs[i][1]].kind],
+            get_config(jobs[i][0]).family in TP_FAMILIES))
         with ProcessPoolExecutor(
                 workers, mp_context=multiprocessing.get_context("spawn")) \
                 as pool:

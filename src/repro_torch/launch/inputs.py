@@ -8,6 +8,9 @@ parameter tree's shapes and logical specs, and ``to_named_shardings`` /
 logical rules (``distributed.sharding``).  Nothing is allocated.
 ``state_shardings`` is the tree a ``TrainState`` is placed and restored
 by, and ``abstract_cache`` the decode caches' shapes and logical specs.
+``serving_shardings`` gives the reference's serving in-shardings (its
+``lower_prefill_cell`` / ``lower_decode_cell``), by which ``place_params``
+and ``place_cache`` lay out a served model's weights and decode caches.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch.models.model import (
     init_decode_state,
     param_specs,
 )
+from repro_torch.training.step import param_shardings, placed_model
 
 
 def sds(shape, dtype) -> torch.Tensor:
@@ -118,3 +122,41 @@ def state_shardings(cfg: ModelConfig, mesh, rules=None) -> tuple:
     params = to_named_shardings(mesh, pspecs, pshapes, rules)
     rep = NamedSharding(mesh, ())
     return params, (rep, params, params), rep
+
+
+def serving_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                      rules=None) -> tuple:
+    """``(parameters, caches)``: the ``NamedSharding`` trees of the
+    bfloat16 parameters (``abstract_params(cfg, dtype=torch.bfloat16)``)
+    and of the decode caches (``abstract_cache``'s shapes, laid out by
+    ``decode_state_specs``) on ``mesh`` under ``rules``, as the reference
+    places a served model (``src/repro/launch/dryrun.py:115-147``)."""
+    pshapes, pspecs = abstract_params(cfg, dtype=torch.bfloat16)
+    cshapes, cspecs = abstract_cache(cfg, batch, max_len)
+    return (to_named_shardings(mesh, pspecs, pshapes, rules),
+            to_named_shardings(mesh, cspecs, cshapes, rules))
+
+
+def place_params(model: LM, shardings: dict,
+                 dtype: torch.dtype | None = torch.bfloat16) -> LM:
+    """A new model holding ``model``'s weights in ``dtype`` (their own
+    where None) laid out by ``shardings`` (the parameter tree of
+    ``serving_shardings``): each a DTensor of this rank's block, which the
+    rank copies from the whole weight (no communication), requiring no
+    gradients."""
+    by_name = param_shardings(model, shardings)
+    with torch.no_grad():
+        weights = {n: by_name[n].distribute(w if dtype is None
+                                            else w.to(dtype))
+                   for n, w in model.named_parameters()}
+    return placed_model(model.cfg, weights, model)
+
+
+def place_cache(cache: dict, shardings: dict) -> dict:
+    """``cache`` (whole decode caches, the same on every rank) laid out by
+    ``shardings`` (the cache tree of ``serving_shardings``): each cache a
+    DTensor of this rank's block, which the rank copies (no
+    communication); ``pos`` stays a host integer."""
+    with torch.no_grad():
+        return {k: v if k == "pos" else shardings[k].distribute(v)
+                for k, v in cache.items()}

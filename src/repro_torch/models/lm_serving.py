@@ -9,29 +9,70 @@ EOS or the budget; the same loop serves every family.  Each step's
 tokens come back to the host in one copy.  Neither loop runs the decode
 step whose logits the reference computes after the last token and never
 reads, so a wave runs one step fewer; the tokens are the same.
+
+``greedy_generate`` also serves a dense model placed on a mesh
+(``launch.inputs.place_params``), called on every rank under
+``use_mesh``: it places the prompt by the batch rule and its fresh caches
+by ``decode_state_specs`` (``launch.inputs.place_cache``), and takes the
+greedy token from vocabulary-cut logits by each rank's local maximum,
+gathered, so that every rank feeds the same whole tokens to the next
+step.  ``ServeEngine`` has no mesh path, as the reference's has none.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (
+    block_start,
+    current_mesh,
+    current_rules,
+)
+from repro_torch.launch.inputs import (
+    batch_shardings,
+    place_cache,
+    serving_shardings,
+)
 from repro_torch.models import decode_step, init_decode_state, prefill
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, serving
 
 
-def _argmax(logits):
-    return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+def greedy_tokens(logits):
+    """The greedy tokens [B, 1] int32 of logits [B, V]: the first largest
+    entry of each row, as ``torch.argmax``.  Logits placed on a mesh give
+    whole tokens, the same on every rank: each rank's first largest entry
+    of its block of the vocabulary, with its value, is gathered (with the
+    batch's blocks), and the first block holding the row's largest value
+    names the token."""
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    local = logits.to_local()
+    idx = torch.argmax(local, dim=-1, keepdim=True)
+    pair = torch.cat([local.gather(-1, idx).to(torch.float64),
+                      (idx + block_start(logits, 1)).to(torch.float64)],
+                     dim=-1)[:, None, :]
+    mesh, pl = logits.device_mesh, logits.placements
+    blocks = math.prod(n for n, p in zip(mesh.shape, pl) if p.is_shard(1))
+    whole = DTensor.from_local(
+        pair, mesh, pl, run_check=False, shape=(logits.shape[0], blocks, 2),
+        stride=(2 * blocks, 2, 1)).full_tensor()
+    best = torch.argmax(whole[..., 0], dim=-1, keepdim=True)
+    return whole[..., 1].gather(-1, best).to(torch.int32)
 
 
-@torch.inference_mode()
+@serving
 def greedy_generate(model: LM, cfg: ModelConfig, prompts: np.ndarray,
                     max_new_tokens: int, extra: dict | None = None):
     """prompts: [B, S_prompt] int32.  Returns [B, max_new_tokens] numpy;
-    ``extra`` adds batch entries (``image_embeds``) as tensors."""
+    ``extra`` adds batch entries (``image_embeds``) as tensors.  Under
+    ``use_mesh`` with a placed model, every rank calls it with the same
+    prompts and gets the same tokens."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens {max_new_tokens} < 1")
     dev = model.final_norm.device
@@ -41,11 +82,18 @@ def greedy_generate(model: LM, cfg: ModelConfig, prompts: np.ndarray,
                                        device=dev)}
     if extra:
         batch.update(extra)
+    mesh = current_mesh()
+    if mesh is not None:
+        _, shardings = serving_shardings(cfg, mesh, b, s + max_new_tokens,
+                                         current_rules())
+        cache = place_cache(cache, shardings)
+        batch = {k: sh.distribute(batch[k])
+                 for k, sh in batch_shardings(mesh, batch).items()}
     logits, cache = prefill(model, cfg, batch, cache)
-    toks = [_argmax(logits)]
+    toks = [greedy_tokens(logits)]
     for _ in range(max_new_tokens - 1):
         logits, cache = decode_step(model, cfg, toks[-1], cache)
-        toks.append(_argmax(logits))
+        toks.append(greedy_tokens(logits))
     return torch.cat(toks, dim=1).cpu().numpy()
 
 
@@ -86,7 +134,7 @@ class ServeEngine:
         logits, cache = prefill(self.model, self.cfg,
                                 {"tokens": torch.as_tensor(toks, device=dev)},
                                 cache)
-        cur = _argmax(logits)
+        cur = greedy_tokens(logits)
         outs: dict[int, list[int]] = {rid: [] for rid, _ in wave}
         live = np.ones(len(wave), bool)
         for step in range(max_tokens):
@@ -99,5 +147,5 @@ class ServeEngine:
             if not live.any() or step == max_tokens - 1:
                 break
             logits, cache = decode_step(self.model, self.cfg, cur, cache)
-            cur = _argmax(logits)
+            cur = greedy_tokens(logits)
         return outs

@@ -31,6 +31,25 @@ weights (the mesh train step): the embedded inputs take the reference's
 that placement (each block's attention and MLP or MoE outputs are put in
 it and summed into it), and the layers compute on each rank's blocks
 (``models.layers``, ``models.moe``).
+
+So do ``prefill`` and ``decode_step`` of a dense model under ``use_mesh``,
+as GSPMD partitions the reference's serving: on its placed weights
+(``launch.inputs.place_params``) and on KV caches placed by
+``decode_state_specs`` (``launch.inputs.place_cache``), whose batch takes
+the data-parallel axes and whose KV heads, head dim or sequence takes
+"model" (the sequence takes the data-parallel axes at batch 1).  Every
+rank calls them with the same whole inputs, or with inputs placed by the
+batch rule.  The prefill writes each rank's block of the caches from the
+attention's k and v, which are whole along the sequence there
+(``models.attention.attention_prefill``), and takes the last position's
+row from the rank that holds it (``_last_position``); a decode step
+writes the new token's k and v into the block that holds ``pos`` and
+scores each rank's block (``models.attention._decode_placed``).  The
+logits come back cut over the vocabulary (``lm_serving.greedy_tokens``
+takes the greedy token from the blocks).  On a mesh these run under
+``torch.no_grad`` in place of ``torch.inference_mode`` (``serving``):
+DTensor's view ops, and writes into a placed cache, raise on inference
+tensors.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -54,6 +74,7 @@ from repro_torch.distributed.sharding import (
     row_blocks,
     shard,
     use_mesh,
+    write_block,
 )
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
@@ -273,8 +294,14 @@ def _block(bp: Block, cfg: ModelConfig, x, pos, is_global: bool, mode: str,
     elif mode == "prefill":
         a, k, v = attn.attention_prefill(bp.attn, cfg, h, pos, is_global,
                                          dtype)
-        cache["k"][slot, :, :k.shape[1]] = k.to(cache["k"].dtype)
-        cache["v"][slot, :, :v.shape[1]] = v.to(cache["v"].dtype)
+        for name, t in (("k", k), ("v", v)):
+            layer = cache[name][slot]
+            if isinstance(layer, DTensor):
+                # each rank's block, from the attention's k and v, which
+                # are whole along the sequence: no collective
+                write_block(layer, t, 1, 0)
+            else:
+                layer[:, :t.shape[1]] = t.to(layer.dtype)
     else:
         a = attn.attention_decode(bp.attn, cfg, h, cache["k"][slot],
                                   cache["v"][slot], cache["pos"], is_global,
@@ -476,7 +503,41 @@ def decode_state_specs(cfg: ModelConfig) -> dict:
     raise ValueError(cfg.family)
 
 
-@torch.inference_mode()
+def serving(fn):
+    """``fn`` under ``torch.inference_mode``, or under ``torch.no_grad``
+    where a mesh is current: DTensor's view ops (the reshapes of placed
+    activations, a layer of a placed cache, a slice of the logits) raise
+    on inference tensors ("Cannot set version_counter for inference
+    tensor"), and so does a write into a placed cache made there."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with (torch.no_grad() if current_mesh() is not None
+              else torch.inference_mode()):
+            return fn(*args, **kwargs)
+    return run
+
+
+def _last_position(x):
+    """``x[:, -1:, :]``.  On a mesh that cuts the sequence, DTensor would
+    gather the whole residual for it: each rank's last row is gathered
+    instead (one row a block of the sequence) and the last one kept."""
+    if not isinstance(x, DTensor) or not any(p.is_shard(1)
+                                             for p in x.placements):
+        return x[:, -1:, :]
+    mesh, pl = x.device_mesh, x.placements
+    blocks = math.prod(n for n, p in zip(mesh.shape, pl) if p.is_shard(1))
+    rows = DTensor.from_local(
+        x.to_local()[:, -1:, :], mesh, pl, run_check=False,
+        shape=(x.shape[0], blocks, x.shape[2]),
+        stride=(blocks * x.shape[2], x.shape[2], 1))
+    whole = tuple(Replicate() if p.is_shard(1) else p for p in pl)
+    last = rows.redistribute(mesh, whole).to_local()[:, -1:, :]
+    return DTensor.from_local(last, mesh, whole, run_check=False,
+                              shape=(x.shape[0], 1, x.shape[2]),
+                              stride=(x.shape[2], x.shape[2], 1))
+
+
+@serving
 def prefill(model: LM, cfg: ModelConfig, batch, cache: dict):
     """Run the prompt through the model from a fresh state (an incoming
     recurrent state is not read, as in the reference), writing every state
@@ -490,11 +551,11 @@ def prefill(model: LM, cfg: ModelConfig, batch, cache: dict):
                          f"of {cache['k'].shape[2]}")
     x, _ = _STACKS[cfg.family](model, cfg, x, _positions(x), "prefill",
                                cache)
-    logits = _head(model, cfg, x[:, -1:, :], dtype)
+    logits = _head(model, cfg, _last_position(x), dtype)
     return logits[:, 0], dict(cache, pos=cache["pos"] + x.shape[1])
 
 
-@torch.inference_mode()
+@serving
 def decode_step(model: LM, cfg: ModelConfig, tokens, cache: dict):
     """One decoding step at ``cache["pos"]`` (an attention block raises
     past its cache's length).  tokens: [B, 1].  Returns (logits [B, V],

@@ -1148,6 +1148,48 @@ def test_a_backward_on_its_own_thread_recomputes_on_the_mesh(tmp_path,
         _one_rank_against_one_device(arch, tmp_path)
 
 
+def test_c3_a_host_capture_of_a_placed_weight_is_a_copy(tmp_path):
+    """C3 (``ROADMAP.md`` §3): on a one-rank CPU mesh a replicated weight's
+    ``full_tensor().cpu().numpy()`` shares the weight's storage, so the
+    next step, which updates the weight in place, moves the capture too.
+    The CPU rehearsal of ``chip_smoke.py``'s ``lm_dist_multi`` captured
+    its mesh runs' parameters so and then took 3 more steps (one counted,
+    two profiled): the replicated norm weights, 6 steps in, sat ~5.6e-4
+    from one device's after 3.  On the card ``.cpu()`` copies.
+    ``chip_smoke.lm_host_copy`` copies on either device."""
+    import torch.distributed as dist
+
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.inputs import state_shardings
+    from repro_torch.launch.mesh import make_auto_mesh
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    cfg = _port_config("smollm-135m")
+    step = tt.build_train_step(cfg, base_lr=5e-3, warmup=0, total_steps=10)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_auto_mesh((1, 1), ("data", "model"), device_type="cpu")
+        state = tt.place_train_state(tt.init_train_state(tm.init_params(
+            cfg, seed=0, device="cpu")), state_shardings(cfg, mesh))
+        w = state.params["final_norm"]
+        naive = w.full_tensor().detach().cpu().numpy()
+        copy = chip_smoke.lm_host_copy(w)
+        before = copy.copy()
+        with use_mesh(mesh):
+            state, _ = step(state, _pipe(cfg).torch_batch(0, "cpu"))
+        after = state.params["final_norm"].full_tensor().detach().numpy()
+    finally:
+        dist.destroy_process_group()
+    assert not np.array_equal(after, before)
+    np.testing.assert_array_equal(naive, after)
+    np.testing.assert_array_equal(copy, before)
+
+
 def _one_rank_against_one_device(arch: str, tmp_path) -> None:
     import torch.distributed as dist
 

@@ -19,8 +19,12 @@ Held:
   * FLOPs of each family's smoke ``prefill`` and ``decode_step`` under
     ``FlopCounterMode`` equal the ``dot_general`` FLOPs of the reference's
     ``jax.make_jaxpr`` of the same call (a scan body counted once an
-    iteration), and so do the full-width smollm-135m ``decode_32k`` cell's
-    through ``run_cell``;
+    iteration), and the full-width smollm-135m ``decode_32k`` cell's
+    through ``run_cell``, traced on one rank of the placed serving on
+    (16, 16), are 1/256 of them;
+  * qwen3-smoke's prefill and decode cells traced on rank 0 of an 8-rank
+    (2, 2, 2) fake mesh: FLOPs at most 1/4 and a peak below the whole
+    cell's on one fake device;
   * at one rank, a traced mesh step's FLOPs equal a real CPU step's
     ``FlopCounterMode`` count (dense, MoE, rwkv6), and its collectives are
     one-rank sums only (none for the dense step);
@@ -373,34 +377,63 @@ def test_serving_flops_match_the_reference_dots(family):
 
 
 def test_run_cell_decode_32k_at_full_width():
-    """smollm-135m's ``decode_32k`` on (16, 16): the record's keys, its
-    per-rank bytes from the placements, FLOPs equal to the reference's
-    dots at full width (abstract inputs), no collectives."""
+    """smollm-135m's ``decode_32k`` on (16, 16), traced on rank 0 of the
+    placed serving (``"scope": "rank"``): the record's keys, its per-rank
+    argument bytes from the placements, a peak a rank under the card's
+    80 GB and above the arguments, FLOPs a rank 1/256 of the reference's
+    dots at full width (abstract inputs: every product is cut 16 ways over
+    the batch and 16 over "model"), and collectives: the scores' sums over
+    the head dim's blocks (an all-reduce a layer) and the weights' gathers
+    along "data"."""
     rec = dr.run_cell("smollm-135m", "decode_32k", False, verbose=False)
     assert {"arch", "shape", "mesh", "devices", "trace_s", "flops", "scope",
-            "collective_bytes", "collective_ops", "memory",
-            "cell_memory"} <= set(rec)
+            "collective_bytes", "collective_ops", "memory"} <= set(rec)
     assert (rec["mesh"], rec["devices"], rec["scope"]) == ("16x16", 256,
-                                                           "cell")
+                                                           "rank")
     assert set(rec["collective_bytes"]) == set(dr.KINDS)
-    assert not any(rec["collective_bytes"].values())
-    assert not any(rec["collective_ops"].values())
+    assert rec["collective_ops"]["all-reduce"] >= get_config(
+        "smollm-135m").n_layers
+    assert rec["collective_ops"]["all-gather"] > 0
     with dr.fake_world(256):
         mesh = make_production_mesh(device_type="cpu")
         args = dr.argument_bytes(get_config("smollm-135m"),
                                  SHAPES["decode_32k"], mesh)
-    assert rec["memory"]["argument_bytes"] == args["total"]
-    cell_mem = rec["cell_memory"]
-    assert cell_mem["peak_bytes"] >= cell_mem["argument_bytes"] > \
-        rec["memory"]["argument_bytes"] * 200
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == args["total"]
+    assert (mem["params_bytes"], mem["cache_bytes"], mem["batch_bytes"]) \
+        == (args["params"], args["cache"], args["batch"])
+    assert mem["argument_bytes"] < mem["peak_bytes"] < dr.DEVICE_BYTES
 
     jcfg = jget_config("smollm-135m")
     cell = SHAPES["decode_32k"]
     pshapes, _ = jabstract_params(jcfg, dtype=jnp.bfloat16)
     cshapes, _ = jabstract_cache(jcfg, cell.global_batch, cell.seq_len)
     tok = jax.ShapeDtypeStruct((cell.global_batch, 1), jnp.int32)
-    assert rec["flops"] == _dot_flops(jax.make_jaxpr(
+    assert rec["flops"] * 256 == _dot_flops(jax.make_jaxpr(
         lambda p, t, c: jdecode_step(p, jcfg, t, c))(pshapes, tok, cshapes))
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_smoke_serving_cell_traced_per_rank(kind):
+    """qwen3-smoke's serving cell on an 8-rank fake (2, 2, 2) mesh, traced
+    on rank 0 of the placed serving: its FLOPs a rank at most 1/4 of the
+    whole cell's (``_serve_trace``, one fake device), its peak below the
+    whole cell's, its argument bytes the placements', and collectives
+    issued (the whole-cell trace has none)."""
+    cfg = get_smoke_config("qwen3-14b")
+    cell = ShapeCell("smoke", 64, 8, kind)
+    with dr.fake_world(8):
+        mesh = make_auto_mesh((2, 2, 2), ("pod", "data", "model"),
+                              device_type="cpu")
+        rec = dr.lower_prefill_cell(cfg, cell, mesh)
+        args = dr.argument_bytes(cfg, cell, mesh)
+    whole = dr._serve_trace(cfg, cell)
+    assert rec["scope"] == "rank"
+    assert 0 < rec["flops"] * 4 <= whole["flops"]
+    assert rec["memory"]["argument_bytes"] == args["total"]
+    assert 0 < rec["memory"]["peak_bytes"] < whole["memory"]["peak_bytes"]
+    assert sum(rec["collective_ops"].values()) > 0
+    assert not any(whole["collective_ops"].values())
 
 
 # a dense, a MoE and a recurrent step (every family's serving FLOPs are

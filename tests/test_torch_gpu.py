@@ -19,9 +19,12 @@ configs on the card against the same step on the CPU.  The checkpoint
 slice: a train state on the card saved, stepped in place while the write
 is in flight, and restored onto the card and the CPU, bitwise.  The
 distributed training slice: the mesh train step on a one-rank NCCL (1, 1)
-mesh, bitwise the one-device step.
+mesh, bitwise the one-device step.  Partitioned serving: SmolLM-135M at
+full width on bfloat16 weights and caches placed on that mesh, bitwise the
+one-device run.
 """
 
+import contextlib
 import dataclasses
 import re
 
@@ -1271,6 +1274,62 @@ def test_lm_mesh_step_at_world_size_1_is_the_local_step(nccl_mesh, arch,
     for a, b in zip(got, want):
         a = a.full_tensor() if hasattr(a, "full_tensor") else a
         assert a.is_cuda and _same_bits(a, b)
+
+
+def test_lm_placed_serving_at_world_size_1_is_the_local_run(nccl_mesh):
+    """smollm-135m at full width, its bfloat16 weights and caches placed
+    by ``serving_shardings`` on a one-rank NCCL (1, 1) host mesh: a
+    prefill of 4 × 16 tokens and 3 decode steps fed the greedy tokens
+    bitwise the one-device run on the same bfloat16 weights (logits,
+    tokens, caches), and so are ``greedy_generate``'s tokens."""
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.inputs import (
+        batch_shardings,
+        place_cache,
+        place_params,
+        serving_shardings,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm_serving import greedy_generate, greedy_tokens
+    cfg = get_config("smollm-135m")
+    rows, max_len = 4, 24
+    mesh = make_host_mesh()
+    master = tm.init_params(cfg, seed=0, device="cuda")
+    params, caches = serving_shardings(cfg, mesh, rows, max_len)
+    placed = place_params(master, params)
+    local = tm.LM(cfg, "meta")
+    local.load_state_dict({n: w.to(torch.bfloat16) for n, w in
+                           master.state_dict().items()}, assign=True)
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (rows, 16)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, device="cuda")
+
+    def serve(model, cache, batch, scope):
+        out = []
+        with scope():
+            logits, cache = tm.prefill(model, cfg, batch, cache)
+            for _ in range(3):
+                out.append((logits.full_tensor() if hasattr(
+                    logits, "full_tensor") else logits, greedy_tokens(logits)))
+                logits, cache = tm.decode_step(model, cfg, out[-1][1], cache)
+        return out, cache
+
+    batch = {"tokens": batch_shardings(mesh, {"tokens": tokens})[
+        "tokens"].distribute(tokens)}
+    got, got_cache = serve(
+        placed, place_cache(tm.init_decode_state(cfg, rows, max_len), caches),
+        batch, lambda: use_mesh(mesh))
+    want, want_cache = serve(local, tm.init_decode_state(cfg, rows, max_len),
+                             {"tokens": tokens}, contextlib.nullcontext)
+    for (a, ta), (b, tb) in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _same_bits(a, b)
+        assert torch.equal(ta, tb)
+    for name in ("k", "v"):
+        assert _same_bits(got_cache[name].full_tensor(), want_cache[name])
+    with use_mesh(mesh):
+        greedy = greedy_generate(placed, cfg, prompts, 4)
+    np.testing.assert_array_equal(greedy,
+                                  greedy_generate(local, cfg, prompts, 4))
 
 
 @pytest.mark.parametrize("mode", ["sum", "any"])
