@@ -291,8 +291,22 @@ run's tokens equal but for near-ties, rank 0's peak and cache bytes
 beside one card's): smollm-135m at ``LM_CHECK``'s traffic (the cache's
 head dim over "model"), one ``LM_LONG`` prompt (batch 1: its sequence
 over "data") and qwen3-14b at 4 of its 40 layers (its 8 KV heads over
-"model"); with fewer cards a line saying it did not run and why.  Counts set to 0
+"model") and Moonlight at 2 layers and ``LM_MOE``'s traffic (its 4 rows in
+2 blocks over "data", each MoE layer's capacity and first-come positions
+over both; the prefill's dropped assignments a layer, from the summed
+counts against the capacity, beside one card's); with fewer cards a
+line saying it did not run and why.  Counts set to 0
 before the phase and read after: ``lm_dist_launches`` (0, checked).
+``lm_dist_moe_serve``: the MoE family through partitioned serving,
+Moonlight at its published widths and ``LM_MOE``'s 2 layers and traffic,
+on a one-rank NCCL (1, 1) mesh of its own: its bfloat16 weights and
+caches placed by ``serving_shardings``, ``greedy_generate``'s tokens and
+every step's logits bitwise the one-device run's on the same bfloat16
+weights, each prefill's dropped assignments a layer equal, prefill and
+decode-step ms placed against one device, the peak and one profiled
+decode step of each (device ms, idle share, host op events).  Counts
+set to 0 before the phase and read after: ``lm_dist_moe_serve_launches``
+(0, checked: LM serving launches no kernel of the port).
 ``lm_dryrun``: the dry run.  ``lm_dryrun_cli``: ``python -m
 repro_torch.launch.dryrun`` on smollm-135m's ``decode_32k`` on both
 production meshes (256 and 512 fake ranks) exits 0 with two results,
@@ -319,7 +333,9 @@ library time on the int32 main path and its launches in the ``mesh`` and
 the recurrent LM phase (``lm_mixers_launches``; K3's also with its other
 LM launches), in the training phase (``lm_train_launches``), in the
 checkpoint phase (``lm_ckpt_launches``), in the distributed training
-phase (``lm_dist_launches``) and in the dry run (``lm_dryrun_launches``),
+phase (``lm_dist_launches``), in the MoE serving phase
+(``lm_dist_moe_serve_launches``) and in the dry run
+(``lm_dryrun_launches``),
 the
 whole run's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -3029,11 +3045,21 @@ LM_DIST_PARAM_RTOL, LM_DIST_PARAM_ATOL = 2e-3, 2e-4
 # case (arch, depth or None, traffic, rows or None for the traffic's
 # slots) is a teacher-forced run (logits) and a greedy one (tokens);
 # smollm-135m at LM_CHECK's traffic cuts the cache's head dim over
-# "model", one LM_LONG prompt (batch 1) its sequence over "data", and
-# qwen3-14b at 4 of its 40 layers its 8 KV heads over "model"
+# "model", one LM_LONG prompt (batch 1) its sequence over "data",
+# qwen3-14b at 4 of its 40 layers its 8 KV heads over "model", and
+# Moonlight at LM_MOE's 2 layers and traffic its 4 rows into 2 blocks over
+# "data" (each MoE layer's capacity and first-come positions over both
+# blocks' rows; 32 experts a rank)
 LM_DIST_MULTI_SERVE = (("smollm-135m", None, LM_CHECK, None),
                        ("smollm-135m", None, LM_LONG, 1),
-                       ("qwen3-14b", 4, LM_CHECK, None))
+                       ("qwen3-14b", 4, LM_CHECK, None),
+                       (LM_DIST_MOE["arch"], LM_MOE["n_layers"], LM_MOE,
+                        None))
+# the MoE family served on placed weights on the one-rank mesh: Moonlight
+# at its published widths and LM_MOE's depth and traffic (one wave of 4
+# requests, 64-token prompts, 8 new tokens), the prompts lm_moe draws
+LM_MOE_TRAFFIC = {k: LM_MOE[k] for k in ("n_requests", "n_slots",
+                                         "prompt_len", "max_new")}
 
 
 def lm_dist_setup(torch, tm, tt, cfg, dev, t=LM_DIST):
@@ -3288,16 +3314,49 @@ def lm_serve_copy(torch, tm, model, dtype):
     return copy
 
 
-def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC) -> dict:
-    """smollm-135m at full width and depth served through the placed path
-    on the one-rank NCCL (1, 1) mesh (inside ``nccl_world``): its
-    bfloat16 weights and caches placed by ``serving_shardings``, the first
-    wave of ``t`` through ``greedy_generate`` placed and on one device
-    (the same bfloat16 weights), the tokens equal; then each wave greedy
-    step by step (``lm_serve_steps``), every step's logits and tokens
-    bitwise equal, placed and one-device step ms; the placed run's peak;
-    one placed and one one-device decode step profiled (wall and device
-    ms, idle share, host op events)."""
+@contextlib.contextmanager
+def lm_moe_totals(out: list):
+    """Under it, each MoE layer call's summed assignment counts per
+    expert over the whole batch (``moe.first_come``'s ``total``, int32
+    ``[e]``) appended to ``out``, in call order."""
+    from repro_torch.models import moe
+    orig = moe.first_come
+
+    def counted(flat_e, e, blocks=None):
+        res = orig(flat_e, e, blocks)
+        out.append(res[3])
+        return res
+
+    moe.first_come = counted
+    try:
+        yield
+    finally:
+        moe.first_come = orig
+
+
+def lm_moe_dropped(torch, cfg, totals: list, tokens: int) -> list[int]:
+    """The dropped assignments of the first ``cfg.n_layers`` MoE calls of
+    ``totals`` (a prefill's, ``lm_moe_totals``): each expert's summed
+    count over the batch of ``tokens`` tokens beyond the capacity."""
+    from repro_torch.models import moe
+    cap = moe._capacity(cfg, tokens)
+    return [int(torch.clamp(t.to(torch.int64) - cap, min=0).sum())
+            for t in totals[:cfg.n_layers]]
+
+
+def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC, cfg=None,
+                       tag="lm_dist_serve", seed=LM_SEED) -> dict:
+    """``cfg`` (smollm-135m at full width and depth by default) served
+    through the placed path on the one-rank NCCL (1, 1) mesh (inside
+    ``nccl_world``): its bfloat16 weights and caches placed by
+    ``serving_shardings``, the first wave of ``t`` through
+    ``greedy_generate`` placed and on one device (the same bfloat16
+    weights), the tokens equal; then each wave greedy step by step
+    (``lm_serve_steps``), every step's logits and tokens bitwise equal,
+    placed and one-device step ms (a MoE model's: each prefill's dropped
+    assignments a layer, equal); the placed run's peak; one placed and
+    one one-device decode step profiled (wall and device ms, idle share,
+    host op events)."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.distributed import use_mesh
@@ -3309,7 +3368,8 @@ def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC) -> dict:
     )
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import lm_serving as lms
-    cfg = get_config("smollm-135m")
+    from repro_torch.models import moe
+    cfg = get_config("smollm-135m") if cfg is None else cfg
     mesh = make_host_mesh()
     n, max_len = t["n_slots"], t["prompt_len"] + t["max_new"] + 8
     master = tm.init_params(cfg, seed=LM_SEED, device=dev)
@@ -3319,8 +3379,9 @@ def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC) -> dict:
     del master
     torch.cuda.empty_cache()
     prompts = lm_prompts(t["n_requests"], t["prompt_len"], cfg.vocab_size,
-                         LM_SEED)
+                         seed)
     steps = {"placed": [], "local": []}
+    dropped = {"placed": [], "local": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in range(lm_n_waves(t)):
@@ -3329,23 +3390,30 @@ def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC) -> dict:
             with use_mesh(mesh):
                 got = lms.greedy_generate(placed, cfg, slots, t["max_new"])
             want = lms.greedy_generate(local, cfg, slots, t["max_new"])
-            check(np.array_equal(got, want), "lm dist serve: the placed "
+            check(np.array_equal(got, want), f"{tag}: the placed "
                   "greedy_generate's tokens are not the one-device tokens")
-        runs = {tag: lm_serve_steps(torch, m, cfg, slots, max_len,
-                                    t["max_new"] - 1, mesh=ms)
-                for tag, m, ms in (("placed", placed, mesh),
-                                   ("local", local, None))}
+        runs = {}
+        for name, m, ms in (("placed", placed, mesh), ("local", local, None)):
+            totals = []
+            with lm_moe_totals(totals):
+                runs[name] = lm_serve_steps(torch, m, cfg, slots, max_len,
+                                            t["max_new"] - 1, mesh=ms)
+            if cfg.family == "moe":
+                dropped[name].append(lm_moe_dropped(
+                    torch, cfg, totals, n * t["prompt_len"]))
         check(all(lm_bitwise(torch, a, b) for a, b in zip(
-            runs["placed"][1], runs["local"][1])), f"lm dist serve: wave "
+            runs["placed"][1], runs["local"][1])), f"{tag}: wave "
               f"{w}'s placed logits are not bitwise the one-device logits")
-        for tag in steps:
-            steps[tag].append(runs[tag][0])
+        check(dropped["placed"] == dropped["local"], f"{tag}: dropped "
+              f"assignments {dropped}")
+        for name in steps:
+            steps[name].append(runs[name][0])
     peak = torch.cuda.max_memory_allocated()
     placed_cache = runs["placed"][2]
     cur = torch.as_tensor(np.stack(prompts[:n]).astype(np.int32)[:, :1],
                           device=dev)
     profiles = {}
-    for tag, m, ms in (("placed", placed, mesh), ("local", local, None)):
+    for name, m, ms in (("placed", placed, mesh), ("local", local, None)):
         cache = tm.init_decode_state(cfg, n, max_len, dev)
         if ms is not None:
             cache = place_cache(cache, serving_shardings(cfg, mesh, n,
@@ -3356,27 +3424,47 @@ def lm_dist_serve_line(torch, card, dev, t=LM_TRAFFIC) -> dict:
                   else contextlib.nullcontext()):
                 return tm.decode_step(m, cfg, cur, c)
 
-        profiles[tag] = lm_step_profile(torch, lambda c, _, f=step: f(c),
-                                        cache, None)
+        profiles[name] = lm_step_profile(torch, lambda c, _, f=step: f(c),
+                                         cache, None)
     del placed, local
     torch.cuda.empty_cache()
-    decode = {tag: [x for wave in v for x in wave[1:]]
-              for tag, v in steps.items()}
-    return {"lm_dist_serve": cfg.name, "mesh": mesh_sizes(mesh),
+    decode = {k: [x for wave in v for x in wave[1:]]
+              for k, v in steps.items()}
+    full = get_config(cfg.name)
+    return {tag: cfg.name, "mesh": mesh_sizes(mesh),
             "world_size": 1, "backend": "nccl", "traffic": t,
+            "reduced": None if full.n_layers == cfg.n_layers else {
+                "n_layers": [full.n_layers, cfg.n_layers]},
             "weights": "bfloat16, placed by serving_shardings",
             "tokens_equal": True, "logits_bitwise": True,
-            "prefill_ms": {tag: [wave[0] for wave in v]
-                           for tag, v in steps.items()},
-            "decode_ms_median": {tag: statistics.median(v)
-                                 for tag, v in decode.items()},
-            "decode_ms_p90": {tag: float(np.percentile(v, 90))
-                              for tag, v in decode.items()},
+            **({"prefill_dropped_assignments": dropped["placed"],
+                "capacity": moe._capacity(cfg, n * t["prompt_len"]),
+                "assignments": n * t["prompt_len"] * cfg.top_k}
+               if cfg.family == "moe" else {}),
+            "prefill_ms": {k: [wave[0] for wave in v]
+                           for k, v in steps.items()},
+            "decode_ms_median": {k: statistics.median(v)
+                                 for k, v in decode.items()},
+            "decode_ms_p90": {k: float(np.percentile(v, 90))
+                              for k, v in decode.items()},
             "placed_over_local_decode": statistics.median(decode["placed"])
             / statistics.median(decode["local"]),
             "peak_allocated_bytes": peak,
             "placed_cache_bytes": placed_cache,
             "profiles_decode_step": profiles, **card}
+
+
+def lm_dist_moe_serve_line(torch, card, dev) -> dict:
+    """The ``lm_dist_moe_serve`` phase's line: Moonlight at its published
+    widths and ``LM_MOE``'s depth served placed on the one-rank NCCL mesh
+    against one device (``lm_dist_serve_line`` at ``LM_MOE_TRAFFIC``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_DIST_MOE["arch"]),
+                              n_layers=LM_MOE["n_layers"])
+    return lm_dist_serve_line(torch, card, dev, LM_MOE_TRAFFIC, cfg,
+                              "lm_dist_moe_serve", LM_SEED + 4)
 
 
 def lm_dist_launcher_line(card) -> dict:
@@ -3546,9 +3634,11 @@ def lm_dist_multi_serve_rank(torch, mesh, rank: int, out: str,
         del master
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ms, logits, cache_bytes = lm_serve_steps(
-            torch, placed, cfg, prompts, max_len, forced.shape[1],
-            mesh=mesh, forced=forced)
+        totals = []
+        with lm_moe_totals(totals):
+            ms, logits, cache_bytes = lm_serve_steps(
+                torch, placed, cfg, prompts, max_len, forced.shape[1],
+                mesh=mesh, forced=forced)
         with use_mesh(mesh):
             toks = lms.greedy_generate(placed, cfg, prompts,
                                        traffic["max_new"])
@@ -3557,6 +3647,9 @@ def lm_dist_multi_serve_rank(torch, mesh, rank: int, out: str,
             np.savez(f"{out}.serve{j}.npz", toks=toks, ms=np.asarray(ms),
                      peak=np.asarray(peak),
                      cache_bytes=np.asarray(cache_bytes),
+                     dropped=np.asarray(lm_moe_dropped(
+                         torch, cfg, totals, prompts.size)
+                         if cfg.family == "moe" else [], np.int64),
                      logits=torch.stack(logits).double().numpy())
         del placed, logits
         torch.cuda.empty_cache()
@@ -3677,6 +3770,7 @@ def lm_dist_multi_serve_lines(torch, card, serves: list,
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.models import lm_serving as lms
+    from repro_torch.models import moe
     t = LM_DIST_MULTI
     lines = []
     for (arch, n_layers, traffic, rows), got in zip(LM_DIST_MULTI_SERVE,
@@ -3686,9 +3780,11 @@ def lm_dist_multi_serve_lines(torch, card, serves: list,
         model = tm.init_params(cfg, seed=LM_SEED, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms, logits, cache_bytes = lm_serve_steps(
-            torch, model, cfg, prompts, max_len, forced.shape[1],
-            forced=forced)
+        totals = []
+        with lm_moe_totals(totals):
+            ms, logits, cache_bytes = lm_serve_steps(
+                torch, model, cfg, prompts, max_len, forced.shape[1],
+                forced=forced)
         want = lms.greedy_generate(model, cfg, prompts, traffic["max_new"])
         peak = torch.cuda.max_memory_allocated()
         errs = []
@@ -3717,7 +3813,14 @@ def lm_dist_multi_serve_lines(torch, card, serves: list,
             "peak_allocated_bytes": {"rank0": int(got["peak"]),
                                      "one_card": peak},
             "cache_bytes": {"rank0": int(got["cache_bytes"]),
-                            "one_card": cache_bytes}, **card})
+                            "one_card": cache_bytes},
+            **({"prefill_dropped_assignments": {
+                "rank0": got["dropped"].tolist(),
+                "one_card": lm_moe_dropped(torch, cfg, totals,
+                                           prompts.size)},
+                "capacity": moe._capacity(cfg, prompts.size),
+                "assignments": int(prompts.size * cfg.top_k)}
+               if cfg.family == "moe" else {}), **card})
     return lines
 
 
@@ -4625,6 +4728,22 @@ def main() -> int:
         f"bitwise; no kernel of the port launched ({dist_k}), in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # -- MoE serving on placed weights, counted on its own -----------------
+    t0 = time.perf_counter()
+    for _, _, k in kernels.values():
+        k.reset_counts()
+    with nccl_world(torch):
+        log(json.dumps(lm_dist_moe_serve_line(torch, card, dev)))
+    moe_serve_k = {name: k.launches for name, (_, _, k) in kernels.items()}
+    check(not any(moe_serve_k.values()),
+          f"the MoE serving phase launched a kernel of the port: "
+          f"{moe_serve_k}")
+    log(f"lm_dist_moe_serve: {LM_DIST_MOE['arch']} at {LM_MOE['n_layers']} "
+        f"layers served on placed bfloat16 weights and caches on a "
+        f"one-rank NCCL (1, 1) mesh bitwise the one-device run; no kernel "
+        f"of the port launched ({moe_serve_k}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # -- the dry run: fake ranks, held against the real one-rank step -----
     t0 = time.perf_counter()
     for _, _, k in kernels.values():
@@ -4660,6 +4779,7 @@ def main() -> int:
                      "lm_train_launches": train[name],
                      "lm_ckpt_launches": ckpt[name],
                      "lm_dist_launches": dist_k[name],
+                     "lm_dist_moe_serve_launches": moe_serve_k[name],
                      "lm_dryrun_launches": dryrun_k[name]})
         if name == "segment_sum":
             rows[-1].update(lm_serve_launches=lm_serve_k3,

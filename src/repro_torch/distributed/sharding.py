@@ -43,7 +43,9 @@ moves its buffers one mesh dim at a time (reduce-scatters onto the expert
 blocks, gathers back).  ``row_blocks`` tells the MoE layer, which reads
 the whole microbatch (capacity, first-come positions, load balance),
 which row block of it the rank holds and which group holds the others:
-the mesh step sets it on the placed path and on the gather path alike.
+the mesh step sets it on the placed path and on the gather path alike,
+and a MoE model's ``prefill`` and ``decode_step`` on a mesh set it from
+the batch rule (``batch_row_blocks``).
 
 On the gather path (the recurrent families' mesh step) a rank computes
 its block of whole rows of a microbatch on whole weights.
@@ -149,6 +151,37 @@ def row_blocks(blocks: RowBlocks | None):
         yield
     finally:
         _state.row_blocks = prev
+
+
+def batch_group(mesh, axes: tuple):
+    """The process group of the ranks whose mesh coordinates differ only
+    along ``axes`` (this rank's and the other blocks of its rows), from
+    the mesh: one axis's group, or the group of the sub-mesh of several
+    flattened into one; None when no axis cuts the rows.  The flattened
+    sub-mesh is built from the mesh's rank tensor, which a fake mode
+    cannot index: a dry run builds it before (the mesh keeps it)."""
+    if not axes:
+        return None
+    names = list(mesh.mesh_dim_names)
+    axes = tuple(sorted(axes, key=names.index))
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def batch_row_blocks(rows: int, mesh=None) -> RowBlocks | None:
+    """The row blocks of a batch of ``rows`` rows placed by the batch rule
+    on ``mesh`` (the current mesh by default) under the current rules:
+    this rank's block (``block_of`` of the rows' spec) of the blocks the
+    batch axes that divide ``rows`` cut it into, and the group holding
+    the others (``batch_group``); None where no axis cuts the rows (every
+    rank holds the whole batch, as at batch 1)."""
+    mesh = current_mesh() if mesh is None else mesh
+    entry = resolve_spec((rows,), ("batch",))[0]
+    index, count = block_of(entry, mesh)
+    if count == 1:
+        return None
+    return RowBlocks(index, count, batch_group(mesh, spec_axes(entry)))
 
 
 @contextlib.contextmanager

@@ -14,21 +14,27 @@ it reports:
   * per-rank bytes: the arguments' from their placements, the outputs',
     and ``MemTracker``'s peak of the trace (does it fit the card's 80 GB?);
   * FLOPs (``FlopCounterMode``: matmuls, attention, convolutions);
-  * the collective schedule (``CollectiveMode``, ``collective_bytes``).
+  * the collective schedule (``CollectiveMode``, ``collective_bytes``;
+    ``collective_ops_by_name`` counts the ops by their torch names).
 
 A train cell is one mesh step (``training.step``, ``microbatches =
 global_batch // microbatch``, ``remat="full"``) traced on rank 0: every
 rank holds equal blocks (``resolve_spec`` shards a dim only by axes that
 divide it) and runs the same step, so rank 0's numbers are every rank's.
-A dense model's prefill or decode cell (``SERVE_FAMILIES``) is traced the
-same way, ``"scope": "rank"``: ``prefill`` or ``decode_step`` (at
-position 0 of a fresh cache, which it attends whole) under ``use_mesh``
-on rank 0, from its bfloat16 parameters and caches placed as the
-reference places them (``launch.inputs.serving_shardings``) and its
-batch by the batch rule.  The other families' serving cells are traced
-whole on one fake device (``"scope": "cell"``, the whole cell's memory
-under ``"cell_memory"``, no collectives): their per-rank argument bytes
-come from the placements alone.
+A dense or MoE model's prefill or decode cell (``SERVE_FAMILIES``) is
+traced the same way, ``"scope": "rank"``: ``prefill`` or ``decode_step``
+(at position 0 of a fresh cache, which it attends whole) under
+``use_mesh`` on rank 0, from its bfloat16 parameters and caches placed
+as the reference places them (``launch.inputs.serving_shardings``) and
+its batch by the batch rule.  A MoE layer there runs the placed layer
+of the train step on the whole batch's capacity and first-come
+positions: per rank and layer one ``allreduce_`` of the ``[blocks, e]``
+int32 count table (``moe.first_come``), the dispatch buffer's
+reduce-scatters onto the expert blocks and the combine's gathers.  The
+recurrent families' serving cells are traced whole on one fake device
+(``"scope": "cell"``, the whole cell's memory under ``"cell_memory"``,
+no collectives): their per-rank argument bytes come from the placements
+alone.
 
 What has no counterpart: the reference's ``bytes_accessed`` (XLA's cost
 analysis) and ``generated_code_bytes`` (there is no compiled program),
@@ -64,6 +70,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import functools
@@ -87,6 +94,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCHS, SHAPES, cells_for, get_config
 from repro_torch.distributed.sharding import (
+    batch_group,
+    batch_row_blocks,
     mesh_device,
     mesh_sizes,
     spec_axes,
@@ -109,7 +118,6 @@ from repro_torch.models import LM, decode_step, prefill
 from repro_torch.training import init_train_state
 from repro_torch.training.step import (
     TP_FAMILIES,
-    _batch_group,
     build_train_step,
     microbatch_specs,
     place_train_state,
@@ -117,7 +125,7 @@ from repro_torch.training.step import (
 
 DEVICE_BYTES = 80 * 10**9   # one H100's device memory
 # the families whose serving cells are traced on a rank of the mesh
-SERVE_FAMILIES = ("dense",)
+SERVE_FAMILIES = ("dense", "moe")
 
 # the reference's collective kinds (its HLO op names), and the torch ops of
 # each: c10d's in-place ops and the functional collectives DTensor issues
@@ -393,6 +401,8 @@ def _traced(fn, device, held, args_bytes: int) -> dict:
         "flops": flops.get_total_flops(),
         "collective_bytes": {k: v for k, v in coll.items() if k != "ops"},
         "collective_ops": coll["ops"],
+        "collective_ops_by_name": dict(collections.Counter(
+            name for name, _ in comm.records)),
         "memory": {"argument_bytes": args_bytes,
                    "output_bytes": _local_bytes(out),
                    "temp_bytes": peak - args_bytes,
@@ -424,7 +434,7 @@ def lower_train_cell(cfg, cell, mesh, rules=None) -> dict:
     # tensor, which a fake mode cannot index: build it before
     with use_mesh(mesh, rules):
         axes = spec_axes(microbatch_specs(batch_abs, micro)["tokens"][0])
-    _batch_group(mesh, axes)
+    batch_group(mesh, axes)
     dev = mesh_device(mesh)
     with FakeTensorMode():
         model = LM(cfg, dev)
@@ -482,8 +492,8 @@ def _serve_trace(cfg, cell) -> dict:
 
 
 def _lower_serve_cell(cfg, cell, mesh, rules=None) -> dict:
-    """A serving cell: a dense model's traced on this rank of ``mesh``
-    (``_lower_placed_serve_cell``); another family's with per-rank
+    """A serving cell: a dense or MoE model's traced on this rank of
+    ``mesh`` (``_lower_placed_serve_cell``); another family's with per-rank
     argument bytes from the placements on ``mesh`` and the FLOPs and
     memory of the whole cell on one fake device (``_serve_trace``), under
     ``"cell_memory"``, with ``"scope": "cell"``."""
@@ -504,12 +514,20 @@ def _lower_serve_cell(cfg, cell, mesh, rules=None) -> dict:
 
 def _lower_placed_serve_cell(cfg, cell, mesh, rules=None) -> dict:
     """``prefill`` (a prefill cell) or ``decode_step`` (a decode cell, at
-    position 0 of a fresh cache) of a dense model traced on this rank of
-    ``mesh`` under ``use_mesh(mesh, rules)``: its bfloat16 parameters and
-    caches placed by ``serving_shardings``, its batch by
-    ``batch_shardings``, each rank holding its blocks.  The per-rank
-    memory, FLOPs and collectives of the cell, ``"scope": "rank"``."""
+    position 0 of a fresh cache) of a dense or MoE model traced on this
+    rank of ``mesh`` under ``use_mesh(mesh, rules)``: its bfloat16
+    parameters and caches placed by ``serving_shardings``, its batch by
+    ``batch_shardings``, each rank holding its blocks.  A MoE model's
+    layers read the whole batch (the row blocks ``prefill`` and
+    ``decode_step`` set): one ``allreduce_`` of the ``[blocks, e]`` int32
+    count table a layer where the batch axes cut the rows, whose group
+    (a flattened sub-mesh) is built here, before the fake mode.  The
+    per-rank memory, FLOPs and collectives of the cell,
+    ``"scope": "rank"``."""
     args = argument_bytes(cfg, cell, mesh, rules)
+    if cfg.family == "moe":
+        with use_mesh(mesh, rules):
+            batch_row_blocks(cell.global_batch)
     pshard, cshard = serving_shardings(cfg, mesh, cell.global_batch,
                                        cell.seq_len, rules)
     batch_abs = input_specs(cfg, cell)
@@ -618,7 +636,7 @@ def main():
                 print(f"[dryrun] skip {arch} × {shape} (long_500k is for "
                       f"sub-quadratic archs only)")
                 continue
-            # a train or dense serving cell's meshes are two traces;
+            # a train or placed serving cell's meshes are two traces;
             # another serving cell's meshes share one (``_serve_trace``),
             # so they run together
             if SHAPES[shape].kind == "train" \

@@ -10,7 +10,7 @@ tokens come back to the host in one copy.  Neither loop runs the decode
 step whose logits the reference computes after the last token and never
 reads, so a wave runs one step fewer; the tokens are the same.
 
-``greedy_generate`` also serves a dense model placed on a mesh
+``greedy_generate`` also serves a dense or MoE model placed on a mesh
 (``launch.inputs.place_params``), called on every rank under
 ``use_mesh``: it places the prompt by the batch rule and its fresh caches
 by ``decode_state_specs`` (``launch.inputs.place_cache``), and takes the

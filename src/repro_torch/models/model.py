@@ -32,9 +32,9 @@ that placement (each block's attention and MLP or MoE outputs are put in
 it and summed into it), and the layers compute on each rank's blocks
 (``models.layers``, ``models.moe``).
 
-So do ``prefill`` and ``decode_step`` of a dense model under ``use_mesh``,
-as GSPMD partitions the reference's serving: on its placed weights
-(``launch.inputs.place_params``) and on KV caches placed by
+So do ``prefill`` and ``decode_step`` of a dense or MoE model under
+``use_mesh``, as GSPMD partitions the reference's serving: on its placed
+weights (``launch.inputs.place_params``) and on KV caches placed by
 ``decode_state_specs`` (``launch.inputs.place_cache``), whose batch takes
 the data-parallel axes and whose KV heads, head dim or sequence takes
 "model" (the sequence takes the data-parallel axes at batch 1).  Every
@@ -46,7 +46,13 @@ row from the rank that holds it (``_last_position``); a decode step
 writes the new token's k and v into the block that holds ``pos`` and
 scores each rank's block (``models.attention._decode_placed``).  The
 logits come back cut over the vocabulary (``lm_serving.greedy_tokens``
-takes the greedy token from the blocks).  On a mesh these run under
+takes the greedy token from the blocks).  A MoE block's attention is the
+dense block's, and its MoE layer the placed layer of the mesh train step
+(``models.moe._placed_moe``): these calls set the row blocks of the batch
+(``_serving_row_blocks``), so that the capacity and the first-come
+positions are the whole batch's (``b·s`` tokens in a prefill, ``b`` in a
+decode step, in (row, position) order); at batch 1 no axis cuts the
+rows and no count table is exchanged.  On a mesh these run under
 ``torch.no_grad`` in place of ``torch.inference_mode`` (``serving``):
 DTensor's view ops, and writes into a placed cache, raise on inference
 tensors.
@@ -54,6 +60,7 @@ tensors.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -67,6 +74,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.distributed.sharding import (
+    batch_row_blocks,
     current_mesh,
     current_row_blocks,
     current_rules,
@@ -517,6 +525,20 @@ def serving(fn):
     return run
 
 
+def _serving_row_blocks(cfg: ModelConfig, rows: int):
+    """Where a mesh is current and the model is a MoE model: the row
+    blocks of its batch of ``rows`` rows (``sharding.batch_row_blocks``:
+    the batch rule that places the residual stream's rows), so that each
+    MoE layer's capacity and first-come positions are the whole batch's,
+    as the reference's ``moe_apply`` reads the global ``[B, S, D]``.  Set
+    here, at the entry point, as the mesh train step sets them: every
+    rank calls it, and the batch group is built once, outside the layers.
+    A no-op otherwise."""
+    if cfg.family != "moe" or current_mesh() is None:
+        return contextlib.nullcontext()
+    return row_blocks(batch_row_blocks(rows))
+
+
 def _last_position(x):
     """``x[:, -1:, :]``.  On a mesh that cuts the sequence, DTensor would
     gather the whole residual for it: each rank's last row is gathered
@@ -549,8 +571,9 @@ def prefill(model: LM, cfg: ModelConfig, batch, cache: dict):
     if "k" in cache and x.shape[1] > cache["k"].shape[2]:
         raise ValueError(f"prefill of {x.shape[1]} positions into a cache "
                          f"of {cache['k'].shape[2]}")
-    x, _ = _STACKS[cfg.family](model, cfg, x, _positions(x), "prefill",
-                               cache)
+    with _serving_row_blocks(cfg, x.shape[0]):
+        x, _ = _STACKS[cfg.family](model, cfg, x, _positions(x), "prefill",
+                                   cache)
     logits = _head(model, cfg, _last_position(x), dtype)
     return logits[:, 0], dict(cache, pos=cache["pos"] + x.shape[1])
 
@@ -562,6 +585,7 @@ def decode_step(model: LM, cfg: ModelConfig, tokens, cache: dict):
     cache)."""
     dtype = cfg.compute_dtype
     x = _scale_embeds(cfg, embed_apply(model.embed, tokens, dtype), dtype)
-    x, _ = _STACKS[cfg.family](model, cfg, x, None, "decode", cache)
+    with _serving_row_blocks(cfg, x.shape[0]):
+        x, _ = _STACKS[cfg.family](model, cfg, x, None, "decode", cache)
     logits = _head(model, cfg, x, dtype)
     return logits[:, 0], dict(cache, pos=cache["pos"] + 1)

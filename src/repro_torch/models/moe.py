@@ -13,8 +13,9 @@ On a mesh the layer reads the whole microbatch: its capacity, first-come
 positions over the microbatch in row order and aux values are the whole
 microbatch's, whichever row block of it a rank holds
 (``distributed.sharding.row_blocks``; one exchange of per-expert counts
-a layer).  The mesh train step on placed weights hands it a DTensor
-residual stream (``_placed_moe``): the experts stay cut along their
+a layer).  The mesh train step on placed weights, and a placed model's
+``prefill`` and ``decode_step`` on a mesh, hand it a DTensor residual
+stream (``_placed_moe``): the experts stay cut along their
 expert dim, and the tokens move to the ranks holding their experts'
 buffer blocks and back at the reference's ``shard()`` points.  On the
 gather path each rank runs the experts on whole weights over its own
@@ -27,12 +28,15 @@ launches the segmented-sum kernel K3.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import (
+    block_start,
     current_row_blocks,
     expert_weight_use,
     local_apply,
@@ -244,7 +248,15 @@ def _placed_moe(p: MoE, cfg: ModelConfig, x, dtype):
     """``moe_apply`` of a microbatch whose residual stream ``x`` [B, S, D]
     is a DTensor (its rows cut over the batch axes that divide them, its
     sequence over "model"), on the placed weights, at the reference's
-    ``shard()`` points:
+    ``shard()`` points.  The mesh train step calls it on each microbatch,
+    and a MoE model's ``prefill`` (the sequence over "model") and
+    ``decode_step`` (``S = 1``) on a mesh on the served batch; each sets
+    the row blocks of the rows it hands in (``sharding.row_blocks``: the
+    step from the microbatch's spec, serving from the batch rule,
+    ``sharding.batch_row_blocks``), which must name the blocks that
+    ``x``'s placements cut its rows into, or it raises ``ValueError``.
+    In serving the aux values are not read: they stay this rank's
+    partial sums, and no collective is issued for them.
 
       * tokens: ``x`` gathered along "model" (``("batch", None, None)``),
         so that every rank of a row block holds its rows whole and in the
@@ -301,6 +313,7 @@ def _placed_moe(p: MoE, cfg: ModelConfig, x, dtype):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     blocks = current_row_blocks()
+    _check_row_blocks(x, blocks)
     cap = _capacity(cfg, b * s)
     # this rank's rows whole, and their block of d
     rows = tuple(pl.is_shard(0) for pl in x.placements)
@@ -358,6 +371,26 @@ def _placed_moe(p: MoE, cfg: ModelConfig, x, dtype):
         "load_balance": load_balance, "router_z": router_z,
         "dropped_frac": replicated_like(
             _dropped_frac(total, cap, b * s * k), x)}
+
+
+def _check_row_blocks(x, blocks) -> None:
+    """Raises ``ValueError`` unless the row blocks ``blocks`` name the
+    blocks that the residual ``x``'s placements cut its rows into, and
+    this rank's among them (None where no mesh dim cuts them).  Without
+    them each row block would number its assignments from 0, and the
+    ranks' kept assignments would land in the same slots of the buffer,
+    whose partial sums over the row blocks would add their tokens."""
+    mesh = x.device_mesh
+    count = math.prod(n for n, pl in zip(mesh.shape, x.placements)
+                      if pl.is_shard(0))
+    index = block_start(x, 0) * count // x.shape[0]
+    have = (0, 1) if blocks is None else (blocks.index, blocks.count)
+    if have != (index, count):
+        raise ValueError(
+            f"the MoE layer's rows are row block {index} of {count} "
+            f"({x.placements} on {mesh.mesh_dim_names}), the row blocks "
+            f"set say {blocks}: set sharding.row_blocks (the mesh step "
+            f"and a mesh's prefill and decode_step do)")
 
 
 def _expert_placements(buf, wi, wo) -> tuple:

@@ -66,6 +66,7 @@ from repro_torch.distributed.compression import ef_int8_roundtrip
 from repro_torch.distributed.sharding import (
     NamedSharding,
     RowBlocks,
+    batch_group,
     block_of,
     current_mesh,
     current_rules,
@@ -89,6 +90,8 @@ from repro_torch.training.optimizer import (
 
 # the families whose mesh step computes on the placed weights
 TP_FAMILIES = ("dense", "moe")
+# (moved to ``distributed.sharding``; the old name stays for its callers)
+_batch_group = batch_group
 
 
 @dataclasses.dataclass
@@ -252,14 +255,14 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
         if cfg.family in TP_FAMILIES:
             # the data-parallel axes' flattened sub-mesh: DTensor gathers a
             # weight along them in one collective
-            _batch_group(mesh, tuple(a for a in mesh.mesh_dim_names if a in
-                                     spec_axes(current_rules()["batch"])))
-            with row_blocks(RowBlocks(index, count, _batch_group(mesh, axes))
+            batch_group(mesh, tuple(a for a in mesh.mesh_dim_names if a in
+                                    spec_axes(current_rules()["batch"])))
+            with row_blocks(RowBlocks(index, count, batch_group(mesh, axes))
                             if count > 1 else None):
                 grads, loss_sum, metrics = placed_grads(state.model, batch,
                                                         specs, mesh)
             return update(state, grads, loss_sum, metrics, state.shardings)
-        group = _batch_group(mesh, axes)
+        group = batch_group(mesh, axes)
         with torch.no_grad():       # each weight gathered once
             full = {n: p.full_tensor() for n, p in state.params.items()}
         compute = LM(cfg, "meta")
@@ -306,20 +309,6 @@ def microbatch_specs(batch: dict, microbatches: int) -> dict[str, tuple]:
     rows = next(iter(batch.values())).shape[0] // microbatches
     spec = resolve_spec((rows,), ("batch",))
     return {k: spec + (None,) * (v.dim() - 1) for k, v in batch.items()}
-
-
-def _batch_group(mesh, axes: tuple):
-    """The process group of the ranks whose mesh coordinates differ only
-    along ``axes`` (this rank's and the other blocks of its rows), from
-    the mesh: one axis's group, or the group of the sub-mesh of several
-    flattened into one; None when no axis cuts the rows."""
-    if not axes:
-        return None
-    names = list(mesh.mesh_dim_names)
-    axes = tuple(sorted(axes, key=names.index))
-    if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    return mesh[axes]._flatten().get_group()
 
 
 def param_shardings(model: LM, tree: dict) -> dict[str, NamedSharding]:

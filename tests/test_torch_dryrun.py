@@ -436,6 +436,34 @@ def test_smoke_serving_cell_traced_per_rank(kind):
     assert not any(whole["collective_ops"].values())
 
 
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x22b"])
+def test_moe_smoke_serving_cell_traced_per_rank(arch, kind):
+    """A MoE smoke config's serving cell (8 rows, 4 row blocks) on an
+    8-rank fake (2, 2, 2) mesh, traced on rank 0 of the placed serving,
+    held as the dense one above, and its collectives: one ``allreduce_``
+    of the ``[blocks, e]`` int32 count table a MoE layer (its only
+    ``allreduce_``), and the dispatch's reduce-scatters and the
+    combine's gathers."""
+    cfg = get_smoke_config(arch)
+    cell = ShapeCell("smoke", 64, 8, kind)
+    with dr.fake_world(8):
+        mesh = make_auto_mesh((2, 2, 2), ("pod", "data", "model"),
+                              device_type="cpu")
+        rec = dr.lower_prefill_cell(cfg, cell, mesh)
+        args = dr.argument_bytes(cfg, cell, mesh)
+    whole = dr._serve_trace(cfg, cell)
+    assert rec["scope"] == "rank"
+    assert 0 < rec["flops"] * 4 <= whole["flops"]
+    assert rec["memory"]["argument_bytes"] == args["total"]
+    assert 0 < rec["memory"]["peak_bytes"] < whole["memory"]["peak_bytes"]
+    by_name = rec["collective_ops_by_name"]
+    assert by_name["allreduce_"] == cfg.n_layers
+    assert by_name["reduce_scatter_tensor"] >= cfg.n_layers
+    assert rec["collective_ops"]["all-gather"] >= 2 * cfg.n_layers
+    assert not any(whole["collective_ops"].values())
+
+
 # a dense, a MoE and a recurrent step (every family's serving FLOPs are
 # held above)
 @pytest.mark.parametrize("family", ["dense", "moe", "rwkv6"])

@@ -1282,6 +1282,19 @@ def test_lm_placed_serving_at_world_size_1_is_the_local_run(nccl_mesh):
     prefill of 4 × 16 tokens and 3 decode steps fed the greedy tokens
     bitwise the one-device run on the same bfloat16 weights (logits,
     tokens, caches), and so are ``greedy_generate``'s tokens."""
+    _placed_serving_is_the_local_run(get_config("smollm-135m"))
+
+
+def test_lm_placed_moe_serving_at_world_size_1_is_the_local_run(nccl_mesh):
+    """The same for Moonlight-16B-A3B at its published widths and 2 of
+    its 48 layers: the placed MoE layer (64 experts, top 6, the shared
+    expert) on the one-rank mesh, whose rows no batch axis cuts, bitwise
+    the one-device ``moe_apply``."""
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=2)
+    _placed_serving_is_the_local_run(cfg)
+
+
+def _placed_serving_is_the_local_run(cfg) -> None:
     from repro_torch.distributed import use_mesh
     from repro_torch.launch.inputs import (
         batch_shardings,
@@ -1291,7 +1304,6 @@ def test_lm_placed_serving_at_world_size_1_is_the_local_run(nccl_mesh):
     )
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.lm_serving import greedy_generate, greedy_tokens
-    cfg = get_config("smollm-135m")
     rows, max_len = 4, 24
     mesh = make_host_mesh()
     master = tm.init_params(cfg, seed=0, device="cuda")
